@@ -1,0 +1,43 @@
+"""State carried across from the JAX package.
+
+``from_numpy`` turns the JAX package's ``QPData`` and ``NSOp`` (handed
+over with numpy leaves — the port never imports the JAX package) into the
+port's tensors on a given device, so one prepared operator can feed both
+packages.  The JAX fused-kernel pivot layout [R, Mi, phi, B3, GW]
+(``prep_pivots_grouped``: group f' occupies lanes [G f', G f' + B3) of
+each GW = phi*G row, pad lanes zero) is undone back to the flat
+[R, Mi, bs, bs] layout, bs = B3*phi with row index b3*phi + f.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .assemble import QPData
+from .nullspace import NSOp
+
+
+def flat_pivots(d: np.ndarray) -> np.ndarray:
+    """[R, Mi, phi, B3, GW] grouped pivots -> flat [R, Mi, bs, bs]."""
+    R, Mi, phi, B3, GW = d.shape
+    group = GW // phi
+    d = d.reshape(R, Mi, phi, B3, phi, group)[..., :B3]   # [.., f, b3, f', b3']
+    return np.ascontiguousarray(
+        d.transpose(0, 1, 3, 2, 5, 4)).reshape(R, Mi, B3 * phi, B3 * phi)
+
+
+def from_numpy(data, op, *, device="cpu"):
+    """(QPData, NSOp) on ``device`` from objects carrying the JAX
+    package's field names with numpy (or array-like) leaves.  Extra
+    fields of the source (the dense-mode ``Kinvs``) are ignored."""
+    data_t = QPData(**{
+        f.name: (None if getattr(data, f.name, None) is None
+                 else np.asarray(getattr(data, f.name)))
+        for f in dataclasses.fields(QPData)}).to(device)
+    leaves = {k: np.asarray(getattr(op, k)) for k in NSOp._fields}
+    if leaves["Dinvs"].ndim == 5:
+        leaves["Dinvs"] = flat_pivots(leaves["Dinvs"])
+    return data_t, NSOp(**{k: torch.as_tensor(v, device=device)
+                           for k, v in leaves.items()})
