@@ -183,6 +183,43 @@ def nsfused_chunk_reference(ops: FusedOperands, rho_idx: int, sigma: float,
 
 nsfused_chunk_reference.cuda_calls = 0
 
+#: the parts of a chunk's state (w, z, y) that the kernel is judged on
+STATE_PARTS = ("w", "z_box", "z_pair", "y_box", "y_pair")
+#: the kernel's float32 chunk against a float64 twin of the same chunk:
+#: on each state part, its worst error over the rungs (each relative to
+#: the part's own scale) is at most TWIN_GAP_FACTOR times the float32
+#: twin's worst error there, plus TWIN_GAP_FLOOR.  The rung systems have
+#: condition numbers up to ~1/rho_min, so float32 round-off alone moves a
+#: 50-iteration chunk by up to ~1e-3 of a part's scale, and by a factor
+#: that varies from rung to rung between two float32 implementations
+#: (which is why the worst over the rungs is compared, not each rung)
+TWIN_GAP_FACTOR = 3.0
+TWIN_GAP_FLOOR = 1e-5
+
+
+def state_errors(a, b) -> list[float]:
+    """max |a - b| of two chunk results (w, z, y), per part of
+    STATE_PARTS, each relative to that part's own scale max |b| (the duals
+    y are orders of magnitude below the primal state, so one shared scale
+    would hide an error in them)."""
+    out = []
+    for x, ref in zip((a[0], *a[1], *a[2]), (b[0], *b[1], *b[2])):
+        ref = ref.double()
+        err = float((x.double() - ref).abs().max())
+        out.append(err / max(float(ref.abs().max()), 1e-30))
+    return out
+
+
+def twin_gap_use(kernel_vs_f64, f32_vs_f64) -> dict[str, float]:
+    """Per state part, the share of its tolerance the kernel uses: its
+    worst error against the float64 twin over the rungs, over
+    TWIN_GAP_FACTOR times the float32 twin's worst error plus
+    TWIN_GAP_FLOOR.  Arguments: one state_errors list per rung."""
+    return {name: max(k[i] for k in kernel_vs_f64)
+            / (TWIN_GAP_FACTOR * max(t[i] for t in f32_vs_f64)
+               + TWIN_GAP_FLOOR)
+            for i, name in enumerate(STATE_PARTS)}
+
 
 def _nvcc() -> str:
     found = shutil.which("nvcc")

@@ -7,8 +7,8 @@ block-tridiagonal banded KKT (qp/nullspace.py).  The recipe:
   2. host-f64 KKT rung inventory (prepare_ns_np), rounded once to the
      solver dtype,
   3. phased rho schedule (feasibility -> polish -> restore) on the
-     device; on CUDA every check_every chunk is one launch of the fused
-     kernel (ops/nsfused).
+     device the data lives on; every check_every chunk goes through
+     ops/nsfused.nsfused_chunk, one launch of the fused kernel on CUDA.
 
 This port covers the cold solve (cold_prep="host", one outer iteration,
 automatic polish rounds).  The modes that need code not yet ported raise
@@ -40,8 +40,8 @@ def polish_rounds_for_swarm(qn: int) -> int:
 
 def escalation_phases(base_phases) -> tuple:
     """Warm polish-extension schedule derived from ``base_phases``:
-    same kernel routing, ESCALATION_BUDGETS, warm_start='x0' (callers
-    set data.x0 to the solution being escalated)."""
+    ESCALATION_BUDGETS, warm_start='x0' (callers set data.x0 to the
+    solution being escalated)."""
     b = dataclasses.replace(base_phases[1], warm_start="x0")
     return tuple(
         dataclasses.replace(b, max_iter=mi, rho_lo=lo)
@@ -61,18 +61,13 @@ def production_settings(max_iter: int = 1500,
 
 def production_phases(budgets: tuple[int, int, int] = PRODUCTION_BUDGETS,
                       base: nullspace.NSSettings | None = None,
-                      device: torch.device | str | None = None,
                       ) -> tuple[nullspace.NSSettings, ...]:
     """Phased rho schedule: feasibility-first (low rungs fenced out) ->
-    objective polish (unfenced) -> feasibility restore (fenced high),
-    routed by select_kkt_path for the device the data lives on (None =
-    the CPU)."""
+    objective polish (unfenced) -> feasibility restore (fenced high)."""
     b = base if base is not None else production_settings()
-    return select_kkt_path(
-        (dataclasses.replace(b, max_iter=budgets[0], rho_lo=1e-3),
-         dataclasses.replace(b, max_iter=budgets[1]),
-         dataclasses.replace(b, max_iter=budgets[2], rho_lo=1e-2)),
-        device if device is not None else "cpu")
+    return (dataclasses.replace(b, max_iter=budgets[0], rho_lo=1e-3),
+            dataclasses.replace(b, max_iter=budgets[1]),
+            dataclasses.replace(b, max_iter=budgets[2], rho_lo=1e-2))
 
 
 def rescue_box_batches(plan, mission, param, ctrl, tol: float = 1e-3):
@@ -81,15 +76,6 @@ def rescue_box_batches(plan, mission, param, ctrl, tol: float = 1e-3):
     raise NotImplementedError(
         "rescue_box_batches (the f64 IPM box rescue) is not ported "
         "(ROADMAP queue 1, item 9)")
-
-
-def select_kkt_path(phases, device):
-    """KKT-apply path by device, in place of the JAX package's backend
-    test: CUDA data runs every chunk through the fused kernel (its flat
-    pivots and per-knot off-diagonal blocks take every swarm the host
-    prep can produce), any other device the plain torch iteration."""
-    fused = torch.device(device).type == "cuda"
-    return tuple(dataclasses.replace(p, fused_chunk=fused) for p in phases)
 
 
 def assemble_joint(plan: PlanResult, mission: Mission, param: Param,
@@ -149,8 +135,8 @@ def solve_trajectories(plan: PlanResult, mission: Mission, param: Param,
             "(ROADMAP queue 1, item 9)")
     if polish_rounds is None:
         polish_rounds = polish_rounds_for_swarm(mission.qn)
-    phases = (production_phases(device=device) if phases is None
-              else select_kkt_path(phases, device))
+    if phases is None:
+        phases = production_phases()
     n, M, N = param.n, plan.M, mission.qn
 
     data, _ = assemble_joint(plan, mission, param)
@@ -160,8 +146,10 @@ def solve_trajectories(plan: PlanResult, mission: Mission, param: Param,
     data_dev = data.to(device)
     op_dev = op.to(device)          # pivot inventory uploaded ONCE
 
+    t0 = time.perf_counter()
     x, info = _run_schedule(data_dev, op_dev, phases)
     ctrl = convert.x_to_ctrl(x.double().cpu().numpy(), M, n)
+    solve_s = time.perf_counter() - t0
 
     polish_s = 0.0
     if polish_rounds:
@@ -189,6 +177,7 @@ def solve_trajectories(plan: PlanResult, mission: Mission, param: Param,
         "device": str(device),
         "solved": np.ones(N, dtype=bool),
         "prep_s": prep_s,
+        "solve_s": solve_s,
         "polish_rounds": polish_rounds,
         "polish_s": polish_s,
         "replan_rounds": 0,

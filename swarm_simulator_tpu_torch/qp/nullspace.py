@@ -68,10 +68,6 @@ class NSSettings:
     # constraint tightening (meters): keeps the TRUE constraints
     # satisfied while the first-order solve's violation stays below it
     tighten: float = 0.0
-    # run each check_every chunk through the fused kernel
-    # (ops/nsfused.nsfused_chunk; CUDA tensors only) instead of the
-    # plain torch iteration
-    fused_chunk: bool = False
 
 
 class NSConstr(NamedTuple):
@@ -458,6 +454,26 @@ def _bounds(data: QPData, tighten: float = 0.0) -> tuple[NSConstr, NSConstr]:
     return l, u
 
 
+def cold_chunk_inputs(data: QPData, op: NSOp, s: NSSettings):
+    """(fused-chunk operands, cold state (w, z, y)): the operands every
+    chunk of a solve shares (ops/nsfused.build_operands of the pair
+    operator and the tightened bounds) and the state the schedule loop
+    starts from without ``init``: w by ``s.warm_start``, z = clip(A x),
+    y = 0."""
+    B, K3, _ = data.lb.shape
+    phi = op.F0.shape[1]
+    pop = _pair_op(data)
+    l, u = _bounds(data, s.tighten)
+    if s.warm_start == "x0":
+        w = _w_from_x(op, data.x0, phi)
+    else:
+        w = torch.zeros((B, K3, op.N.shape[1]), dtype=data.lb.dtype,
+                        device=data.lb.device)
+    z = _clip(_A_x(_x_of(op, w), pop), l, u)
+    y = NSConstr(*(torch.zeros_like(v) for v in z))
+    return nsfused.build_operands(data, op, pop, l, u), (w, z, y)
+
+
 def _iterate_ns(data: QPData, op: NSOp, s: NSSettings, schedule,
                 init=None, return_state: bool = False):
     """Phased ADMM loop in knot-state coordinates.
@@ -466,16 +482,14 @@ def _iterate_ns(data: QPData, op: NSOp, s: NSSettings, schedule,
     phases run back to back, each a loop of check_every chunks that stops
     at its budget or when the residuals converge.  init: (w, z, y,
     rho_idx) from a previous call with return_state=True."""
-    B, K3, D = data.lb.shape
     dt_ = data.lb.dtype
     dev = data.lb.device
-    M = op.F0.shape[0]
-    phi = op.F0.shape[1]
-    nw = op.N.shape[1]
     npf = {torch.float32: np.float32, torch.float64: np.float64}[dt_]
 
-    pop = _pair_op(data)
-    l, u = _bounds(data, s.tighten)
+    # every chunk goes through the kernel's wrapper, which routes by the
+    # tensors' device (the kernel on CUDA, the plain twin on the CPU)
+    ops_f, cold = cold_chunk_inputs(data, op, s)
+    pop, l, u = ops_f.pop, ops_f.l, ops_f.u
 
     eps_abs = torch.tensor(s.eps_abs, dtype=dt_, device=dev)
     eps_dual = torch.tensor(
@@ -491,20 +505,11 @@ def _iterate_ns(data: QPData, op: NSOp, s: NSSettings, schedule,
         return int(np.argmin(np.abs(lad_log - np.log(npf(rho)))))
 
     if init is None:
-        if s.warm_start == "x0":
-            w = _w_from_x(op, data.x0, phi)
-        else:
-            w = torch.zeros((B, K3, nw), dtype=dt_, device=dev)
-        z = _clip(_A_x(_x_of(op, w), pop), l, u)
-        y = NSConstr(*(torch.zeros_like(v) for v in z))
+        w, z, y = cold
         rho_idx = nearest_rung(s.rho)
     else:
         w, z, y, rho_idx = init
         z = _clip(z, l, u)
-
-    ops_f = nsfused.build_operands(data, op, pop, l, u)
-    chunk = (nsfused.nsfused_chunk if s.fused_chunk
-             else nsfused.nsfused_chunk_reference)
 
     def residuals(w, z, y):
         x = _x_of(op, w)
@@ -545,8 +550,8 @@ def _iterate_ns(data: QPData, op: NSOp, s: NSSettings, schedule,
     def run_phase(w, z, y, rho_idx, lo, hi, max_it):
         it, done = 0, False
         while it < max_it and not done:
-            w, z, y = chunk(ops_f, rho_idx, s.sigma, s.alpha, w, z, y,
-                            n_inner=s.check_every)
+            w, z, y = nsfused.nsfused_chunk(ops_f, rho_idx, s.sigma, s.alpha,
+                                            w, z, y, n_inner=s.check_every)
             r_prim, r_dual, n_prim, n_dual = residuals(w, z, y)
             ok = ((r_prim <= eps_abs + eps_rel * n_prim)
                   & (r_dual <= eps_dual + eps_rel * n_dual))

@@ -1,0 +1,75 @@
+"""Profile the phased solve of the 64-agent forest on one CUDA card.
+
+    python3 -m swarm_simulator_tpu_torch.tools.profile_solve [--seed 0]
+
+Run from the repository root (it takes the problem from chip_smoke.py).
+Builds the problem and the host prep once, runs the production phased
+solve once to warm up, then once under torch.profiler, and prints: the
+solve's wall time (host clock, ending in a device sync), the device time
+the profiler saw, the device-busy share (device time / wall time; one
+stream, so kernels do not overlap), the fused chunk kernel's share of
+the device time, and the table of the costliest device entries.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_solve: needs a CUDA card", file=sys.stderr)
+        return 2
+    import chip_smoke
+    from swarm_simulator_tpu_torch.qp import joint, nullspace as ns
+
+    dev = torch.device("cuda", 0)
+    plan, mission, param, _ = chip_smoke.build_problem(args.seed)
+    phases = joint.production_phases()
+    s0, it_k, lo_k, hi_k = ns.schedule_arrays(phases)
+    data, _ = joint.assemble_joint(plan, mission, param)
+    op = ns.prepare_ns_np(data, phases[0])
+    d, o = data.to(dev), op.to(dev)
+
+    def solve():
+        t0 = time.perf_counter()
+        _, info = ns.solve_ns_schedule(d, o, s0, it_k, lo_k, hi_k)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, int(info.iters)
+
+    warm_s, iters = solve()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_s, iters_p = solve()
+    avg = prof.key_averages()
+    # device-side entries only (kernels, copies): an operator's row repeats
+    # the device time of the kernels it launched
+    on_dev = [e for e in avg if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
+    dev_us = sum(e.self_device_time_total for e in on_dev)
+    k1_us = sum(e.self_device_time_total for e in on_dev
+                if "nsfused" in e.key)
+    print(f"solve: warm-up {warm_s:.3f} s ({iters} iters), profiled "
+          f"{wall_s:.3f} s ({iters_p} iters)")
+    if dev_us <= 0:
+        print("profile_solve: the profiler saw no device time",
+              file=sys.stderr)
+        return 1
+    print(f"device time {dev_us / 1e3:.1f} ms, device busy "
+          f"{100 * dev_us / 1e6 / wall_s:.1f}% of the solve's wall time, "
+          f"fused chunk kernel {k1_us / 1e3:.1f} ms = "
+          f"{100 * k1_us / dev_us:.1f}% of the device time")
+    print(avg.table(sort_by="self_device_time_total", row_limit=12))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,7 +4,7 @@ The plain twin ``nsfused_chunk_reference`` is held against the JAX
 package: against its Pallas TPU kernel run in interpret mode (float32,
 the 5e-5 tolerance tests/test_nullspace.py holds that kernel to) and
 against its XLA scan path (float64, 1e-9).  The CUDA kernel itself is
-compared with the twin only where a card is present.
+compared with the twin in tests/test_torch_cuda.py, which needs a card.
 """
 import dataclasses
 import sys
@@ -49,8 +49,7 @@ def _settings(**kw):
 
 def _port_settings(s):
     return ns_t.NSSettings(**{f.name: getattr(s, f.name)
-                              for f in dataclasses.fields(ns_t.NSSettings)
-                              if f.name != "fused_chunk"})
+                              for f in dataclasses.fields(ns_t.NSSettings)})
 
 
 def _cold_state_jax(data, op, s):
@@ -211,25 +210,21 @@ def test_wrapper_takes_twin_only_on_cpu():
                               w.to("meta"), z, y, 3)
 
 
-@pytest.mark.cuda
-def test_kernel_matches_twin_on_cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    ops_f, s, (w, z, y) = _cpu_chunk_inputs()
-    dev = torch.device("cuda")
-    data_t = ops_f.data.to(dev)
-    op_t = ns_t.NSOp(*(v.to(dev) for v in ops_f.op))
-    pop = ns_t._pair_op(data_t)
-    l, u = ns_t._bounds(data_t, s.tighten)
-    ops_c = nsfused.build_operands(data_t, op_t, pop, l, u)
-    w, z, y = w.to(dev), ns_t.NSConstr(*(v.to(dev) for v in z)), \
-        ns_t.NSConstr(*(v.to(dev) for v in y))
-    for r in range(op_t.Dinvs.shape[0]):
-        k = nsfused.nsfused_chunk(ops_c, r, s.sigma, s.alpha, w, z, y,
-                                  N_INNER)
-        t = nsfused.nsfused_chunk_reference(ops_c, r, s.sigma, s.alpha, w, z,
-                                            y, N_INNER)
-        torch.cuda.synchronize()
-        for a, b in ((k[0], t[0]), (k[1].box, t[1].box),
-                     (k[1].pair, t[1].pair)):
-            assert _max_rel(a.cpu().numpy(), b.cpu().numpy()) < 5e-3
+
+def test_state_errors_scale_each_part_by_itself():
+    """A dual off by a tenth of its own (tiny) size shows as 0.1, not as
+    its ratio to the primal state; the tolerance compares the worst error
+    over the rungs of the kernel with that of the float32 twin."""
+    t = torch.tensor
+    ref = (t([4.0, -2.0]), ns_t.NSConstr(t([1.0]), t([3.0])),
+           ns_t.NSConstr(t([1e-6]), t([0.0])))
+    off = (ref[0], ref[1], ns_t.NSConstr(t([1.1e-6]), t([0.0])))
+    errs = nsfused.state_errors(off, ref)
+    assert errs[:3] == [0.0, 0.0, 0.0] and errs[4] == 0.0
+    assert errs[3] == pytest.approx(0.1)
+    k64 = [[0.0, 0.0, 0.0, 0.1, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0]]
+    t64 = [[0.0, 0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.05, 0.0]]
+    use = nsfused.twin_gap_use(k64, t64)
+    assert use["y_box"] == pytest.approx(
+        0.1 / (nsfused.TWIN_GAP_FACTOR * 0.05 + nsfused.TWIN_GAP_FLOOR))
+    assert use["w"] == 0.0
