@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero):
-  1. the card's name and power limit (nvidia-smi), then the build of the
-     fused ADMM chunk kernel (csrc/nsfused.cu) from the checkout;
+  1. the card's name and power limit (nvidia-smi), then the build of both
+     kernels from the checkout, one nvcc each, started together: the fused
+     ADMM chunk (K1, csrc/nsfused.cu) and the Thomas solve (K2,
+     csrc/thomas.cu);
   2. the kernel against its plain torch twin at the canonical 64-agent
      shapes: one 50-iteration chunk from the cold state on every rho rung,
      through the kernel, the float32 twin and a float64 twin; on each part
@@ -19,13 +21,27 @@ Phases (any failure raises and exits non-zero):
      (collision ratio, continuity, endpoints, boxes, post-timescale
      dynamic limits) and the objective pin, then a second (warm) cycle;
   4. the phased solve alone, through the kernel and then (for comparison
-     only) through the plain twin on the card, timed on the host clock.
+     only) through the plain twin on the card, timed on the host clock;
+  5. K2 against its twins at the 64-agent shapes: one seeded right-hand
+     side per rung through the kernel, the float32 twin and a float64
+     twin, the kernel's worst error over the rungs held to a multiple of
+     the float32 twin's (thomas.twin_gap_use), on phase 2's host-prep
+     inventory and again on a device-prep inventory (pivots not
+     symmetric); and the median time per solve of kernel and float32
+     twin (CUDA events);
+  6. the replan slice through the entry point: ``plan(..., iteration=2)``
+     with replan_prep on its auto value ("device" on CUDA), with the K1
+     and K2 launch counts read around it, then phase 3's gate; then
+     ``plan(..., cold_prep="device")`` with the same checks;
+  7. the replan round's refine-1 solve alone, through K2 and then (for
+     comparison only) with the float32 twin in K2's place, host clock.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card the script exits
 non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -91,8 +107,6 @@ def cuda_ms(fn, reps: int) -> list[float]:
 
 def on_device(data, op, dev, dtype):
     """The host QP and operator on ``dev``, floating leaves in ``dtype``."""
-    import dataclasses
-
     from swarm_simulator_tpu_torch.qp import nullspace as ns
 
     d = data.to(dev)
@@ -201,14 +215,180 @@ def solve_kernel_vs_twin(data, op, dev):
           "iterations")
 
 
+def thomas_vs_twin(op, dev, label: str):
+    """Phase 5: one solve per rung through K2, the float32 twin and a
+    float64 twin, on the rung inventory ``op`` (its float32 pivots; the
+    float64 twin solves with the same pivots in float64)."""
+    from swarm_simulator_tpu_torch.ops import thomas
+
+    dinv32 = torch.as_tensor(op.Dinvs, device=dev).float().contiguous()
+    ho32 = torch.as_tensor(op.Kos, device=dev).float().contiguous()
+    dinv64, ho64 = dinv32.double(), ho32.double()
+    Mi, bs = dinv32.shape[1], dinv32.shape[-1]
+    gen = torch.Generator().manual_seed(SEED)
+    k64, t64, k32 = [], [], []
+    max_abs = 0.0
+    k_ms, t_ms = [], []
+    for r in range(dinv32.shape[0]):
+        b = torch.randn((Mi, bs), generator=gen, dtype=torch.float64)
+        b32, b64 = b.float().to(dev), b.to(dev)
+        kern = thomas.thomas_solve(dinv32, ho32, b32, r)
+        twin = thomas.thomas_solve_reference(dinv32, ho32, b32, r)
+        twin64 = thomas.thomas_solve_reference(dinv64, ho64, b64, r)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(kern).all()), f"K2 rung {r}: not finite")
+        max_abs = max(max_abs, float((kern - twin).abs().max()))
+        k32.append(thomas.rel_error(kern, twin))
+        k64.append(thomas.rel_error(kern, twin64))
+        t64.append(thomas.rel_error(twin, twin64))
+        k_ms += cuda_ms(lambda: thomas.thomas_solve(dinv32, ho32, b32, r), 20)
+        t_ms += cuda_ms(lambda: thomas.thomas_solve_reference(
+            dinv32, ho32, b32, r), 3)
+        log(f"K2 {label} rung {r}: rel err k-t32 {k32[-1]:.1e} k-t64 "
+            f"{k64[-1]:.1e} t32-t64 {t64[-1]:.1e}; kernel "
+            f"{np.median(k_ms[-20:]):.4f} ms twin {np.median(t_ms[-3:]):.3f} "
+            "ms")
+    use = thomas.twin_gap_use(k64, t64)
+    log(f"K2 {label}: share of the tolerance used (worst kernel vs float64 "
+        f"twin over {thomas.TWIN_GAP_FACTOR} x worst float32 twin vs "
+        f"float64 twin + {thomas.TWIN_GAP_FLOOR}; limit 1): {use:.2f}; "
+        f"max abs err vs float32 twin {max_abs:.3e}; median solve kernel "
+        f"{np.median(k_ms):.4f} ms, twin {np.median(t_ms):.3f} ms")
+    check(use <= 1.0, f"K2 on the {label} inventory is less accurate than "
+          f"the float32 twin allows ({use:.2f} of the tolerance)")
+    return dict(use=use, max_abs_err=max_abs, ms=float(np.median(k_ms)),
+                plain_ms=float(np.median(t_ms)))
+
+
+def reset_counts():
+    from swarm_simulator_tpu_torch.ops import nsfused, thomas
+
+    nsfused.nsfused_chunk.launches = 0
+    nsfused.nsfused_chunk_reference.cuda_calls = 0
+    thomas.thomas_solve.launches = 0
+    thomas.thomas_solve_reference.cuda_calls = 0
+
+
+def read_counts() -> dict:
+    from swarm_simulator_tpu_torch.ops import nsfused, thomas
+
+    return dict(k1=nsfused.nsfused_chunk.launches,
+                k2=thomas.thomas_solve.launches,
+                twin1=nsfused.nsfused_chunk_reference.cuda_calls,
+                twin2=thomas.thomas_solve_reference.cuda_calls)
+
+
+def gate(result, mission, param, dev, label: str):
+    """Phase 3's checks on a plan: finite control points of the expected
+    shape, the acceptance gate and the objective pin."""
+    from swarm_simulator_tpu_torch.eval.gate import gate_quality
+
+    check(bool(np.isfinite(result.ctrl).all()),
+          f"{label}: non-finite control points")
+    check(result.ctrl.shape == (mission.qn, result.M, param.n + 1, 3),
+          f"{label}: control points of shape {result.ctrl.shape}")
+    ok, m = gate_quality(result.ctrl, result, mission, param, device=dev)
+    log(f"{label} gate: " + json.dumps(
+        {k: (float(v) if not isinstance(v, bool) else v)
+         for k, v in m.items()}))
+    check(ok, f"{label}: acceptance gate failed: {m}")
+    obj = result.solver_info["obj"][0]
+    check(obj < OBJ_PIN, f"{label}: objective {obj} >= {OBJ_PIN}")
+
+
+def replan_paths(mission, param, world, dev):
+    """Phase 6: the corridor replan (iteration=2, replan_prep auto) and
+    the device-prep cold plan through the entry point."""
+    import swarm_simulator_tpu_torch as port
+
+    out = {}
+    for label, change in (("replan", dict(iteration=2)),
+                          ("cold_prep=device", dict(cold_prep="device"))):
+        reset_counts()
+        t0 = time.perf_counter()
+        result, times = port.plan(mission, dataclasses.replace(param,
+                                                               **change),
+                                  world, device=dev)
+        torch.cuda.synchronize()
+        cycle_s = time.perf_counter() - t0
+        counts = read_counts()
+        info = result.solver_info
+        log(f"{label} cycle {cycle_s:.3f} s: qp {times.qp:.3f} (prep "
+            f"{info['prep_s']:.3f} cold solve {info['solve_s']:.3f}) "
+            f"iters {info['iters'][0]} r_prim {info['r_prim'][0]:.3e} "
+            f"obj {info['obj'][0]:.4f}; launches K1 {counts['k1']} K2 "
+            f"{counts['k2']}, twin calls on CUDA K1 {counts['twin1']} K2 "
+            f"{counts['twin2']}")
+        check(counts["k2"] > 0, f"{label}: K2 launched 0 times")
+        check(counts["twin1"] == 0 and counts["twin2"] == 0,
+              f"{label}: a plain twin ran on CUDA ({counts})")
+        if label == "replan":
+            check(info["replan_prep"] == "device",
+                  f"replan_prep resolved to {info['replan_prep']!r}")
+            check(info["replan_rounds"] == 1,
+                  f"replan rounds {info['replan_rounds']}, expected 1")
+            check(counts["k1"] > 0, "the cold round launched K1 0 times")
+            log(f"replan round: prep {info['replan_prep_s'][0]:.3f} s, "
+                f"solve {info['replan_solve_s'][0]:.3f} s, iters "
+                f"{info['replan_iters'][0]}, objective {info['obj'][0]:.6f}")
+        gate(result, mission, param, dev, label)
+        out[label] = dict(counts=counts, cycle_s=cycle_s, info=info)
+    return out
+
+
+def refine_solve_alone(plan, mission, param, cold_ctrl, dev):
+    """Phase 7: the replan round's problem (RSFC planes from the cold
+    solution, warm start from it), its device prep, and its refine-1
+    phased solve timed through K2, then with the float32 twin in K2's
+    place, then through K2 again."""
+    import copy
+    from unittest import mock
+
+    from swarm_simulator_tpu_torch.corridor.rsfc import build_rsfc
+    from swarm_simulator_tpu_torch.ops import thomas
+    from swarm_simulator_tpu_torch.qp import joint, nullspace as ns
+
+    plan = copy.deepcopy(plan)
+    knots = np.concatenate([cold_ctrl[:, :, 0, :], cold_ctrl[:, -1:, -1, :]],
+                           axis=1)
+    _, plan.pair_normals = build_rsfc(knots, param.downwash)
+    data, _ = joint.assemble_joint(plan, mission, param, dummy=cold_ctrl)
+    phases = joint.production_phases(kkt_refine=1)
+    s0, it_k, lo_k, hi_k = ns.schedule_arrays(phases)
+    d = data.to(dev)
+    t0 = time.perf_counter()
+    op = ns.prepare_ns(d, phases[0])
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+
+    def run():
+        t0 = time.perf_counter()
+        x, info = ns.solve_ns_schedule(d, op, s0, it_k, lo_k, hi_k)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, int(info.iters), x.double()
+
+    k1_s, k1_it, xk = run()
+    with mock.patch.object(thomas, "thomas_solve",
+                           thomas.thomas_solve_reference):
+        tw_s, tw_it, xt = run()
+    k2_s, k2_it, _ = run()
+    dx = float((xk - xt).abs().max()) / float(xt.abs().max())
+    log(f"refine-1 solve alone (device prep {prep_s:.3f} s), host clock: "
+        f"K2 {k1_s:.3f} s ({k1_it} iters), float32 twin {tw_s:.3f} s "
+        f"({tw_it} iters), K2 {k2_s:.3f} s ({k2_it} iters); solution rel "
+        f"diff K2 vs twin {dx:.2e}")
+    check(k1_it == k2_it, f"K2 solves disagree: {k1_it} vs {k2_it} "
+          "iterations")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the "
               "card", file=sys.stderr)
         return 2
     import swarm_simulator_tpu_torch as port
-    from swarm_simulator_tpu_torch.eval.gate import gate_quality
-    from swarm_simulator_tpu_torch.ops import nsfused
+    from swarm_simulator_tpu_torch.ops import _build
+    from swarm_simulator_tpu_torch.qp import joint, nullspace as ns
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -219,11 +399,14 @@ def main() -> int:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    path, build_s, ptxas = nsfused.build_kernel(verbose=True)
-    log(f"kernel build: {build_s:.2f} s -> {path.name}")
-    for line in ptxas.splitlines():
-        if "nsfused" in line or "registers" in line or "spill" in line:
-            log("  " + line.strip())
+    t0 = time.perf_counter()
+    built = _build.build("nsfused", "thomas", verbose=True)
+    log(f"kernel builds (parallel): {time.perf_counter() - t0:.2f} s")
+    for name, (path, build_s, ptxas) in built.items():
+        log(f"  {name}: {build_s:.2f} s -> {path.name}")
+        for line in ptxas.splitlines():
+            if "registers" in line or "spill" in line:
+                log("    " + line.strip())
 
     t0 = time.perf_counter()
     plan0, mission, param, world = build_problem(SEED)
@@ -239,14 +422,13 @@ def main() -> int:
         f"chunk kernel {k1['ms']:.3f} ms, twin {k1['plain_ms']:.3f} ms")
 
     # ---- phase 3: the end-to-end slice through the user entry point ----
-    nsfused.nsfused_chunk.launches = 0
-    nsfused.nsfused_chunk_reference.cuda_calls = 0
+    reset_counts()
     t0 = time.perf_counter()
     result, times = port.plan(mission, param, world, device=dev)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    launches = nsfused.nsfused_chunk.launches
-    twin_cuda = nsfused.nsfused_chunk_reference.cuda_calls
+    counts = read_counts()
+    launches, twin_cuda = counts["k1"], counts["twin1"]
     info = result.solver_info
     log(f"cold cycle {cold_s:.3f} s: esdf {times.esdf:.3f} search "
         f"{times.init_traj:.3f} corridor {times.corridor:.3f} qp "
@@ -259,16 +441,7 @@ def main() -> int:
     check(launches > 0, "the main path launched the kernel 0 times")
     check(twin_cuda == 0, f"the main path ran the plain twin on CUDA "
           f"{twin_cuda} times")
-    check(bool(np.isfinite(result.ctrl).all()), "non-finite control points")
-    check(result.ctrl.shape == (mission.qn, result.M, param.n + 1, 3),
-          f"control points of shape {result.ctrl.shape}")
-
-    ok, m = gate_quality(result.ctrl, result, mission, param, device=dev)
-    log("gate: " + json.dumps({k: (float(v) if not isinstance(v, bool)
-                                   else v) for k, v in m.items()}))
-    check(ok, f"acceptance gate failed: {m}")
-    check(info["obj"][0] < OBJ_PIN, f"objective {info['obj'][0]} >= "
-          f"{OBJ_PIN}")
+    gate(result, mission, param, dev, "cold")
     metrics = port.evaluate(result, mission, param, device=dev)
     log("evaluate: " + json.dumps(metrics))
 
@@ -284,12 +457,33 @@ def main() -> int:
 
     solve_kernel_vs_twin(k1["data"], k1["op"], dev)
 
+    # ---- phase 5: K2 against its twins, host- and device-prep pivots ----
+    k2 = thomas_vs_twin(k1["op"], dev, "host-prep")
+    t0 = time.perf_counter()
+    op_dev = ns.prepare_ns(k1["data"].to(dev),
+                           joint.production_phases(kkt_refine=1)[0])
+    torch.cuda.synchronize()
+    log(f"device prep (float32, 5 rungs batched): "
+        f"{time.perf_counter() - t0:.3f} s")
+    k2_dev = thomas_vs_twin(op_dev, dev, "device-prep")
+    del op_dev
+
+    # ---- phases 6 and 7: the replan slice, then its solve alone ----
+    rp = replan_paths(mission, param, world, dev)
+    refine_solve_alone(plan0, mission, param, result.ctrl, dev)
+
     print(json.dumps({"kernels": [{
         "name": "nsfused_chunk", "route": "cuda",
         "source": "swarm_simulator_tpu_torch/csrc/nsfused.cu",
         "replaces": "swarm_simulator_tpu/ops/pallas_nsfused.py:175",
         "launches": launches, "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"]}]}), flush=True)
+        "ms": k1["ms"], "plain_ms": k1["plain_ms"]}, {
+        "name": "thomas_solve", "route": "cuda",
+        "source": "swarm_simulator_tpu_torch/csrc/thomas.cu",
+        "replaces": "swarm_simulator_tpu/ops/pallas_thomas.py:62",
+        "launches": rp["replan"]["counts"]["k2"],
+        "max_abs_err": max(k2["max_abs_err"], k2_dev["max_abs_err"]),
+        "ms": k2["ms"], "plain_ms": k2["plain_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,73 @@
+"""Build the hand-written CUDA kernels of ``csrc/`` at first use.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles with nvcc
+(``sm_90a``) into its own shared library ``build/lib<name>.so`` in the
+package's git-ignored build directory, loaded with ctypes.  A library is
+rebuilt when it is missing or older than its source.  Nothing is built
+when a module is imported: the first launch builds.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD = Path(__file__).resolve().parents[1] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-shared",
+              "-Xcompiler", "-fPIC", "-std=c++17")
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return str(Path(home) / "bin" / "nvcc")
+
+
+def _compile(name: str, verbose: bool) -> tuple[Path, float, str]:
+    src = CSRC / f"{name}.cu"
+    lib = BUILD / f"lib{name}.so"
+    if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+        return lib, 0.0, ""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+           "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc {src.name} failed ({res.returncode}):"
+                           f"\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, lib)
+    return lib, time.perf_counter() - t0, res.stdout + res.stderr
+
+
+def build(*names: str, verbose: bool = False) -> dict[str, tuple]:
+    """Compile each ``csrc/<name>.cu`` into ``build/lib<name>.so`` unless
+    the library is newer than its source, one nvcc process per source,
+    all started together.  Returns {name: (library path, build seconds,
+    compiler output; ptxas statistics with ``verbose``)}."""
+    with _lock, ThreadPoolExecutor(max_workers=max(1, len(names))) as ex:
+        futs = {n: ex.submit(_compile, n, verbose) for n in names}
+        return {n: f.result() for n, f in futs.items()}
+
+
+def load(name: str, declare) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built at first use);
+    ``declare(lib)`` sets its functions' argtypes and restype once."""
+    lib = _libs.get(name)
+    if lib is None:
+        path, _, _ = build(name)[name]
+        lib = ctypes.CDLL(str(path))
+        declare(lib)
+        _libs[name] = lib
+    return lib

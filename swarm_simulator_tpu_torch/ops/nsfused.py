@@ -5,7 +5,8 @@
 ``ops/pallas_nsfused.py::_kernel``).  For CUDA tensors it launches the
 kernel or raises; it takes the plain twin ``nsfused_chunk_reference`` only
 for tensors on the CPU.  The twin is the ADMM step of qp/nullspace written
-in plain torch with the banded Thomas solve (nullspace.make_kinv_apply);
+in plain torch with the banded Thomas solve (nullspace.make_kinv_apply
+over the plain Thomas twin thomas.thomas_solve_reference);
 it defines what the kernel computes and is what the CPU tests run.
 
 Kernel layouts (B agents, B3 = 3B, M segments, Mi = M-1 interior knots,
@@ -21,29 +22,18 @@ bs = B3*phi, D = M*(n+1), P pairs), all float32 and contiguous:
          so A^T is a deterministic gather (no atomics)
 
 The kernel library is built with nvcc on first use into the package's
-git-ignored ``build/`` directory and loaded with ctypes.
+git-ignored ``build/`` directory (ops/_build) and loaded with ctypes.
 """
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "nsfused.cu"
-_BUILD = Path(__file__).resolve().parents[1] / "build"
-_LIB = _BUILD / "libnsfused.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-shared",
-              "-Xcompiler", "-fPIC", "-std=c++17")
-_lock = threading.Lock()
-_lib = None
+from . import _build, thomas
+from .thomas import TWIN_GAP_FACTOR, TWIN_GAP_FLOOR  # noqa: F401
 
 
 class FusedOperands(NamedTuple):
@@ -163,38 +153,18 @@ def nsfused_chunk_reference(ops: FusedOperands, rho_idx: int, sigma: float,
     if w.is_cuda:
         nsfused_chunk_reference.cuda_calls += 1
     d = ops.dims
-    op, pop, l, u = ops.op, ops.pop, ops.l, ops.u
-    kinv_apply = ns.make_kinv_apply(op, d["B"], d["K3"], d["M"], d["phi"])
-    rho = op.ladder[rho_idx]
-    for _ in range(n_inner):
-        rhs_x = ns.NSConstr(*(rho * zz - yy for zz, yy in zip(z, y)))
-        rhs_w = sigma * w - op.g + torch.einsum(
-            "da,bkd->bka", op.N, ns._AT_x(rhs_x, pop))
-        w_t = kinv_apply(rho_idx, rhs_w)
-        ax_t = ns._A_x(ns._x_of(op, w_t), pop)
-        w = alpha * w_t + (1 - alpha) * w
-        v = ns.NSConstr(*(alpha * a + (1 - alpha) * zz + yy / rho
-                          for a, zz, yy in zip(ax_t, z, y)))
-        z_new = ns._clip(v, l, u)
-        y = ns.NSConstr(*(rho * (vv - zz) for vv, zz in zip(v, z_new)))
-        z = z_new
-    return w, z, y
+    kinv_apply = ns.make_kinv_apply(ops.op, d["B"], d["K3"], d["M"],
+                                    d["phi"],
+                                    solve=thomas.thomas_solve_reference)
+    return ns.admm_steps(ops.op, ops.pop, ops.l, ops.u, rho_idx, sigma,
+                         alpha, w, z, y, n_inner,
+                         lambda rhs_w, rho: kinv_apply(rho_idx, rhs_w))
 
 
 nsfused_chunk_reference.cuda_calls = 0
 
 #: the parts of a chunk's state (w, z, y) that the kernel is judged on
 STATE_PARTS = ("w", "z_box", "z_pair", "y_box", "y_pair")
-#: the kernel's float32 chunk against a float64 twin of the same chunk:
-#: on each state part, its worst error over the rungs (each relative to
-#: the part's own scale) is at most TWIN_GAP_FACTOR times the float32
-#: twin's worst error there, plus TWIN_GAP_FLOOR.  The rung systems have
-#: condition numbers up to ~1/rho_min, so float32 round-off alone moves a
-#: 50-iteration chunk by up to ~1e-3 of a part's scale, and by a factor
-#: that varies from rung to rung between two float32 implementations
-#: (which is why the worst over the rungs is compared, not each rung)
-TWIN_GAP_FACTOR = 3.0
-TWIN_GAP_FLOOR = 1e-5
 
 
 def state_errors(a, b) -> list[float]:
@@ -202,66 +172,25 @@ def state_errors(a, b) -> list[float]:
     STATE_PARTS, each relative to that part's own scale max |b| (the duals
     y are orders of magnitude below the primal state, so one shared scale
     would hide an error in them)."""
-    out = []
-    for x, ref in zip((a[0], *a[1], *a[2]), (b[0], *b[1], *b[2])):
-        ref = ref.double()
-        err = float((x.double() - ref).abs().max())
-        out.append(err / max(float(ref.abs().max()), 1e-30))
-    return out
+    return [thomas.rel_error(x, ref)
+            for x, ref in zip((a[0], *a[1], *a[2]), (b[0], *b[1], *b[2]))]
 
 
 def twin_gap_use(kernel_vs_f64, f32_vs_f64) -> dict[str, float]:
-    """Per state part, the share of its tolerance the kernel uses: its
-    worst error against the float64 twin over the rungs, over
-    TWIN_GAP_FACTOR times the float32 twin's worst error plus
-    TWIN_GAP_FLOOR.  Arguments: one state_errors list per rung."""
-    return {name: max(k[i] for k in kernel_vs_f64)
-            / (TWIN_GAP_FACTOR * max(t[i] for t in f32_vs_f64)
-               + TWIN_GAP_FLOOR)
+    """Per state part, the share of its tolerance the kernel uses
+    (thomas.twin_gap_use's rule on each part).  Arguments: one
+    state_errors list per rung."""
+    return {name: thomas.twin_gap_use([k[i] for k in kernel_vs_f64],
+                                      [t[i] for t in f32_vs_f64])
             for i, name in enumerate(STATE_PARTS)}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return str(Path(home) / "bin" / "nvcc")
-
-
-def build_kernel(verbose: bool = False) -> tuple[Path, float, str]:
-    """Compile csrc/nsfused.cu (if the library is missing or older than
-    the source) into the package's build directory.  Returns (library
-    path, build seconds, compiler output)."""
-    with _lock:
-        if _LIB.exists() and _LIB.stat().st_mtime >= _SRC.stat().st_mtime:
-            return _LIB, 0.0, ""
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = _LIB.with_name(f"{_LIB.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-               "-o", str(tmp), str(_SRC)]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, _LIB)
-        return _LIB, time.perf_counter() - t0, res.stdout + res.stderr
-
-
-def _get_lib() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        path, _, _ = build_kernel()
-        lib = ctypes.CDLL(str(path))
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.nsfused_chunk.restype = ci
-        lib.nsfused_chunk.argtypes = ([vp] * 31 + [ci] * 5 + [cf] * 3
-                                      + [vp])
-        lib.nsfused_error_string.restype = ctypes.c_char_p
-        lib.nsfused_error_string.argtypes = [ci]
-        _lib = lib
-    return _lib
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.nsfused_chunk.restype = ci
+    lib.nsfused_chunk.argtypes = [vp] * 31 + [ci] * 5 + [cf] * 3 + [vp]
+    lib.nsfused_error_string.restype = ctypes.c_char_p
+    lib.nsfused_error_string.argtypes = [ci]
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, dtype=torch.float32):
@@ -321,7 +250,7 @@ def nsfused_chunk(ops: FusedOperands, rho_idx: int, sigma: float,
         _check(name, t, shape, torch.int32)
     _check("acoef", ops.acoef, (nnz,))
 
-    lib = _get_lib()
+    lib = _build.load("nsfused", _declare)
     w_o = torch.empty_like(w_rows)
     zb_o, yb_o = torch.empty_like(zb), torch.empty_like(yb)
     zp_o, yp_o = torch.empty_like(zp), torch.empty_like(yp)

@@ -84,6 +84,8 @@ def plan(
     t0 = time.perf_counter()
     joint.solve_trajectories(result, mission, param, phases=ns_phases,
                              polish_rounds=param.polish_rounds,
+                             replan_budgets=param.replan_budgets,
+                             replan_polish=param.replan_polish,
                              replan_prep=param.replan_prep,
                              cold_prep=param.cold_prep,
                              exact_polish=param.exact_polish,

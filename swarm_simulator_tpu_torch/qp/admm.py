@@ -1,9 +1,9 @@
 """Shared ADMM pieces that the knot-state solver (qp/nullspace) uses.
 
-Only the solver-independent types of the JAX package's qp/admm.py: the
-per-solve info record and the pair-constraint operator.  The
-sequential-batch OSQP splitting itself (``Param.solver="admm"``) is not
-ported yet.
+Only the solver-independent pieces of the JAX package's qp/admm.py: the
+per-solve info record, the pair-constraint operator and the pair
+coupling that the device prep factors in.  The sequential-batch OSQP
+splitting itself (``Param.solver="admm"``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -27,13 +27,12 @@ class PairOp(NamedTuple):
     S: torch.Tensor  # [P, B]
 
 
-def _pair_op(data) -> PairOp:
-    P, M, _ = data.pair_n.shape
-    npp = data.lb.shape[-1] // M
+def _selection(data) -> torch.Tensor:
+    """Signed agent selection S [P, B]: S[p, bj] = c_j, S[p, bi] = -c_i,
+    the pair mask folded in (one-sided pairs keep one entry)."""
+    P = data.pair_n.shape[0]
     B = data.lb.shape[0]
     dt = data.lb.dtype
-    n_d = torch.repeat_interleave(data.pair_n, npp, dim=1)  # [P, D, 3]
-    n_d = n_d.permute(0, 2, 1) * data.pair_mask[:, None, None]
     cj = (data.pair_bj >= 0).to(dt) * data.pair_mask
     ci = (data.pair_bi >= 0).to(dt) * data.pair_mask
     rows = torch.arange(P, device=data.lb.device)
@@ -42,4 +41,25 @@ def _pair_op(data) -> PairOp:
                  accumulate=True)
     S.index_put_((rows, data.pair_bi.long().clamp(min=0)), -ci,
                  accumulate=True)
-    return PairOp(n_d=n_d.contiguous(), S=S)
+    return S
+
+
+def _pair_op(data) -> PairOp:
+    P, M, _ = data.pair_n.shape
+    npp = data.lb.shape[-1] // M
+    n_d = torch.repeat_interleave(data.pair_n, npp, dim=1)  # [P, D, 3]
+    n_d = n_d.permute(0, 2, 1) * data.pair_mask[:, None, None]
+    return PairOp(n_d=n_d.contiguous(), S=_selection(data))
+
+
+def _build_coupling(data) -> torch.Tensor:
+    """Pair-constraint normal-equation coupling C [M, B3, B3], row index
+    agent*3 + axis: C_m = sum_p (S_p (x) n_pm)(S_p (x) n_pm)^T, the A^T A
+    of segment m's pair rows.  Contracted as U[m, p, (b, k)] =
+    S[p, b] n[p, m, k] and one batched U_m^T U_m, so no [P, B, M, 3, B]
+    intermediate (3.6 GB in float32 at 64 agents) is ever formed."""
+    M = data.pair_n.shape[1]
+    B = data.lb.shape[0]
+    S = _selection(data)
+    U = torch.einsum("pb,pmk->mpbk", S, data.pair_n).reshape(M, -1, 3 * B)
+    return U.transpose(1, 2) @ U

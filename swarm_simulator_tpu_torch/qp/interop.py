@@ -6,7 +6,10 @@ port's tensors on a given device, so one prepared operator can feed both
 packages.  The JAX fused-kernel pivot layout [R, Mi, phi, B3, GW]
 (``prep_pivots_grouped``: group f' occupies lanes [G f', G f' + B3) of
 each GW = phi*G row, pad lanes zero) is undone back to the flat
-[R, Mi, bs, bs] layout, bs = B3*phi with row index b3*phi + f.
+[R, Mi, bs, bs] layout, bs = B3*phi with row index b3*phi + f.  The
+zero padding of an operator prepared for the JAX streaming Thomas kernel
+(``thomas_kernel=True``: ``pad_pivots`` pads both block dims to the
+128-lane grid) is stripped back to bs.
 """
 from __future__ import annotations
 
@@ -39,5 +42,10 @@ def from_numpy(data, op, *, device="cpu"):
     leaves = {k: np.asarray(getattr(op, k)) for k in NSOp._fields}
     if leaves["Dinvs"].ndim == 5:
         leaves["Dinvs"] = flat_pivots(leaves["Dinvs"])
+    B, K3, _ = leaves["x_pin"].shape
+    bs = B * K3 * leaves["F0"].shape[1]
+    if leaves["Dinvs"].shape[-1] != bs:
+        leaves["Dinvs"] = np.ascontiguousarray(
+            leaves["Dinvs"][..., :bs, :bs])
     return data_t, NSOp(**{k: torch.as_tensor(v, device=device)
                            for k, v in leaves.items()})

@@ -4,15 +4,21 @@ The whole swarm is ONE QP — every SFC box and every RSFC pair constraint
 simultaneously active — solved by the knot-state ADMM over the
 block-tridiagonal banded KKT (qp/nullspace.py).  The recipe:
   1. assemble the joint QP on the host (one bulk device transfer),
-  2. host-f64 KKT rung inventory (prepare_ns_np), rounded once to the
-     solver dtype,
+  2. the KKT rung inventory: host-f64 (prepare_ns_np, rounded once to the
+     solver dtype) or, for cold_prep="device" and corridor replans, on
+     the device in the solver dtype (prepare_ns),
   3. phased rho schedule (feasibility -> polish -> restore) on the
-     device the data lives on; every check_every chunk goes through
-     ops/nsfused.nsfused_chunk, one launch of the fused kernel on CUDA.
+     device the data lives on.  Host-prepped rounds run each
+     check_every chunk as one launch of the fused kernel
+     (ops/nsfused); device-prepped and stale rounds refine every
+     w-update with PCG against the fresh operator, each KKT solve one
+     launch of the Thomas kernel (ops/thomas).
 
-This port covers the cold solve (cold_prep="host", one outer iteration,
-automatic polish rounds).  The modes that need code not yet ported raise
-NotImplementedError naming the ROADMAP queue item that ports them.
+Outer corridor iteration (param.iteration > 1): each replan round
+rebuilds the RSFC separating planes from the previous round's solution
+and re-solves warm-started from it.  exact_polish and the box rescue
+need the host oracles, which are not ported yet: they raise
+NotImplementedError naming their ROADMAP queue item.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core.types import Mission, Param, PlanResult
+from ..corridor.rsfc import build_rsfc
 from . import assemble, convert, nullspace
 
 #: phase budgets tuned on the canonical 64-agent forest
@@ -30,6 +37,15 @@ PRODUCTION_BUDGETS = (200, 600, 100)
 
 #: warm polish-extension budgets (escalation_phases)
 ESCALATION_BUDGETS = (100, 400, 100)
+
+#: short per-round replan budgets for big swarms (>= 128 agents),
+#: explicit opt-in only through replan_budgets (the default replans with
+#: the cold phases' full budgets)
+REPLAN_BUDGETS_LARGE = (100, 600, 100)
+
+#: warm polish extensions per replan round when a short replan schedule
+#: is chosen for a big swarm (replan_polish None)
+REPLAN_POLISH_LARGE = 0
 
 
 def polish_rounds_for_swarm(qn: int) -> int:
@@ -61,10 +77,15 @@ def production_settings(max_iter: int = 1500,
 
 def production_phases(budgets: tuple[int, int, int] = PRODUCTION_BUDGETS,
                       base: nullspace.NSSettings | None = None,
+                      kkt_refine: int = 0,
                       ) -> tuple[nullspace.NSSettings, ...]:
     """Phased rho schedule: feasibility-first (low rungs fenced out) ->
-    objective polish (unfenced) -> feasibility restore (fenced high)."""
-    b = base if base is not None else production_settings()
+    objective polish (unfenced) -> feasibility restore (fenced high).
+    kkt_refine >= 1 (device-prepped or stale inventories) refines every
+    w-update against the fresh operator, through the Thomas kernel."""
+    b = dataclasses.replace(
+        base if base is not None else production_settings(),
+        kkt_refine=kkt_refine)
     return (dataclasses.replace(b, max_iter=budgets[0], rho_lo=1e-3),
             dataclasses.replace(b, max_iter=budgets[1]),
             dataclasses.replace(b, max_iter=budgets[2], rho_lo=1e-2))
@@ -103,66 +124,155 @@ def _run_schedule(data_dev, op_dev, phases):
 
 def solve_trajectories(plan: PlanResult, mission: Mission, param: Param,
                        phases: tuple[nullspace.NSSettings, ...] | None = None,
+                       replan_budgets: tuple[int, int, int] | None = None,
+                       replan_polish: int | None = None,
                        replan_prep: str | None = None,
                        cold_prep: str = "host",
+                       dummy: np.ndarray | None = None,
                        polish_rounds: int | None = None,
                        exact_polish: bool = False,
                        device: torch.device | str = "cpu",
                        ) -> PlanResult:
     """Pipeline entry for Param.solver == "nullspace": fills plan.ctrl /
     plan.coef / plan.solver_info.  The QP and the operator move to
-    ``device`` once; the solve runs there.
+    ``device``; the solve runs there.
 
     polish_rounds None = auto (polish_rounds_for_swarm).  > 0 runs warm
     polish extensions after the cold solve with x0 <- the previous
-    solution on the same device-resident operator."""
-    device = torch.device(device)
-    if cold_prep != "host":
-        raise NotImplementedError(
-            f"cold_prep={cold_prep!r}: the device-side prep is not ported "
-            "(ROADMAP queue 1, item 8)")
-    if replan_prep not in (None, "fresh"):
-        raise NotImplementedError(
-            f"replan_prep={replan_prep!r}: device/stale replans are not "
-            "ported (ROADMAP queue 1, item 8)")
-    if param.iteration > 1:
-        raise NotImplementedError(
-            "iteration > 1 (corridor replans) is not ported "
-            "(ROADMAP queue 1, item 8)")
+    solution on the same device-resident operator.
+
+    param.iteration > 1 runs corridor replans: each extra round rebuilds
+    the RSFC planes from the previous round's solution and re-solves
+    warm-started from it, with replan_budgets (None = the cold phases'
+    budgets) and replan_polish warm extensions per round.
+
+    replan_prep, how a replan round gets its rung inventory:
+      "device"  prepare_ns on the device in the solver dtype, with
+                kkt_refine=1 phases (PCG against the fresh operator);
+      "fresh"   the host-f64 prep again (kkt_refine=0, the fused kernel);
+      "stale"   the round-0 host inventory with refreshed endpoint leaves
+                (refresh_ns_op_np) and kkt_refine=1; only for small
+                corridor changes;
+      None      auto: "device" when ``device`` is not the CPU, else
+                "fresh".
+    cold_prep, the round-0 inventory: "host" (host f64) or "device"
+    (prepare_ns + kkt_refine=1 phases, the low-latency first plan).
+
+    dummy: the warm start and x0 seed (None = the initTraj midpoint
+    interpolation)."""
     if exact_polish:
         raise NotImplementedError(
             "exact_polish (the host active-set polish) is not ported "
             "(ROADMAP queue 1, item 9)")
+    device = torch.device(device)
     if polish_rounds is None:
         polish_rounds = polish_rounds_for_swarm(mission.qn)
     if phases is None:
         phases = production_phases()
+    if replan_prep is None:
+        replan_prep = "device" if device.type != "cpu" else "fresh"
+    if replan_prep not in ("fresh", "stale", "device"):
+        raise ValueError(f"replan_prep: unknown mode {replan_prep!r}")
+    if cold_prep not in ("host", "device"):
+        raise ValueError(f"cold_prep: unknown mode {cold_prep!r}")
+    if cold_prep == "device" and replan_prep == "stale":
+        raise ValueError("replan_prep='stale' needs the host-resident "
+                         "round-0 operator (cold_prep='host')")
     n, M, N = param.n, plan.M, mission.qn
 
-    data, _ = assemble_joint(plan, mission, param)
-    t0 = time.perf_counter()
-    op = nullspace.prepare_ns_np(data, phases[0])   # host f64, once
-    prep_s = time.perf_counter() - t0
-    data_dev = data.to(device)
-    op_dev = op.to(device)          # pivot inventory uploaded ONCE
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
+    data, _ = assemble_joint(plan, mission, param, dummy=dummy)
+    op = None
     t0 = time.perf_counter()
-    x, info = _run_schedule(data_dev, op_dev, phases)
-    ctrl = convert.x_to_ctrl(x.double().cpu().numpy(), M, n)
-    solve_s = time.perf_counter() - t0
+    if cold_prep == "device":
+        phases = production_phases(tuple(p.max_iter for p in phases),
+                                   base=phases[1], kkt_refine=1)
+        op_dev = nullspace.prepare_ns(data.to(device), phases[0])
+        sync()
+    else:
+        op = nullspace.prepare_ns_np(data, phases[0])   # host f64, once
+        op_dev = op.to(device)      # pivot inventory uploaded ONCE
+    prep_s = time.perf_counter() - t0
+
+    def run(data_h, op_d, ph):
+        t0 = time.perf_counter()
+        x, info = _run_schedule(data_h.to(device), op_d, ph)
+        ctrl = convert.x_to_ctrl(x.double().cpu().numpy(), M, n)
+        return ctrl, info, time.perf_counter() - t0
+
+    def with_x0(data_h, ctrl):
+        x0 = ctrl.reshape(N, M * (n + 1), 3).transpose(0, 2, 1)
+        return dataclasses.replace(
+            data_h, x0=np.asarray(x0, np.asarray(data_h.x0).dtype))
+
+    ctrl, info, solve_s = run(data, op_dev, phases)
 
     polish_s = 0.0
     if polish_rounds:
         pphases = escalation_phases(phases)
         for _ in range(polish_rounds):
+            ctrl, info, dt = run(with_x0(data, ctrl), op_dev, pphases)
+            polish_s += dt
+
+    replan_prep_s, replan_solve_s, replan_iters = [], [], []
+    if param.iteration > 1:
+        rb = (tuple(replan_budgets) if replan_budgets is not None
+              else tuple(p.max_iter for p in phases))
+        short = (replan_budgets is not None
+                 and sum(rb) < sum(p.max_iter for p in phases))
+        rphases = production_phases(
+            rb, base=phases[1],
+            kkt_refine=1 if (replan_prep in ("stale", "device")
+                             or (short and N >= 128)) else 0)
+        rp_polish = (replan_polish if replan_polish is not None
+                     else (REPLAN_POLISH_LARGE if N >= 128 and short
+                           else 0))
+        rpol_phases = escalation_phases(rphases) if rp_polish else None
+        for _ in range(param.iteration - 1):
+            knots = np.concatenate(
+                [ctrl[:, :, 0, :], ctrl[:, -1:, -1, :]], axis=1)
+            try:
+                pair_idx, normals = build_rsfc(knots, param.downwash)
+            except ValueError:
+                # a residually-colliding pair leaves no separating plane:
+                # keep the best solved round
+                break
+            if not np.array_equal(pair_idx, np.asarray(plan.pair_idx)):
+                raise RuntimeError("replan changed the pair list")
+            plan.pair_normals = np.asarray(normals, np.float64)
+            data, _ = assemble_joint(plan, mission, param, dummy=ctrl)
             t0 = time.perf_counter()
-            x0n = torch.as_tensor(
-                ctrl.reshape(N, M * (n + 1), 3).transpose(0, 2, 1),
-                dtype=data_dev.x0.dtype, device=device)
-            data_dev = dataclasses.replace(data_dev, x0=x0n)
-            x, info = _run_schedule(data_dev, op_dev, pphases)
-            ctrl = convert.x_to_ctrl(x.double().cpu().numpy(), M, n)
-            polish_s += time.perf_counter() - t0
+            if replan_prep == "stale":
+                # only the endpoint leaves change; the inventory stays on
+                # the device
+                op = nullspace.refresh_ns_op_np(op, data)
+                op_dev = op_dev._replace(
+                    x_pin=torch.as_tensor(op.x_pin, device=device),
+                    g=torch.as_tensor(op.g, device=device))
+            else:
+                # free the previous round's inventory before the new one
+                # is built (two at once may not fit for big swarms)
+                op_dev = None
+                if replan_prep == "device":
+                    op_dev = nullspace.prepare_ns(data.to(device),
+                                                  rphases[0])
+                else:
+                    op = nullspace.prepare_ns_np(data, rphases[0])
+                    op_dev = op.to(device)
+                sync()
+            replan_prep_s.append(time.perf_counter() - t0)
+            if replan_prep != "stale":
+                prep_s += replan_prep_s[-1]
+            ctrl, info, dt = run(data, op_dev, rphases)
+            for _ in range(rp_polish):
+                data = with_x0(data, ctrl)
+                ctrl, info, dt_p = run(data, op_dev, rpol_phases)
+                dt += dt_p
+            replan_solve_s.append(dt)
+            replan_iters.append(int(info.iters))
 
     plan.ctrl = ctrl
     plan.coef = convert.ctrl_to_coef(ctrl, plan.T, n)
@@ -180,7 +290,11 @@ def solve_trajectories(plan: PlanResult, mission: Mission, param: Param,
         "solve_s": solve_s,
         "polish_rounds": polish_rounds,
         "polish_s": polish_s,
-        "replan_rounds": 0,
+        "replan_prep": replan_prep,
+        "replan_rounds": len(replan_iters),
+        "replan_prep_s": replan_prep_s,
+        "replan_solve_s": replan_solve_s,
+        "replan_iters": replan_iters,
         "problem_size": (f"x size={3 * N * D}, eq const size="
                          f"{3 * N * (M + 1) * param.phi}, ineq const size="
                          f"{2 * 3 * N * D + n_pairs * D}"),

@@ -12,19 +12,26 @@ so the continuity and endpoint equalities hold by construction and the
 free variables are the interior knot states w (x = x_pin + N w).  The
 reduced KKT matrix is block-tridiagonal over knots with [3B phi]^2
 blocks; the host prep (prepare_ns_np) factors it in float64 once per rho
-rung, and the ADMM loop only applies the stored pivot inverses.
+rung, or the device prep (prepare_ns) in the data's dtype on its device,
+and the ADMM loop only applies the stored pivot inverses.
 
-What is ported: NSSettings/NSOp, the knot maps, the host-f64 banded prep
-(flat pivots), the constraint applies and bounds, the banded Thomas solve
-(make_kinv_apply — the plain twin of the fused kernel's solve) and the
-phased schedule loop (solve_ns_schedule).  Each check_every chunk runs
-through ops/nsfused: the hand-written CUDA kernel for CUDA tensors, its
-plain twin otherwise.  The loop is a Python loop; the termination test
-after each chunk is one host sync.
+What is ported: NSSettings/NSOp, the knot maps, the host-f64 and the
+device banded preps (flat pivots), the host refresh of a replan's
+endpoint leaves (refresh_ns_op_np), the constraint applies and bounds,
+the banded Thomas solve (make_kinv_apply over ops/thomas), and the phased
+schedule loop (solve_ns_schedule).  A chunk of check_every iterations runs
+one of two ways, both reaching a hand-written CUDA kernel for CUDA
+tensors and a plain twin otherwise:
+  kkt_refine == 0  one ops/nsfused chunk (the fused kernel);
+  kkt_refine >= 1  check_every torch ADMM steps whose w-update is a PCG
+                   against the FRESH operator (K_fresh), preconditioned by
+                   the rung inventory: 2 + kkt_refine ops/thomas solves
+                   per step.
+The loop is a Python loop; the termination test after each chunk is one
+host sync.
 
-Not ported yet: the dense KKT mode, Anderson acceleration, the bf16
-preconditioner, kkt_refine (fresh-operator PCG), the device-side
-prepare_ns and refresh_ns_op_np.
+Not ported yet: the dense KKT mode, Anderson acceleration and the bf16
+preconditioner.
 """
 from __future__ import annotations
 
@@ -36,8 +43,8 @@ import numpy as np
 import torch
 
 from ..core import bernstein
-from ..ops import nsfused
-from .admm import PairOp, SolveInfo, _pair_op
+from ..ops import nsfused, thomas
+from .admm import PairOp, SolveInfo, _build_coupling, _pair_op
 from .assemble import BIG, KNOT_FACE_GUARD, QPData
 
 
@@ -68,6 +75,12 @@ class NSSettings:
     # constraint tightening (meters): keeps the TRUE constraints
     # satisfied while the first-order solve's violation stays below it
     tighten: float = 0.0
+    # preconditioned-CG steps on each w-update against the FRESH KKT
+    # operator (matrix-free from the problem data), with the rung
+    # inventory as preconditioner: 0 trusts the inventory (exact when it
+    # was prepared in float64 for this data); replans on a device-prepped
+    # or stale inventory run 1
+    kkt_refine: int = 0
 
 
 class NSConstr(NamedTuple):
@@ -138,6 +151,20 @@ def _build_N(L: np.ndarray, R: np.ndarray, n: int, phi: int) -> np.ndarray:
         N[m, :phi, m - 1, :] = L[m]
         N[m - 1, phi:, m - 1, :] = R[m - 1]
     return N.reshape(M * npp, Mi * phi)
+
+
+def _x_pin_np(deq: np.ndarray, L: np.ndarray, R: np.ndarray,
+              phi: int) -> np.ndarray:
+    """Pinned-endpoint trajectory [B, 3, D] in host float64: the interior
+    knot states 0, the first and last knot states from deq."""
+    B = deq.shape[0]
+    M = L.shape[0]
+    s_all = np.zeros((B, 3, M + 1, phi))
+    s_all[:, :, 0, :] = deq[:, :, :phi]
+    s_all[:, :, M, :] = deq[:, :, phi:2 * phi]
+    left = np.einsum("mij,bkmj->bkmi", L, s_all[:, :, :M])
+    right = np.einsum("mij,bkmj->bkmi", R, s_all[:, :, 1:])
+    return np.concatenate([left, right], axis=-1).reshape(B, 3, -1)
 
 
 def _apply_Qseg(Qseg: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -243,13 +270,7 @@ def _host_prep_ctx_np(data: QPData, s: NSSettings) -> dict:
     nw = Mi * phi
     N = _build_N(L, R, n, phi)
 
-    deq = np.asarray(data.deq, np.float64)
-    s_all = np.zeros((B, 3, M + 1, phi))
-    s_all[:, :, 0, :] = deq[:, :, :phi]
-    s_all[:, :, M, :] = deq[:, :, phi:2 * phi]
-    left = np.einsum("mij,bkmj->bkmi", L, s_all[:, :, :M])
-    right = np.einsum("mij,bkmj->bkmi", R, s_all[:, :, 1:])
-    x_pin = np.concatenate([left, right], axis=-1).reshape(B, 3, D)
+    x_pin = _x_pin_np(np.asarray(data.deq, np.float64), L, R, phi)
 
     def apply_Q(v):
         vs = v.reshape(v.shape[:-1] + (M, npp))
@@ -347,37 +368,158 @@ def prepare_ns_np(data: QPData, s: NSSettings) -> NSOp:
                 Dinvs=Dinvs, Kos=cast(Ho))
 
 
-def make_kinv_apply(op: NSOp, B: int, K3: int, M: int, phi: int):
-    """KKT-system solver ``(rho_idx, rhs [B, K3, nw]) -> [B, K3, nw]``:
-    block-tridiagonal Thomas over knots with the stored pivot inverses.
-    The block vector at knot k holds all (agent, axis, order) entries;
-    the off-diagonal blocks I_B3 (x) Ho are applied through the Kronecker
-    structure.  The plain twin of the fused kernel's solve."""
-    Mi = M - 1
-    B3 = B * K3
+def refresh_ns_op_np(op: NSOp, data: QPData) -> NSOp:
+    """Host refresh of the endpoint-dependent leaves (x_pin, g) for a
+    replan that keeps the time grid (same M and dt, checked through F0)
+    and reuses the prepared rung inventory (replan_prep="stale").
+
+    The inventory embeds the previous corridors' pair coupling, so the
+    solve on fresh data with it is an inexact-metric ADMM: the projections
+    and duals use the fresh normals and bounds, only the w-update metric
+    is stale (kkt_refine absorbs part of that).  ``op`` and ``data`` hold
+    host numpy leaves; milliseconds of work."""
+    if data.dt is None:
+        raise ValueError("QPData.dt required for the knot-state solver")
+    Qseg = np.asarray(data.Qseg, np.float64)
+    M, npp, _ = Qseg.shape
+    n = npp - 1
+    phi = np.asarray(data.Aeq).shape[0] // (M + 1)
+    lb = np.asarray(data.lb)
+    B = lb.shape[0]
+    dt_ = lb.dtype
+
+    L, R, F0, _ = knot_maps(np.asarray(data.dt), n, phi)
+    if (np.asarray(op.F0).shape != F0.shape
+            or not np.allclose(np.asarray(op.F0, np.float64), F0,
+                               rtol=1e-5, atol=1e-8)):
+        raise ValueError(
+            "refresh_ns_op_np: time grid changed (F0 mismatch); the rung "
+            "inventory is tied to dt and M, re-run prepare_ns_np")
+    if np.asarray(op.x_pin).shape[0] != B:
+        raise ValueError("refresh_ns_op_np: agent count changed")
+
+    N = _build_N(L, R, n, phi)
+    x_pin = _x_pin_np(np.asarray(data.deq, np.float64), L, R, phi)
+    Qx = np.einsum("mij,bkmj->bkmi", Qseg,
+                   x_pin.reshape(B, 3, M, npp)).reshape(B, 3, M * npp)
+    c_s = float(np.asarray(op.c_s, np.float64))
+    g = c_s * np.einsum("da,bkd->bka", N, Qx)
+    return op._replace(x_pin=x_pin.astype(dt_), g=g.astype(dt_))
+
+
+def prepare_ns(data: QPData, s: NSSettings) -> NSOp:
+    """Device-side banded prep: every NSOp leaf in the data's dtype on the
+    data's device (``data`` holds tensors).  The rung inventory is the
+    Schur chain over knots, Kd per knot, the (I (x) Ho)^T Dinv (I (x) Ho)
+    sandwich, and an LU inverse plus one Newton step X (2I - S X), with
+    the rungs batched.  Only the small time-grid maps (knot_maps, N,
+    x_pin) are built on the host in float64, as the host prep builds
+    them.  Pins IEEE float32 products: under TF32 the low-rho rung
+    inverses come out orders of magnitude wrong.  The Newton step leaves
+    the pivots close to, not exactly, symmetric."""
+    pin_ieee_fp32()
+    with torch.no_grad():
+        return _prepare_ns_impl(data, s)
+
+
+def _prepare_ns_impl(data: QPData, s: NSSettings) -> NSOp:
+    if data.dt is None:
+        raise ValueError("QPData.dt required for the knot-state solver")
+    Qseg = data.Qseg
+    M, npp, _ = Qseg.shape
+    n = npp - 1
+    phi = data.Aeq.shape[0] // (M + 1)
+    if npp != 2 * phi:
+        raise ValueError(f"knot-state formulation needs n+1 == 2*phi "
+                         f"(got n={n}, phi={phi})")
+    B = data.lb.shape[0]
+    B3 = 3 * B
     bs = B3 * phi
+    Mi = M - 1
+    dt_ = data.lb.dtype
+    kw = dict(dtype=dt_, device=data.lb.device)
+
+    def host64(t):
+        return t.detach().to("cpu", torch.float64).numpy()
+
+    L, R, F0, FT = knot_maps(host64(data.dt), n, phi)
+    N = _build_N(L, R, n, phi)                              # [D, nw]
+    x_pin = _x_pin_np(host64(data.deq), L, R, phi)
+    L, R, F0, FT, N, x_pin = (torch.as_tensor(a, **kw)
+                              for a in (L, R, F0, FT, N, x_pin))
+
+    H_raw = N.T @ _apply_Qseg(Qseg, N.T).T
+    c_s = 1.0 / torch.clamp(H_raw.abs().amax(dim=0).mean(), min=1e-12)
+    g = c_s * torch.einsum("da,bkd->bka", N, _apply_Qseg(Qseg, x_pin))
+
+    if s.adaptive_rho:
+        ladder = np.logspace(np.log10(s.rho_min), np.log10(s.rho_max),
+                             s.n_rungs)
+    else:
+        ladder = np.asarray([s.rho], np.float64)
+    ladder = torch.as_tensor(ladder, **kw)
+    C = _build_coupling(data)                               # [M, B3, B3]
+
+    # Kd[k] = I_B3 (x) (Hd_k + sigma I + rho NtN_k)
+    #         + rho (C_{k+1} (x) WL_{k+1} + C_k (x) WR_k)
+    WL = torch.einsum("mia,mib->mab", L, L)
+    WR = torch.einsum("mia,mib->mab", R, R)
+    Q00 = torch.einsum("mia,mij,mjb->mab", L, Qseg[:, :phi, :phi], L)
+    Q11 = torch.einsum("mia,mij,mjb->mab", R, Qseg[:, phi:, phi:], R)
+    Q01 = torch.einsum("mia,mij,mjb->mab", L, Qseg[:, :phi, phi:], R)
+    Hd_s = c_s * (Q00[1:M] + Q11[0:M - 1]) + s.sigma * torch.eye(phi, **kw)
+    NtN_k = WL[1:M] + WR[0:M - 1]
+    Ho = c_s * Q01[1:M - 1]                                 # [Mi-1, phi, phi]
+    eye = torch.eye(B3, **kw)
+    rho = ladder[:, None, None]                             # [R, 1, 1]
+
+    def kron(Cb, Wb):     # [.., B3, B3] x [.., phi, phi] -> [.., bs, bs]
+        out = torch.einsum("...ij,...ab->...iajb", Cb, Wb)
+        return out.reshape(out.shape[:-4] + (bs, bs))
+
+    def kd_knot(k):       # [R, bs, bs]
+        return (kron(eye, Hd_s[k] + rho * NtN_k[k])
+                + rho * (kron(C[k + 1], WL[k + 1]) + kron(C[k], WR[k])))
+
+    def ko_sandwich(Dinv, Ho_k):      # (I (x) Ho)^T Dinv (I (x) Ho)
+        Dr = Dinv.reshape(-1, B3, phi, B3, phi)
+        out = torch.einsum("ai,rxayb,bj->rxiyj", Ho_k, Dr, Ho_k)
+        return out.reshape(-1, bs, bs)
+
+    I2 = 2.0 * torch.eye(bs, **kw)
+
+    def inv_refined(S):
+        X = torch.linalg.inv(S)
+        return X @ (I2 - S @ X)
+
+    Dinvs = torch.empty((len(ladder), Mi, bs, bs), **kw)
+    Dinvs[:, 0] = inv_refined(kd_knot(0))
+    for k in range(1, Mi):
+        Dinvs[:, k] = inv_refined(kd_knot(k)
+                                  - ko_sandwich(Dinvs[:, k - 1], Ho[k - 1]))
+    # contiguous leaves, as NSOp.to gives the host prep's: the kernels
+    # take their operands as they are and refuse strided views
+    return NSOp(*(v.contiguous() for v in (N, x_pin, g, F0, FT, c_s,
+                                           ladder, Dinvs, Ho)))
+
+
+def make_kinv_apply(op: NSOp, B: int, K3: int, M: int, phi: int,
+                    solve=None):
+    """KKT-system solver ``(rho_idx, rhs [B, K3, nw]) -> [B, K3, nw]``:
+    the block-tridiagonal Thomas solve over knots with the stored pivot
+    inverses, through ``solve`` (default ops/thomas.thomas_solve, looked
+    up at each call: the kernel for CUDA tensors, the plain twin on the
+    CPU)."""
+    Mi = M - 1
+    bs = B * K3 * phi
     if op.Dinvs.shape[-1] != bs:
         raise ValueError(f"pivot inventory has blocks of "
                          f"{op.Dinvs.shape[-1]}, expected {bs}")
 
-    def koT(Ho_k, v):     # (I (x) Ho)^T v
-        return torch.einsum("ai,xa->xi", Ho_k, v.reshape(B3, phi)).reshape(bs)
-
-    def ko(Ho_k, v):      # (I (x) Ho) v
-        return torch.einsum("ab,xb->xa", Ho_k, v.reshape(B3, phi)).reshape(bs)
-
     def kinv_apply(rho_idx, rhs):
-        Dinv = op.Dinvs[rho_idx]                    # [Mi, bs, bs]
-        Ho = op.Kos                                 # [Mi-1, phi, phi]
         b = rhs.reshape(B, K3, Mi, phi).permute(2, 0, 1, 3).reshape(Mi, bs)
-        y = [b[0]]
-        for k in range(1, Mi):
-            y.append(b[k] - koT(Ho[k - 1], Dinv[k - 1] @ y[k - 1]))
-        x = [None] * Mi
-        x[Mi - 1] = Dinv[Mi - 1] @ y[Mi - 1]
-        for k in range(Mi - 2, -1, -1):
-            x[k] = Dinv[k] @ (y[k] - ko(Ho[k], x[k + 1]))
-        x = torch.stack(x)                          # [Mi, bs]
+        x = (solve or thomas.thomas_solve)(op.Dinvs, op.Kos, b.contiguous(),
+                                           int(rho_idx))
         x = x.reshape(Mi, B, K3, phi).permute(1, 2, 0, 3)
         return x.reshape(rhs.shape)
 
@@ -454,12 +596,9 @@ def _bounds(data: QPData, tighten: float = 0.0) -> tuple[NSConstr, NSConstr]:
     return l, u
 
 
-def cold_chunk_inputs(data: QPData, op: NSOp, s: NSSettings):
-    """(fused-chunk operands, cold state (w, z, y)): the operands every
-    chunk of a solve shares (ops/nsfused.build_operands of the pair
-    operator and the tightened bounds) and the state the schedule loop
-    starts from without ``init``: w by ``s.warm_start``, z = clip(A x),
-    y = 0."""
+def _cold_state(data: QPData, op: NSOp, s: NSSettings):
+    """(pair operator, tightened bounds l and u, cold state (w, z, y)):
+    w by ``s.warm_start``, z = clip(A x), y = 0."""
     B, K3, _ = data.lb.shape
     phi = op.F0.shape[1]
     pop = _pair_op(data)
@@ -471,7 +610,75 @@ def cold_chunk_inputs(data: QPData, op: NSOp, s: NSSettings):
                         device=data.lb.device)
     z = _clip(_A_x(_x_of(op, w), pop), l, u)
     y = NSConstr(*(torch.zeros_like(v) for v in z))
-    return nsfused.build_operands(data, op, pop, l, u), (w, z, y)
+    return pop, l, u, (w, z, y)
+
+
+def cold_chunk_inputs(data: QPData, op: NSOp, s: NSSettings):
+    """(fused-chunk operands, cold state (w, z, y)): the operands every
+    chunk of a solve shares (ops/nsfused.build_operands of the pair
+    operator and the tightened bounds) and the state the schedule loop
+    starts from without ``init``."""
+    pop, l, u, cold = _cold_state(data, op, s)
+    return nsfused.build_operands(data, op, pop, l, u), cold
+
+
+def admm_steps(op: NSOp, pop: PairOp, l: NSConstr, u: NSConstr,
+               rho_idx: int, sigma: float, alpha: float, w, z, y,
+               n_inner: int, solve_w):
+    """``n_inner`` knot-state ADMM iterations at rung ``rho_idx`` in plain
+    torch; ``solve_w(rhs_w, rho)`` is the w-update (the KKT solve).
+    Returns the new (w, z, y)."""
+    rho = op.ladder[rho_idx]
+    for _ in range(n_inner):
+        rhs_x = NSConstr(*(rho * zz - yy for zz, yy in zip(z, y)))
+        rhs_w = sigma * w - op.g + torch.einsum(
+            "da,bkd->bka", op.N, _AT_x(rhs_x, pop))
+        w_t = solve_w(rhs_w, rho)
+        ax_t = _A_x(_x_of(op, w_t), pop)
+        w = alpha * w_t + (1 - alpha) * w
+        v = NSConstr(*(alpha * a + (1 - alpha) * zz + yy / rho
+                       for a, zz, yy in zip(ax_t, z, y)))
+        z_new = _clip(v, l, u)
+        y = NSConstr(*(rho * (vv - zz) for vv, zz in zip(v, z_new)))
+        z = z_new
+    return w, z, y
+
+
+def pcg_w_update(data: QPData, op: NSOp, pop: PairOp, s: NSSettings,
+                 kinv_apply, rho_idx: int):
+    """The kkt_refine w-update ``(rhs_w, rho) -> w_t``: the inventory solve
+    of rhs_w, then ``s.kkt_refine`` preconditioned-CG steps on
+    K_fresh w = rhs_w, where K_fresh(rho) v = sigma v + N^T (c_s Q
+    + rho A^T A) N v is built from the current data (its pair normals and
+    bounds) and the rung inventory is the preconditioner.  The ``tiny``
+    guards keep an exactly converged step (residual 0) from 0/0."""
+    tiny = 1e-30
+
+    def K_fresh(v, rho):
+        x_v = torch.einsum("da,bka->bkd", op.N, v)
+        qx = op.c_s * _apply_Qseg(data.Qseg, x_v)
+        aax = _AT_x(_A_x(x_v, pop), pop)
+        return s.sigma * v + torch.einsum("da,bkd->bka", op.N,
+                                          qx + rho * aax)
+
+    def w_update(rhs_w, rho):
+        w_t = kinv_apply(rho_idx, rhs_w)
+        r_c = rhs_w - K_fresh(w_t, rho)
+        z_c = kinv_apply(rho_idx, r_c)
+        p_c = z_c
+        rz = torch.sum(r_c * z_c)
+        for _ in range(s.kkt_refine):
+            Kp = K_fresh(p_c, rho)
+            a_c = rz / torch.clamp(torch.sum(p_c * Kp), min=tiny)
+            w_t = w_t + a_c * p_c
+            r_c = r_c - a_c * Kp
+            z_c = kinv_apply(rho_idx, r_c)
+            rz_new = torch.sum(r_c * z_c)
+            p_c = z_c + (rz_new / torch.clamp(rz, min=tiny)) * p_c
+            rz = rz_new
+        return w_t
+
+    return w_update
 
 
 def _iterate_ns(data: QPData, op: NSOp, s: NSSettings, schedule,
@@ -486,10 +693,27 @@ def _iterate_ns(data: QPData, op: NSOp, s: NSSettings, schedule,
     dev = data.lb.device
     npf = {torch.float32: np.float32, torch.float64: np.float64}[dt_]
 
-    # every chunk goes through the kernel's wrapper, which routes by the
-    # tensors' device (the kernel on CUDA, the plain twin on the CPU)
-    ops_f, cold = cold_chunk_inputs(data, op, s)
-    pop, l, u = ops_f.pop, ops_f.l, ops_f.u
+    # every chunk reaches a kernel's wrapper, which routes by the tensors'
+    # device (the kernel on CUDA, the plain twin on the CPU): refine
+    # chunks solve through ops/thomas, the others are one ops/nsfused chunk
+    if s.kkt_refine:
+        pop, l, u, cold = _cold_state(data, op, s)
+        B, K3, _ = data.lb.shape
+        kinv_apply = make_kinv_apply(op, B, K3, op.F0.shape[0],
+                                     op.F0.shape[1])
+
+        def chunk(w, z, y, rho_idx):
+            return admm_steps(op, pop, l, u, rho_idx, s.sigma, s.alpha,
+                              w, z, y, s.check_every,
+                              pcg_w_update(data, op, pop, s, kinv_apply,
+                                           rho_idx))
+    else:
+        ops_f, cold = cold_chunk_inputs(data, op, s)
+        pop, l, u = ops_f.pop, ops_f.l, ops_f.u
+
+        def chunk(w, z, y, rho_idx):
+            return nsfused.nsfused_chunk(ops_f, rho_idx, s.sigma, s.alpha,
+                                         w, z, y, n_inner=s.check_every)
 
     eps_abs = torch.tensor(s.eps_abs, dtype=dt_, device=dev)
     eps_dual = torch.tensor(
@@ -550,8 +774,7 @@ def _iterate_ns(data: QPData, op: NSOp, s: NSSettings, schedule,
     def run_phase(w, z, y, rho_idx, lo, hi, max_it):
         it, done = 0, False
         while it < max_it and not done:
-            w, z, y = nsfused.nsfused_chunk(ops_f, rho_idx, s.sigma, s.alpha,
-                                            w, z, y, n_inner=s.check_every)
+            w, z, y = chunk(w, z, y, rho_idx)
             r_prim, r_dual, n_prim, n_dual = residuals(w, z, y)
             ok = ((r_prim <= eps_abs + eps_rel * n_prim)
                   & (r_dual <= eps_dual + eps_rel * n_dual))

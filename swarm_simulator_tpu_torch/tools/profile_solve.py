@@ -1,14 +1,22 @@
 """Profile the phased solve of the 64-agent forest on one CUDA card.
 
     python3 -m swarm_simulator_tpu_torch.tools.profile_solve [--seed 0]
+        [--refine]
 
 Run from the repository root (it takes the problem from chip_smoke.py).
-Builds the problem and the host prep once, runs the production phased
-solve once to warm up, then once under torch.profiler, and prints: the
-solve's wall time (host clock, ending in a device sync), the device time
-the profiler saw, the device-busy share (device time / wall time; one
-stream, so kernels do not overlap), the fused chunk kernel's share of
-the device time, and the table of the costliest device entries.
+Builds the problem and its rung inventory once, runs the production
+phased solve once to warm up, then once under torch.profiler, and prints:
+the solve's wall time (host clock, ending in a device sync), the device
+time the profiler saw, the device-busy share (device time / wall time of
+the profiled run and of the unprofiled warm-up run; one stream, so
+kernels do not overlap), the shares of the device time of
+the fused chunk kernel (K1) and the Thomas solve kernel (K2), and the
+table of the costliest device entries.
+
+Without ``--refine``: the cold solve (host-f64 prep, kkt_refine=0, one K1
+launch per chunk).  With ``--refine``: the refine path of replans and
+device-prep cold plans (device prep, kkt_refine=1, three K2 launches and
+the PCG's torch operations per iteration).
 """
 from __future__ import annotations
 
@@ -24,6 +32,8 @@ from torch.profiler import ProfilerActivity, profile
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--refine", action="store_true",
+                    help="profile the device-prep kkt_refine=1 solve")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_solve: needs a CUDA card", file=sys.stderr)
@@ -33,11 +43,12 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     plan, mission, param, _ = chip_smoke.build_problem(args.seed)
-    phases = joint.production_phases()
+    phases = joint.production_phases(kkt_refine=int(args.refine))
     s0, it_k, lo_k, hi_k = ns.schedule_arrays(phases)
     data, _ = joint.assemble_joint(plan, mission, param)
-    op = ns.prepare_ns_np(data, phases[0])
-    d, o = data.to(dev), op.to(dev)
+    d = data.to(dev)
+    o = (ns.prepare_ns(d, phases[0]) if args.refine
+         else ns.prepare_ns_np(data, phases[0]).to(dev))
 
     def solve():
         t0 = time.perf_counter()
@@ -57,16 +68,22 @@ def main() -> int:
     dev_us = sum(e.self_device_time_total for e in on_dev)
     k1_us = sum(e.self_device_time_total for e in on_dev
                 if "nsfused" in e.key)
+    k2_us = sum(e.self_device_time_total for e in on_dev
+                if "thomas" in e.key)
     print(f"solve: warm-up {warm_s:.3f} s ({iters} iters), profiled "
           f"{wall_s:.3f} s ({iters_p} iters)")
     if dev_us <= 0:
         print("profile_solve: the profiler saw no device time",
               file=sys.stderr)
         return 1
+    # the profiler slows the host side (each launch is recorded), so the
+    # busy share against the unprofiled warm-up run is printed too
     print(f"device time {dev_us / 1e3:.1f} ms, device busy "
-          f"{100 * dev_us / 1e6 / wall_s:.1f}% of the solve's wall time, "
-          f"fused chunk kernel {k1_us / 1e3:.1f} ms = "
-          f"{100 * k1_us / dev_us:.1f}% of the device time")
+          f"{100 * dev_us / 1e6 / wall_s:.1f}% of the profiled wall time, "
+          f"{100 * dev_us / 1e6 / warm_s:.1f}% of the unprofiled one; "
+          f"K1 {k1_us / 1e3:.1f} ms = {100 * k1_us / dev_us:.1f}%, K2 "
+          f"{k2_us / 1e3:.1f} ms = {100 * k2_us / dev_us:.1f}% of the "
+          "device time")
     print(avg.table(sort_by="self_device_time_total", row_limit=12))
     return 0
 

@@ -1,5 +1,7 @@
-"""PyTorch port on a CUDA card: the fused ADMM chunk kernel against its
-plain twin, and the planning path through the kernel.
+"""PyTorch port on a CUDA card: the fused ADMM chunk kernel (K1) and the
+Thomas solve kernel (K2) against their plain twins, and the planning paths
+through them: the cold plan through K1, the corridor replan and the
+device-prep cold plan through K2.
 
 These tests import torch and the port only (no jax), so they also run on
 a machine with a card and no JAX:
@@ -17,7 +19,7 @@ import torch
 import swarm_simulator_tpu_torch as st
 from swarm_simulator_tpu_torch.corridor.times import build_corridors
 from swarm_simulator_tpu_torch.io.mission_json import perimeter_swap_mission
-from swarm_simulator_tpu_torch.ops import nsfused
+from swarm_simulator_tpu_torch.ops import nsfused, thomas
 from swarm_simulator_tpu_torch.qp import joint
 from swarm_simulator_tpu_torch.qp import nullspace as ns
 from swarm_simulator_tpu_torch.search.planner import plan_initial_trajectories
@@ -44,14 +46,18 @@ def _forest(n_agents=8, seed=1):
     return mission, param, world
 
 
-def _chunk_setups():
+def _host_prep():
     mission, param, world = _forest()
     esdf = ESDF(world, max_dist=param.esdf_max_dist)
     plan = plan_initial_trajectories(esdf, mission, param)
     build_corridors(esdf, plan, mission.radius, param)
     s = joint.production_phases()[0]
     data, _ = joint.assemble_joint(plan, mission, param)
-    op = ns.prepare_ns_np(data, s)
+    return s, data, ns.prepare_ns_np(data, s)
+
+
+def _chunk_setups():
+    s, data, op = _host_prep()
     dev = torch.device("cuda")
     out = {}
     for dtype in (torch.float32, torch.float64):
@@ -98,6 +104,68 @@ def test_plan_launches_kernel_not_twin_on_cuda():
     chunks = result.solver_info["iters"][0] // N_INNER
     assert nsfused.nsfused_chunk.launches == chunks > 0
     assert nsfused.nsfused_chunk_reference.cuda_calls == 0
+    assert np.isfinite(result.ctrl).all()
+    metrics = st.evaluate(result, mission, param, device="cuda")
+    assert metrics["min_safety_ratio"] >= 1.0
+
+
+def _reset_counts():
+    nsfused.nsfused_chunk.launches = 0
+    nsfused.nsfused_chunk_reference.cuda_calls = 0
+    thomas.thomas_solve.launches = 0
+    thomas.thomas_solve_reference.cuda_calls = 0
+
+
+@pytest.mark.parametrize("prep", ["host", "device"])
+def test_thomas_kernel_matches_twin_on_cuda(prep):
+    """One solve per rung with a seeded right-hand side, on the host-f64
+    inventory and on the device inventory (whose pivots are not
+    symmetric): the kernel is as accurate as the float32 twin, both
+    judged against a float64 twin on the same float32 pivots
+    (thomas.twin_gap_use)."""
+    s, data, op = _host_prep()
+    dev = torch.device("cuda")
+    if prep == "device":
+        op = ns.prepare_ns(data.to(dev), s)
+    dinv32 = torch.as_tensor(op.Dinvs, device=dev).float().contiguous()
+    ho32 = torch.as_tensor(op.Kos, device=dev).float().contiguous()
+    dinv64, ho64 = dinv32.double(), ho32.double()
+    Mi, bs = dinv32.shape[1], dinv32.shape[-1]
+    gen = torch.Generator().manual_seed(0)
+    k64, t64 = [], []
+    for r in range(dinv32.shape[0]):
+        b = torch.randn((Mi, bs), generator=gen, dtype=torch.float64)
+        b32, b64 = b.float().to(dev), b.to(dev)
+        before = thomas.thomas_solve.launches
+        kern = thomas.thomas_solve(dinv32, ho32, b32, r)
+        assert thomas.thomas_solve.launches == before + 1
+        twin32 = thomas.thomas_solve_reference(dinv32, ho32, b32, r)
+        twin64 = thomas.thomas_solve_reference(dinv64, ho64, b64, r)
+        assert torch.isfinite(kern).all()
+        k64.append(thomas.rel_error(kern, twin64))
+        t64.append(thomas.rel_error(twin32, twin64))
+    assert thomas.twin_gap_use(k64, t64) <= 1.0, (k64, t64)
+
+
+@pytest.mark.parametrize("change", [{"iteration": 2},
+                                    {"cold_prep": "device"}])
+def test_replan_and_device_prep_launch_thomas_kernel_not_twins(change):
+    """The corridor replan (replan_prep auto -> "device" on CUDA) and the
+    device-prep cold plan solve through K2; neither twin runs on CUDA."""
+    mission, param, world = _forest()
+    param = dataclasses.replace(param, **change)
+    _reset_counts()
+    result, _ = st.plan(mission, param, world, device="cuda")
+    info = result.solver_info
+    assert thomas.thomas_solve.launches > 0
+    assert nsfused.nsfused_chunk_reference.cuda_calls == 0
+    assert thomas.thomas_solve_reference.cuda_calls == 0
+    if "iteration" in change:
+        assert info["replan_prep"] == "device"
+        assert info["replan_rounds"] == 1
+        assert nsfused.nsfused_chunk.launches > 0    # the cold round
+    else:
+        assert nsfused.nsfused_chunk.launches == 0
     assert np.isfinite(result.ctrl).all()
     metrics = st.evaluate(result, mission, param, device="cuda")
     assert metrics["min_safety_ratio"] >= 1.0
