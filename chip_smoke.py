@@ -34,10 +34,24 @@ Phases (any failure raises and exits non-zero):
      and K2 launch counts read around it, then phase 3's gate; then
      ``plan(..., cold_prep="device")`` with the same checks;
   7. the replan round's refine-1 solve alone, through K2 and then (for
-     comparison only) with the float32 twin in K2's place, host clock.
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.  Without a CUDA card the script exits
-non-zero and prints no result.
+     comparison only) with the float32 twin in K2's place, host clock;
+  8. the chunked Thomas sweeps K3a/K3b against their twins on phase 2's
+     inventory: per rung, one seeded right-hand side through the chain
+     split into n = 1 chunk (L = 35) and n = 4 chunks (L = 9, one pad
+     knot), the carries chained in this process, through the kernels, the
+     float32 twins and float64 twins; the kernels' worst error over the
+     rungs held to thomas.twin_gap_use, and the chained result against
+     K2's full solve; the median time per chunk sweep (CUDA events);
+  9. the sharded entry point: ``solve_ns_phases_sharded`` (chunk mode) on a
+     1-rank NCCL group for the 64-agent forest with phase 2's host prep and
+     the production phases, with the K1/K2/K3 launch counts read around
+     it and a digest of its inputs, then phase 3's gate and objective pin
+     on its solution.
+The line before the last is the kernels' JSON record (each kernel's
+launches on its own path, errors, times of kernel and plain twin, and its
+bound: the larger of its bytes over 3.35 TB/s and its float32 operations
+over 67 TFLOP/s); the last line is {"ok": true, "device": {...}}.
+Without a CUDA card the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -55,6 +69,17 @@ OBS_NUM = 20
 N_AGENTS = 64
 N_INNER = 50
 OBJ_PIN = 4.0
+#: H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 FLOP/s on
+#: the CUDA cores (the kernels' FMA arithmetic)
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(ms, what bounds it): the least time the card could take to move
+    ``nbytes`` and do ``flops`` float32 operations."""
+    t_b, t_f = nbytes / HBM_BPS, flops / F32_FLOPS
+    return (1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations")
 
 
 def log(*a):
@@ -90,6 +115,20 @@ def build_problem(seed: int = 0):
     plan = plan_initial_trajectories(esdf, mission, param)
     build_corridors(esdf, plan, mission.radius, param)
     return plan, mission, param, world
+
+
+def digest(tree) -> str:
+    """A short sha256 of a host problem's arrays (a QPData or an NSOp of
+    numpy leaves), to tell whether two processes solved the same inputs."""
+    import hashlib
+
+    leaves = ([getattr(tree, f.name) for f in dataclasses.fields(tree)]
+              if dataclasses.is_dataclass(tree) else tuple(tree))
+    h = hashlib.sha256()
+    for v in leaves:
+        if v is not None:
+            h.update(np.ascontiguousarray(np.asarray(v)).tobytes())
+    return h.hexdigest()[:12]
 
 
 def cuda_ms(fn, reps: int) -> list[float]:
@@ -173,9 +212,23 @@ def kernel_vs_twin(plan, mission, param, dev):
         check(v <= 1.0, f"{name}: the kernel is less accurate than the "
               f"float32 twin allows ({v:.2f} of the tolerance)")
     worst = {key: max(max(e) for e in rows) for key, rows in errs.items()}
+    # the bound of one chunk: one rung of pivots and every other operand
+    # read once, the state written once; the operations are the chunk's
+    # dominant terms per iteration (the 2Mi-1 pivot matvecs, the two
+    # N / N^T maps, the two pair applies A x and A^T y)
+    d = ops32.dims
+    nbytes = (d["Mi"] * d["bs"] ** 2 * 4
+              + sum(t.numel() * t.element_size() for t in ops32
+                    if isinstance(t, torch.Tensor) and t is not ops32.dinv)
+              + 2 * sum(t.numel() * t.element_size()
+                        for t in (st32[0], *st32[1], *st32[2])))
+    nw = d["Mi"] * d["phi"]
+    flops = N_INNER * ((2 * d["Mi"] - 1) * 2 * d["bs"] ** 2
+                       + 2 * 2 * d["B3"] * d["D"] * nw
+                       + 2 * 4 * d["P"] * 3 * d["D"])
     return dict(worst=worst, use=max(use.values()), max_abs_err=max_abs,
                 ms=float(np.median(k_ms)), plain_ms=float(np.median(t_ms)),
-                data=data, op=op)
+                bound=bound(nbytes, flops), data=data, op=op)
 
 
 def solve_kernel_vs_twin(data, op, dev):
@@ -256,26 +309,37 @@ def thomas_vs_twin(op, dev, label: str):
         f"{np.median(k_ms):.4f} ms, twin {np.median(t_ms):.3f} ms")
     check(use <= 1.0, f"K2 on the {label} inventory is less accurate than "
           f"the float32 twin allows ({use:.2f} of the tolerance)")
+    # one rung's pivots, b, x and Ho once; 2Mi-1 pivot matvecs
+    phi = ho32.shape[-1]
+    nbytes = 4 * (Mi * bs * bs + 2 * Mi * bs + (Mi - 1) * phi * phi)
     return dict(use=use, max_abs_err=max_abs, ms=float(np.median(k_ms)),
-                plain_ms=float(np.median(t_ms)))
+                plain_ms=float(np.median(t_ms)),
+                bound=bound(nbytes, (2 * Mi - 1) * 2 * bs * bs))
+
+
+def _counted():
+    from swarm_simulator_tpu_torch.ops import nsfused, thomas
+
+    return dict(k1=nsfused.nsfused_chunk, k2=thomas.thomas_solve,
+                k3a=thomas.thomas_chunk_fwd, k3b=thomas.thomas_chunk_bwd), \
+        dict(twin1=nsfused.nsfused_chunk_reference,
+             twin2=thomas.thomas_solve_reference,
+             twin3a=thomas.thomas_chunk_fwd_reference,
+             twin3b=thomas.thomas_chunk_bwd_reference)
 
 
 def reset_counts():
-    from swarm_simulator_tpu_torch.ops import nsfused, thomas
-
-    nsfused.nsfused_chunk.launches = 0
-    nsfused.nsfused_chunk_reference.cuda_calls = 0
-    thomas.thomas_solve.launches = 0
-    thomas.thomas_solve_reference.cuda_calls = 0
+    kernels, twins = _counted()
+    for f in kernels.values():
+        f.launches = 0
+    for f in twins.values():
+        f.cuda_calls = 0
 
 
 def read_counts() -> dict:
-    from swarm_simulator_tpu_torch.ops import nsfused, thomas
-
-    return dict(k1=nsfused.nsfused_chunk.launches,
-                k2=thomas.thomas_solve.launches,
-                twin1=nsfused.nsfused_chunk_reference.cuda_calls,
-                twin2=thomas.thomas_solve_reference.cuda_calls)
+    kernels, twins = _counted()
+    return {**{k: f.launches for k, f in kernels.items()},
+            **{k: f.cuda_calls for k, f in twins.items()}}
 
 
 def gate(result, mission, param, dev, label: str):
@@ -381,6 +445,166 @@ def refine_solve_alone(plan, mission, param, cold_ctrl, dev):
           "iterations")
 
 
+def chunked_solve(dinv, kos, b, rho_idx: int, n: int, fwd=None, bwd=None):
+    """The chunk mode's KKT solve in one process: b [Mi, bs] through the
+    chain of ``dinv`` [R, Mi, bs, bs] / ``kos`` split into n chunks (knot
+    axis zero-padded to n*L), the carries handed from chunk to chunk as
+    the ranks of qp/nullspace_shard hand them, through the sweeps
+    ``fwd``/``bwd`` (default: the K3a/K3b wrappers).  Returns x [n*L, bs],
+    the pad knots' rows last."""
+    from swarm_simulator_tpu_torch.ops import thomas
+    from swarm_simulator_tpu_torch.qp import nullspace_shard as shard
+    from swarm_simulator_tpu_torch.qp.nullspace import NSOp
+
+    fwd = fwd or thomas.thomas_chunk_fwd
+    bwd = bwd or thomas.thomas_chunk_bwd
+    Mi, bs = b.shape
+    dpad = shard.pad_knots(NSOp(*([None] * 7), Dinvs=dinv, Kos=kos),
+                           n).Dinvs
+    L = dpad.shape[1] // n
+    kin, kout = shard.chunk_couplings(kos, n * L)
+    bp = b.new_zeros((n * L, bs))
+    bp[:Mi] = b
+
+    def chunk(c, t):
+        sl = slice(c * L, (c + 1) * L)
+        return dpad[:, sl].contiguous(), t[sl].contiguous()
+
+    T, carry = [], b.new_zeros(bs)
+    for c in range(n):
+        d, k = chunk(c, kin)
+        T.append(fwd(d, k, bp[c * L:(c + 1) * L], carry, rho_idx))
+        carry = T[-1][-1]
+    x, carry = [None] * n, b.new_zeros(bs)
+    for c in range(n - 1, -1, -1):
+        d, k = chunk(c, kout)
+        x[c] = bwd(d, k, T[c], carry, rho_idx)
+        carry = x[c][0]
+    return torch.cat(x)
+
+
+def chunk_sweeps_vs_twins(op, dev):
+    """Phase 8: per rung, one seeded right-hand side through the chain
+    split into n = 1 and n = 4 chunks, carries chained in this process,
+    through K3a/K3b, the float32 twins and float64 twins, against K2's
+    full solve too."""
+    from swarm_simulator_tpu_torch.ops import thomas
+    from swarm_simulator_tpu_torch.qp import nullspace_shard as shard
+
+    dinv32 = torch.as_tensor(op.Dinvs, device=dev).float().contiguous()
+    ho32 = torch.as_tensor(op.Kos, device=dev).float().contiguous()
+    dinv64, ho64 = dinv32.double(), ho32.double()
+    R, Mi, bs = dinv32.shape[0], dinv32.shape[1], dinv32.shape[-1]
+    twins = (thomas.thomas_chunk_fwd_reference,
+             thomas.thomas_chunk_bwd_reference)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    out = {}
+    for n in (1, 4):
+        L = -(-Mi // n)
+        # the timed sweeps run on the first chunk (all real knots)
+        kin, kout = (k[:L].contiguous()
+                     for k in shard.chunk_couplings(ho32, n * L))
+        d0 = dinv32[:, :L].contiguous()
+        k64, t64, k2_64, k3_k2 = [], [], [], []
+        max_abs = 0.0
+        ms = {"fwd": [], "bwd": [], "fwd_twin": [], "bwd_twin": []}
+        for r in range(R):
+            b = torch.randn((Mi, bs), generator=gen, dtype=torch.float64)
+            b32, b64 = b.float().to(dev), b.to(dev)
+            kern = chunked_solve(dinv32, ho32, b32, r, n)
+            twin = chunked_solve(dinv32, ho32, b32, r, n, *twins)
+            twin64 = chunked_solve(dinv64, ho64, b64, r, n, *twins)
+            full = thomas.thomas_solve(dinv32, ho32, b32, r)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(kern).all()),
+                  f"K3 n={n} rung {r}: not finite")
+            check(int(torch.count_nonzero(kern[Mi:])) == 0,
+                  f"K3 n={n} rung {r}: pad knots not exactly 0")
+            kern, twin, twin64 = kern[:Mi], twin[:Mi], twin64[:Mi]
+            max_abs = max(max_abs, float((kern - twin).abs().max()))
+            k64.append(thomas.rel_error(kern, twin64))
+            t64.append(thomas.rel_error(twin, twin64))
+            k2_64.append(thomas.rel_error(full, twin64))
+            k3_k2.append(thomas.rel_error(kern, full))
+            bl = b32[:L].contiguous()
+            t0 = torch.zeros(bs, device=dev)
+            T0 = thomas.thomas_chunk_fwd(d0, kin, bl, t0, r)
+            for key, f, args, reps in (
+                    ("fwd", thomas.thomas_chunk_fwd, (d0, kin, bl), 20),
+                    ("bwd", thomas.thomas_chunk_bwd, (d0, kout, T0), 20),
+                    ("fwd_twin", twins[0], (d0, kin, bl), 3),
+                    ("bwd_twin", twins[1], (d0, kout, T0), 3)):
+                ms[key] += cuda_ms(lambda: f(*args, t0, r), reps)
+            log(f"K3 n={n} (L={L}) rung {r}: rel err k-t64 {k64[-1]:.1e} "
+                f"t32-t64 {t64[-1]:.1e} K2-t64 {k2_64[-1]:.1e} k-K2 "
+                f"{k3_k2[-1]:.1e}")
+        use = thomas.twin_gap_use(k64, t64)
+        use_k2 = thomas.twin_gap_use(k2_64, t64)
+        med = {k: float(np.median(v)) for k, v in ms.items()}
+        log(f"K3 n={n} (L={L}): share of the tolerance used {use:.2f} "
+            f"(K2 on the same inputs {use_k2:.2f}); max abs err vs float32 "
+            f"twin {max_abs:.3e}; median per sweep K3a {med['fwd']:.4f} ms, "
+            f"K3b {med['bwd']:.4f} ms, twins {med['fwd_twin']:.3f} / "
+            f"{med['bwd_twin']:.3f} ms")
+        check(use <= 1.0, f"K3 n={n} is less accurate than the float32 "
+              f"twin allows ({use:.2f} of the tolerance)")
+        # K2's full solve on the same input, judged by the same rule
+        # against the chained float64 twin, stands beside the chained K3
+        check(use_k2 <= 1.0, f"K2 disagrees with the chained float64 "
+              f"twin ({use_k2:.2f} of the tolerance; K3 vs K2 {k3_k2})")
+        # one chunk sweep: its slab of the rung, the rows in and out, the
+        # carry and the couplings once; L pivot matvecs
+        phi = ho32.shape[-1]
+        nbytes = 4 * (L * bs * bs + 2 * L * bs + bs + L * phi * phi)
+        out[n] = dict(use=use, max_abs_err=max_abs, L=L,
+                      bound=bound(nbytes, L * 2 * bs * bs), **med)
+    return out
+
+
+def sharded_solve(data, op, plan, mission, param, dev):
+    """Phase 9: the sharded joint solve (chunk mode) on a 1-rank NCCL
+    group, through the entry point, with the launch counts read around
+    it; phase 3's gate and the objective pin on its solution."""
+    from swarm_simulator_tpu_torch.eval.gate import gate_quality
+    from swarm_simulator_tpu_torch.parallel import distributed as pd
+    from swarm_simulator_tpu_torch.qp import convert, joint
+    from swarm_simulator_tpu_torch.qp import nullspace_shard as shard
+
+    reset_counts()
+    t0 = time.perf_counter()
+    x, iters, r_prim, obj, solve_s = pd.run_ranks(
+        shard.rank_solve, 1, data, joint.production_phases(), op, "chunk",
+        backend="nccl")
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"sharded solve inputs: data {digest(data)} pivots {digest(op)}")
+    log(f"sharded solve (1-rank NCCL group, chunk mode): {solve_s:.3f} s "
+        f"host clock, the group's first collectives included ({call_s:.3f} "
+        f"s with the group and the upload), iters {iters}, r_prim "
+        f"{r_prim:.3e}, obj {obj:.4f}; launches K3a {counts['k3a']} K3b "
+        f"{counts['k3b']} K1 {counts['k1']} K2 {counts['k2']}, twin calls "
+        f"on CUDA {counts}")
+    check(counts["k3a"] > 0 and counts["k3b"] > 0,
+          "the sharded solve launched K3a/K3b 0 times")
+    check(counts["k1"] == 0 and counts["k2"] == 0,
+          f"the sharded solve launched K1/K2 ({counts})")
+    check(all(counts[k] == 0 for k in ("twin1", "twin2", "twin3a",
+                                       "twin3b")),
+          f"the sharded solve ran a plain twin on CUDA ({counts})")
+    ctrl = convert.x_to_ctrl(x, plan.M, param.n)
+    check(bool(np.isfinite(ctrl).all()), "sharded solve: non-finite")
+    check(ctrl.shape == (mission.qn, plan.M, param.n + 1, 3),
+          f"sharded solve: control points of shape {ctrl.shape}")
+    ok, m = gate_quality(ctrl, plan, mission, param, device=dev)
+    log("sharded gate: " + json.dumps(
+        {k: (float(v) if not isinstance(v, bool) else v)
+         for k, v in m.items()}))
+    check(ok, f"sharded solve: acceptance gate failed: {m}")
+    check(obj < OBJ_PIN, f"sharded solve: objective {obj} >= {OBJ_PIN}")
+    return dict(counts=counts, solve_s=solve_s, iters=iters)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the "
@@ -472,18 +696,41 @@ def main() -> int:
     rp = replan_paths(mission, param, world, dev)
     refine_solve_alone(plan0, mission, param, result.ctrl, dev)
 
-    print(json.dumps({"kernels": [{
-        "name": "nsfused_chunk", "route": "cuda",
-        "source": "swarm_simulator_tpu_torch/csrc/nsfused.cu",
-        "replaces": "swarm_simulator_tpu/ops/pallas_nsfused.py:175",
-        "launches": launches, "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"]}, {
-        "name": "thomas_solve", "route": "cuda",
-        "source": "swarm_simulator_tpu_torch/csrc/thomas.cu",
-        "replaces": "swarm_simulator_tpu/ops/pallas_thomas.py:62",
-        "launches": rp["replan"]["counts"]["k2"],
-        "max_abs_err": max(k2["max_abs_err"], k2_dev["max_abs_err"]),
-        "ms": k2["ms"], "plain_ms": k2["plain_ms"]}]}), flush=True)
+    # ---- phases 8 and 9: the chunked sweeps, then the sharded solve ----
+    k3 = chunk_sweeps_vs_twins(k1["op"], dev)
+    sh = sharded_solve(k1["data"], k1["op"], plan0, mission, param, dev)
+
+    def entry(name, replaces, launches, max_abs_err, ms, plain_ms, bnd):
+        # no single PyTorch call computes these functions (a Thomas solve
+        # or sweep from stored pivot inverses, a fused ADMM chunk), so
+        # there is no library time to stand beside them
+        return {"name": name, "route": "cuda",
+                "source": "swarm_simulator_tpu_torch/csrc/"
+                          + ("nsfused.cu" if name == "nsfused_chunk"
+                             else "thomas.cu"),
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
+    # the sharded solve's path runs one rank: the chunk sweeps at n = 1
+    k3_1 = k3[1]
+    k3_err = max(k3[1]["max_abs_err"], k3[4]["max_abs_err"])
+    print(json.dumps({"kernels": [
+        entry("nsfused_chunk",
+              "swarm_simulator_tpu/ops/pallas_nsfused.py:506", launches,
+              k1["max_abs_err"], k1["ms"], k1["plain_ms"], k1["bound"]),
+        entry("thomas_solve", "swarm_simulator_tpu/ops/pallas_thomas.py:359",
+              rp["replan"]["counts"]["k2"],
+              max(k2["max_abs_err"], k2_dev["max_abs_err"]), k2["ms"],
+              k2["plain_ms"], k2["bound"]),
+        entry("thomas_chunk_fwd",
+              "swarm_simulator_tpu/ops/pallas_thomas.py:291",
+              sh["counts"]["k3a"], k3_err, k3_1["fwd"], k3_1["fwd_twin"],
+              k3_1["bound"]),
+        entry("thomas_chunk_bwd",
+              "swarm_simulator_tpu/ops/pallas_thomas.py:326",
+              sh["counts"]["k3b"], k3_err, k3_1["bwd"], k3_1["bwd_twin"],
+              k3_1["bound"])]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

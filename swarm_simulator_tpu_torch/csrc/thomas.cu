@@ -1,6 +1,8 @@
-// Block-tridiagonal (Thomas) solve x = K(rho_r)^-1 b for Hopper (sm_90a).
+// Block-tridiagonal (Thomas) solves for Hopper (sm_90a): K2, one full
+// solve x = K(rho_r)^-1 b, and K3a/K3b, the forward and backward sweeps
+// over one knot chunk of the cross-device pipeline.
 //
-// Replaces the Pallas TPU kernel swarm_simulator_tpu/ops/pallas_thomas.py
+// K2 replaces the Pallas TPU kernel swarm_simulator_tpu/ops/pallas_thomas.py
 // ::_kernel (thomas_solve_pallas): the KKT solve of the knot-state ADMM
 // against one rung's stored pivot inverses.  With y_0 = b_0,
 //   forward   T_k = Dinv_k y_k,  y_{k+1} = b_{k+1} - (I (x) Ho_k)^T T_k
@@ -9,22 +11,32 @@
 // over Mi interior knots, blocks of bs = B3*phi rows (row index
 // (agent*3 + axis)*phi + derivative order), Ho_k [phi, phi] per knot.
 //
-// What bounds it on an H100: 2*Mi - 1 strictly dependent
-// [bs] x [bs, bs] matvecs.  At 64 agents (bs = 576, Mi = 35) one solve
-// reads 69 pivot blocks, 91.6 MB, whose byte floor at 3.35 TB/s is 27 us;
-// the dependency chain, not the bytes, sets the time.
+// K3a / K3b replace pallas_thomas.py::_chunk_fwd_kernel / _chunk_bwd_kernel
+// (thomas_chunk_fwd / thomas_chunk_bwd).  A chunk holds L knots of the
+// chain; kin_j couples the previous knot into knot j, kout_j knot j into
+// the next (zero at the chain's ends and on pad knots):
+//   K3a  y_j = b_j - (I (x) kin_j)^T T_{j-1}  (T_{-1} = t_in, the carry),
+//        T_j = Dinv_j y_j; writes T (the carry out is T_{L-1})
+//   K3b  x_j = T_j - Dinv_j (I (x) kout_j) x_{j+1}  (x_L = x_in),
+//        writes x (the carry out is x_0)
 //
-// What the design does about it: one cooperative launch per solve with a
-// grid sync per chain step, and a grid only as large as the chain needs
-// (one warp per (agent, axis) row group, so ceil(B3 / 8) blocks of 256
-// threads): a smaller grid makes each sync cheaper.  The warp that owns a
-// row group computes its phi rows of Dinv_k v with coalesced float4 row
-// reads and applies the small off-diagonal block to them itself, so a
-// chain step costs one sync.  Ho is read per knot (no uniform-duration
-// rule) and the pivots stay flat and unpadded.  The pivots are NOT
-// assumed symmetric (the device prep's LU-plus-Newton inverses are not):
-// every product is Dinv_k @ v, a row of Dinv_k against the vector.
-// Arithmetic is float32 FMA on CUDA cores.
+// What bounds them on an H100: a chain of strictly dependent
+// [bs] x [bs, bs] matvecs (K2: 2*Mi - 1 of them; K3a and K3b: L each).  At
+// 64 agents (bs = 576) one pivot block is 1.33 MB, so K2 reads 91.6 MB
+// (27 us at 3.35 TB/s) and a 35-knot chunk sweep 46.4 MB (14 us); the
+// dependency chain, not the bytes, sets the time.
+//
+// What the design does about it: one cooperative launch per solve or
+// chunk sweep with a grid sync per chain step, and a grid only as large as
+// the chain needs (one warp per (agent, axis) row group, so ceil(B3 / 8)
+// blocks of 256 threads): a smaller grid makes each sync cheaper.  The
+// warp that owns a row group computes its phi rows of Dinv_k v with
+// coalesced float4 row reads and applies the small coupling block to them
+// itself, so a chain step costs one sync.  Ho is read per knot (no
+// uniform-duration rule) and the pivots stay flat and unpadded.  The
+// pivots are NOT assumed symmetric (the device prep's LU-plus-Newton
+// inverses are not): every product is Dinv_k @ v, a row of Dinv_k against
+// the vector.  Arithmetic is float32 FMA on CUDA cores.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -147,14 +159,161 @@ __global__ void __launch_bounds__(kThreads) thomas_kernel(const Params p) {
   }
 }
 
+struct ChunkParams {
+  const float* dinv;   // [L, bs, bs] pivot inverses of the rung, the chunk's knots
+  const float* kc;     // [L, phi, phi] couplings: kin (K3a) or kout (K3b)
+  const float* v;      // K3a: b [L, bs]; K3b: T [L, bs]
+  const float* carry;  // K3a: t_in [bs]; K3b: x_in [bs]
+  float* y;            // K3a scratch [L, bs]: forward rows y_j (K3b: unused)
+  float* out;          // K3a: T [L, bs]; K3b: x [L, bs]
+  int B3, L, phi;
+};
+
+// K3a: the forward sweep over one chunk, carry folded into y_0
+__global__ void __launch_bounds__(kThreads) chunk_fwd_kernel(
+    const ChunkParams p) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float4 smem4[];
+  float* sh = reinterpret_cast<float*>(smem4);
+
+  const int phi = p.phi, L = p.L, B3 = p.B3, bs = B3 * phi;
+  const int lane = threadIdx.x & 31;
+  const int warps_per_block = blockDim.x >> 5;
+  const int gwarp = blockIdx.x * warps_per_block + (threadIdx.x >> 5);
+  const int nwarps = gridDim.x * warps_per_block;
+  const bool vec4 = (bs & 3) == 0;
+  const size_t blk = (size_t)bs * bs;
+
+  for (int j = 0; j < L; ++j) {
+    if (j == 0) {
+      // y_0 = b_0 - (I (x) kin_0)^T t_in, staged by every block
+      for (int i = threadIdx.x; i < bs; i += blockDim.x) {
+        const int grp = i / phi, a = i - grp * phi;
+        float s = p.v[i];
+        for (int c = 0; c < phi; ++c)
+          s = fmaf(-p.kc[c * phi + a], __ldg(p.carry + grp * phi + c), s);
+        sh[i] = s;
+      }
+    } else {
+      // y_j, written by other blocks before the last grid sync: read it
+      // through L2 (__ldcg), not a possibly stale L1 line
+      const float* yj = p.y + (size_t)j * bs;
+      for (int i = threadIdx.x; i < bs; i += blockDim.x) sh[i] = __ldcg(yj + i);
+    }
+    __syncthreads();
+    const float* Dj = p.dinv + (size_t)j * blk;
+    for (int grp = gwarp; grp < B3; grp += nwarps) {
+      float tv[kMaxPhi];
+      for (int a = 0; a < phi; ++a)
+        tv[a] = row_dot(Dj + (size_t)(grp * phi + a) * bs, sh, bs, lane,
+                        vec4);
+      if (lane == 0) {
+        const int r0 = grp * phi;
+        for (int a = 0; a < phi; ++a) p.out[(size_t)j * bs + r0 + a] = tv[a];
+        if (j + 1 < L) {
+          const float* H = p.kc + (size_t)(j + 1) * phi * phi;
+          const float* bn = p.v + (size_t)(j + 1) * bs + r0;
+          float* yn = p.y + (size_t)(j + 1) * bs + r0;
+          for (int i = 0; i < phi; ++i) {
+            float s = 0.f;
+            for (int a = 0; a < phi; ++a) s = fmaf(H[a * phi + i], tv[a], s);
+            yn[i] = bn[i] - s;
+          }
+        }
+      }
+    }
+    if (j + 1 < L) grid.sync();
+  }
+}
+
+// K3b: the back substitution over one chunk, from x_in at j = L-1
+__global__ void __launch_bounds__(kThreads) chunk_bwd_kernel(
+    const ChunkParams p) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float4 smem4[];
+  float* sh = reinterpret_cast<float*>(smem4);
+
+  const int phi = p.phi, L = p.L, B3 = p.B3, bs = B3 * phi;
+  const int lane = threadIdx.x & 31;
+  const int warps_per_block = blockDim.x >> 5;
+  const int gwarp = blockIdx.x * warps_per_block + (threadIdx.x >> 5);
+  const int nwarps = gridDim.x * warps_per_block;
+  const bool vec4 = (bs & 3) == 0;
+  const size_t blk = (size_t)bs * bs;
+
+  for (int j = L - 1; j >= 0; --j) {
+    // stage (I (x) kout_j) x_{j+1}; x_{j+1} is the carry or a row that
+    // other blocks wrote before the last grid sync (__ldcg)
+    const float* H = p.kc + (size_t)j * phi * phi;
+    const float* xn = j == L - 1 ? p.carry : p.out + (size_t)(j + 1) * bs;
+    for (int i = threadIdx.x; i < bs; i += blockDim.x) {
+      const int grp = i / phi, a = i - grp * phi;
+      float s = 0.f;
+      for (int c = 0; c < phi; ++c)
+        s = fmaf(H[a * phi + c], __ldcg(xn + grp * phi + c), s);
+      sh[i] = s;
+    }
+    __syncthreads();
+    const float* Dj = p.dinv + (size_t)j * blk;
+    for (int grp = gwarp; grp < B3; grp += nwarps) {
+      float tv[kMaxPhi];
+      for (int a = 0; a < phi; ++a)
+        tv[a] = row_dot(Dj + (size_t)(grp * phi + a) * bs, sh, bs, lane,
+                        vec4);
+      if (lane == 0) {
+        const size_t r0 = (size_t)j * bs + grp * phi;
+        for (int a = 0; a < phi; ++a) p.out[r0 + a] = p.v[r0 + a] - tv[a];
+      }
+    }
+    if (j > 0) grid.sync();
+  }
+}
+
+// One cooperative launch of `kernel` on a grid sized to the chain (one
+// warp per row group), `bs` floats of dynamic shared memory.  Returns a
+// cudaError_t: the launch's, or cudaGetLastError() after it.
+template <typename P>
+int launch_coop(void (*kernel)(const P), P p, int B3, int phi,
+                void* stream) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  int coop = 0, sms = 0;
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (!coop) return (int)cudaErrorNotSupported;
+  const size_t smem = (size_t)B3 * phi * sizeof(float);
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute((const void*)kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, (const void*)kernel, kThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  // a cooperative grid larger than what can co-reside would deadlock
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int want = (B3 + kThreads / 32 - 1) / (kThreads / 32);
+  const int grid = want < sms * per_sm ? want : sms * per_sm;
+  void* args[] = {&p};
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
+                                  dim3(kThreads), args, smem,
+                                  (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// One solve on `stream`: x [Mi, bs] = K^-1 b for the rung whose pivots
-// start at `dinv`; `y` is [Mi, bs] scratch.  Returns a cudaError_t
+// Each entry point launches on `stream` and returns a cudaError_t
 // (0 = launched): the cooperative-launch error, or cudaGetLastError()
-// after it.
+// after it.  `dinv` points at the rung's pivots.
+
+// K2: x [Mi, bs] = K^-1 b; `y` is [Mi, bs] scratch.
 int thomas_solve(void* dinv, void* ho, void* b, void* y, void* x, int B3,
                  int Mi, int phi, void* stream) {
   if (phi < 1 || phi > kMaxPhi || Mi < 1 || B3 < 1)
@@ -168,35 +327,45 @@ int thomas_solve(void* dinv, void* ho, void* b, void* y, void* x, int B3,
   p.B3 = B3;
   p.Mi = Mi;
   p.phi = phi;
+  return launch_coop(thomas_kernel, p, B3, phi, stream);
+}
 
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  int coop = 0, sms = 0;
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (!coop) return (int)cudaErrorNotSupported;
-  const size_t smem = (size_t)B3 * phi * sizeof(float);
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(thomas_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, thomas_kernel,
-                                                    kThreads, smem);
-  if (e != cudaSuccess) return (int)e;
-  // a cooperative grid larger than what can co-reside would deadlock
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int want = (B3 + kThreads / 32 - 1) / (kThreads / 32);
-  const int grid = want < sms * per_sm ? want : sms * per_sm;
-  void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel((const void*)thomas_kernel, dim3(grid),
-                                  dim3(kThreads), args, smem,
-                                  (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+// K3a on `stream`: T [L, bs] of one chunk from b [L, bs], the couplings
+// kin [L, phi, phi] and the carry t_in [bs]; `y` is [L, bs] scratch.
+int thomas_chunk_fwd(void* dinv, void* kin, void* b, void* t_in, void* y,
+                     void* T, int B3, int L, int phi, void* stream) {
+  if (phi < 1 || phi > kMaxPhi || L < 1 || B3 < 1)
+    return (int)cudaErrorInvalidValue;
+  ChunkParams p;
+  p.dinv = (const float*)dinv;
+  p.kc = (const float*)kin;
+  p.v = (const float*)b;
+  p.carry = (const float*)t_in;
+  p.y = (float*)y;
+  p.out = (float*)T;
+  p.B3 = B3;
+  p.L = L;
+  p.phi = phi;
+  return launch_coop(chunk_fwd_kernel, p, B3, phi, stream);
+}
+
+// K3b on `stream`: x [L, bs] of one chunk from K3a's T [L, bs], the
+// couplings kout [L, phi, phi] and the carry x_in [bs].
+int thomas_chunk_bwd(void* dinv, void* kout, void* T, void* x_in, void* x,
+                     int B3, int L, int phi, void* stream) {
+  if (phi < 1 || phi > kMaxPhi || L < 1 || B3 < 1)
+    return (int)cudaErrorInvalidValue;
+  ChunkParams p;
+  p.dinv = (const float*)dinv;
+  p.kc = (const float*)kout;
+  p.v = (const float*)T;
+  p.carry = (const float*)x_in;
+  p.y = nullptr;
+  p.out = (float*)x;
+  p.B3 = B3;
+  p.L = L;
+  p.phi = phi;
+  return launch_coop(chunk_bwd_kernel, p, B3, phi, stream);
 }
 
 const char* thomas_error_string(int e) {

@@ -156,8 +156,8 @@ def nsfused_chunk_reference(ops: FusedOperands, rho_idx: int, sigma: float,
     kinv_apply = ns.make_kinv_apply(ops.op, d["B"], d["K3"], d["M"],
                                     d["phi"],
                                     solve=thomas.thomas_solve_reference)
-    return ns.admm_steps(ops.op, ops.pop, ops.l, ops.u, rho_idx, sigma,
-                         alpha, w, z, y, n_inner,
+    return ns.admm_steps(ops.op, ns.constr_op(ops.pop), ops.l, ops.u,
+                         rho_idx, sigma, alpha, w, z, y, n_inner,
                          lambda rhs_w, rho: kinv_apply(rho_idx, rhs_w))
 
 

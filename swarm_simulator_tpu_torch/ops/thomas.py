@@ -1,20 +1,36 @@
-"""The block-tridiagonal (Thomas) KKT solve: one x = K(rho_r)^-1 b.
+"""The block-tridiagonal (Thomas) KKT solve and its chunked sweeps.
 
-``thomas_solve`` is the wrapper of the hand-written CUDA kernel in
-``csrc/thomas.cu`` (replacing the JAX package's Pallas TPU kernel
-``ops/pallas_thomas.py::_kernel``, reached through
-``thomas_solve_pallas``).  For CUDA float32 tensors it launches the kernel
-or raises; it takes the plain twin ``thomas_solve_reference`` only for
-tensors on the CPU.  The twin defines what the kernel computes and is what
-the CPU tests run.
+Three wrappers of the hand-written CUDA kernels in ``csrc/thomas.cu``,
+one library:
 
-Layouts (Mi interior knots, B3 = 3 * agents, bs = B3 * phi), contiguous:
+  thomas_solve       (K2)  one x = K(rho_r)^-1 b; replaces the JAX
+                           package's Pallas TPU kernel
+                           ``ops/pallas_thomas.py::_kernel``
+                           (``thomas_solve_pallas``)
+  thomas_chunk_fwd   (K3a) the forward sweep over one knot chunk of the
+                           cross-device pipeline (qp/nullspace_shard);
+                           replaces ``_chunk_fwd_kernel``
+  thomas_chunk_bwd   (K3b) the back substitution over one chunk; replaces
+                           ``_chunk_bwd_kernel``
+
+For CUDA float32 tensors a wrapper launches its kernel once or raises; it
+takes its plain twin (``*_reference``) only for tensors on the CPU.  The
+twins define what the kernels compute and are what the CPU tests run.
+
+Layouts (Mi interior knots, L knots of a chunk, B3 = 3 * agents,
+bs = B3 * phi), contiguous:
 
   dinv  [R, Mi, bs, bs]  flat pivot inverses of every rung, row
                          (agent*3 + axis)*phi + derivative order; not
-                         assumed symmetric (the products are Dinv @ v)
+                         assumed symmetric (the products are Dinv @ v);
+                         a chunk's slab is [R, L, bs, bs]
   ho    [Mi-1, phi, phi] off-diagonal blocks: K[k, k+1] = I_B3 (x) ho[k]
-  b     [Mi, bs]         right-hand side, knot-major
+  kin   [L, phi, phi]    per chunk knot j: the block coupling the previous
+                         knot into j (zero at the chain's first knot and
+                         on pad knots)
+  kout  [L, phi, phi]    the block coupling knot j into the next (zero
+                         from the chain's last real knot on)
+  b     [Mi, bs] / [L, bs]  right-hand side, knot-major
 """
 from __future__ import annotations
 
@@ -25,28 +41,31 @@ import torch
 from . import _build
 
 
+def ko_t(H: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(I_B3 (x) H)^T applied to each [bs] row of v [..., bs]."""
+    phi = H.shape[-1]
+    return torch.einsum("ai,xa->xi", H, v.reshape(-1, phi)).reshape(v.shape)
+
+
+def ko(H: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(I_B3 (x) H) applied to each [bs] row of v [..., bs]."""
+    phi = H.shape[-1]
+    return torch.einsum("ab,xb->xa", H, v.reshape(-1, phi)).reshape(v.shape)
+
+
 def thomas_solve_reference(dinv: torch.Tensor, ho: torch.Tensor,
                            b: torch.Tensor, rho_idx: int) -> torch.Tensor:
-    """Plain torch twin: the Thomas sweeps over knots with the stored pivot
-    inverses of rung ``rho_idx``; the off-diagonal blocks I_B3 (x) Ho are
-    applied through the Kronecker structure.  Returns x [Mi, bs] in the
+    """Plain torch twin of K2: the Thomas sweeps over knots with the stored
+    pivot inverses of rung ``rho_idx``; the off-diagonal blocks I_B3 (x) Ho
+    are applied through the Kronecker structure.  Returns x [Mi, bs] in the
     dtype of the operands."""
     if b.is_cuda:
         thomas_solve_reference.cuda_calls += 1
-    Mi, bs = b.shape
-    phi = ho.shape[-1]
-    B3 = bs // phi
+    Mi = b.shape[0]
     Dinv = dinv[rho_idx]
-
-    def koT(Ho_k, v):     # (I (x) Ho)^T v
-        return torch.einsum("ai,xa->xi", Ho_k, v.reshape(B3, phi)).reshape(bs)
-
-    def ko(Ho_k, v):      # (I (x) Ho) v
-        return torch.einsum("ab,xb->xa", Ho_k, v.reshape(B3, phi)).reshape(bs)
-
     y = [b[0]]
     for k in range(1, Mi):
-        y.append(b[k] - koT(ho[k - 1], Dinv[k - 1] @ y[k - 1]))
+        y.append(b[k] - ko_t(ho[k - 1], Dinv[k - 1] @ y[k - 1]))
     x = [None] * Mi
     x[Mi - 1] = Dinv[Mi - 1] @ y[Mi - 1]
     for k in range(Mi - 2, -1, -1):
@@ -56,8 +75,48 @@ def thomas_solve_reference(dinv: torch.Tensor, ho: torch.Tensor,
 
 thomas_solve_reference.cuda_calls = 0
 
-#: a float32 kernel against a float64 twin on the same inputs, for both
-#: kernels of the port: its worst error over the rungs (each relative to
+
+def thomas_chunk_fwd_reference(dinv: torch.Tensor, kin: torch.Tensor,
+                               b: torch.Tensor, t_in: torch.Tensor,
+                               rho_idx: int) -> torch.Tensor:
+    """Plain torch twin of K3a: for j = 0..L-1,
+    y_j = b_j - (I (x) kin_j)^T T_{j-1} with T_{-1} = t_in, and
+    T_j = Dinv_j y_j.  Returns T [L, bs] (the carry out is T[L-1]) in the
+    dtype of the operands."""
+    if b.is_cuda:
+        thomas_chunk_fwd_reference.cuda_calls += 1
+    Dinv = dinv[rho_idx]
+    T, t = [], t_in
+    for j in range(b.shape[0]):
+        t = Dinv[j] @ (b[j] - ko_t(kin[j], t))
+        T.append(t)
+    return torch.stack(T)
+
+
+thomas_chunk_fwd_reference.cuda_calls = 0
+
+
+def thomas_chunk_bwd_reference(dinv: torch.Tensor, kout: torch.Tensor,
+                               T: torch.Tensor, x_in: torch.Tensor,
+                               rho_idx: int) -> torch.Tensor:
+    """Plain torch twin of K3b: for j = L-1..0,
+    x_j = T_j - Dinv_j (I (x) kout_j) x_{j+1} with x_L = x_in.  Returns
+    x [L, bs] (the carry out is x[0]) in the dtype of the operands."""
+    if T.is_cuda:
+        thomas_chunk_bwd_reference.cuda_calls += 1
+    Dinv = dinv[rho_idx]
+    L = T.shape[0]
+    x, xn = [None] * L, x_in
+    for j in range(L - 1, -1, -1):
+        xn = T[j] - Dinv[j] @ ko(kout[j], xn)
+        x[j] = xn
+    return torch.stack(x)
+
+
+thomas_chunk_bwd_reference.cuda_calls = 0
+
+#: a float32 kernel against a float64 twin on the same inputs, for every
+#: kernel of the port: its worst error over the rungs (each relative to
 #: the result's own scale) is at most TWIN_GAP_FACTOR times the float32
 #: twin's worst error, plus TWIN_GAP_FLOOR.  The rung systems have
 #: condition numbers up to ~1/rho_min, so float32 round-off alone moves a
@@ -88,55 +147,72 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.thomas_solve.restype = ci
     lib.thomas_solve.argtypes = [vp] * 5 + [ci] * 3 + [vp]
+    lib.thomas_chunk_fwd.restype = ci
+    lib.thomas_chunk_fwd.argtypes = [vp] * 6 + [ci] * 3 + [vp]
+    lib.thomas_chunk_bwd.restype = ci
+    lib.thomas_chunk_bwd.argtypes = [vp] * 5 + [ci] * 3 + [vp]
     lib.thomas_error_string.restype = ctypes.c_char_p
     lib.thomas_error_string.argtypes = [ci]
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple):
-    if t.device.type != "cuda":
-        raise ValueError(f"thomas_solve: {name} is on {t.device}, "
-                         "expected a CUDA tensor")
-    if t.dtype != torch.float32:
-        raise ValueError(f"thomas_solve: {name} has dtype {t.dtype}, "
-                         "expected torch.float32")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"thomas_solve: {name} has shape "
-                         f"{tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"thomas_solve: {name} is not contiguous")
+def _cuda_operands(fname: str, rho_idx: int, dinv: torch.Tensor, phi: int,
+                   named: tuple) -> torch.Tensor:
+    """Check a kernel's operands (CUDA, float32, the expected shapes,
+    contiguous; ``named`` holds (name, tensor, shape) triples, dinv's
+    among them) and return the rung's pivots dinv[rho_idx]."""
+    R, bs = dinv.shape[0], dinv.shape[-1]
+    if phi < 1 or bs % phi:
+        raise ValueError(f"{fname}: blocks of {bs} rows do not split into "
+                         f"groups of phi = {phi}")
+    if not 0 <= rho_idx < R:
+        raise ValueError(f"{fname}: rung {rho_idx} outside [0, {R})")
+    for name, t, shape in named:
+        if t.device.type != "cuda":
+            raise ValueError(f"{fname}: {name} is on {t.device}, expected a "
+                             "CUDA tensor")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{fname}: {name} has dtype {t.dtype}, "
+                             "expected torch.float32")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{fname}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fname}: {name} is not contiguous")
+    piv = dinv[rho_idx]
+    if bs % 4 == 0 and piv.data_ptr() % 16:
+        raise ValueError(f"{fname}: dinv is not 16-byte aligned")
+    return piv
+
+
+def _launch(fname: str, *args) -> None:
+    """Call the library's ``fname`` with tensor, int and stream arguments
+    on the current stream of the first tensor's device; raise on a CUDA
+    error."""
+    lib = _build.load("thomas", _declare)
+    dev = next(a for a in args if isinstance(a, torch.Tensor)).device
+    cargs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+             else a for a in args]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = getattr(lib, fname)(*cargs, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{fname}: CUDA error {err} "
+                           f"({lib.thomas_error_string(err).decode()})")
 
 
 def thomas_solve(dinv: torch.Tensor, ho: torch.Tensor, b: torch.Tensor,
                  rho_idx: int) -> torch.Tensor:
     """x [Mi, bs] = K(ladder[rho_idx])^-1 b.  CUDA float32 tensors launch
-    the kernel once; CPU tensors run the plain twin; anything else
-    raises."""
+    K2 once; CPU tensors run the plain twin; anything else raises."""
     if b.device.type == "cpu":
         return thomas_solve_reference(dinv, ho, b, rho_idx)
     R, Mi, bs = dinv.shape[0], dinv.shape[1], dinv.shape[-1]
     phi = ho.shape[-1]
-    if phi < 1 or bs % phi:
-        raise ValueError(f"thomas_solve: blocks of {bs} rows do not split "
-                         f"into groups of phi = {phi}")
-    if not 0 <= rho_idx < R:
-        raise ValueError(f"thomas_solve: rung {rho_idx} outside [0, {R})")
-    for name, t, shape in (("dinv", dinv, (R, Mi, bs, bs)),
-                           ("ho", ho, (Mi - 1, phi, phi)),
-                           ("b", b, (Mi, bs))):
-        _check(name, t, shape)
-    piv = dinv[rho_idx]
-    if bs % 4 == 0 and piv.data_ptr() % 16:
-        raise ValueError("thomas_solve: dinv is not 16-byte aligned")
-    lib = _build.load("thomas", _declare)
+    piv = _cuda_operands("thomas_solve", rho_idx, dinv, phi, (
+        ("dinv", dinv, (R, Mi, bs, bs)), ("ho", ho, (Mi - 1, phi, phi)),
+        ("b", b, (Mi, bs))))
     x = torch.empty_like(b)
     y = torch.empty_like(b)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    stream = torch.cuda.current_stream(b.device).cuda_stream
-    err = lib.thomas_solve(ptr(piv), ptr(ho), ptr(b), ptr(y), ptr(x),
-                           bs // phi, Mi, phi, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"thomas_solve: CUDA error {err} "
-                           f"({lib.thomas_error_string(err).decode()})")
+    _launch("thomas_solve", piv, ho, b, y, x, bs // phi, Mi, phi)
     thomas_solve.launches += 1
     # the scratch y may be released while the launch is in flight: the
     # caching allocator reuses its block only in stream order
@@ -144,3 +220,46 @@ def thomas_solve(dinv: torch.Tensor, ho: torch.Tensor, b: torch.Tensor,
 
 
 thomas_solve.launches = 0
+
+
+def thomas_chunk_fwd(dinv: torch.Tensor, kin: torch.Tensor, b: torch.Tensor,
+                     t_in: torch.Tensor, rho_idx: int) -> torch.Tensor:
+    """T [L, bs] of one chunk's forward sweep (see
+    thomas_chunk_fwd_reference).  CUDA float32 tensors launch K3a once;
+    CPU tensors run the plain twin; anything else raises."""
+    if b.device.type == "cpu":
+        return thomas_chunk_fwd_reference(dinv, kin, b, t_in, rho_idx)
+    R, L, bs = dinv.shape[0], dinv.shape[1], dinv.shape[-1]
+    phi = kin.shape[-1]
+    piv = _cuda_operands("thomas_chunk_fwd", rho_idx, dinv, phi, (
+        ("dinv", dinv, (R, L, bs, bs)), ("kin", kin, (L, phi, phi)),
+        ("b", b, (L, bs)), ("t_in", t_in, (bs,))))
+    T = torch.empty_like(b)
+    y = torch.empty_like(b)
+    _launch("thomas_chunk_fwd", piv, kin, b, t_in, y, T, bs // phi, L, phi)
+    thomas_chunk_fwd.launches += 1
+    return T
+
+
+thomas_chunk_fwd.launches = 0
+
+
+def thomas_chunk_bwd(dinv: torch.Tensor, kout: torch.Tensor, T: torch.Tensor,
+                     x_in: torch.Tensor, rho_idx: int) -> torch.Tensor:
+    """x [L, bs] of one chunk's back substitution (see
+    thomas_chunk_bwd_reference).  CUDA float32 tensors launch K3b once;
+    CPU tensors run the plain twin; anything else raises."""
+    if T.device.type == "cpu":
+        return thomas_chunk_bwd_reference(dinv, kout, T, x_in, rho_idx)
+    R, L, bs = dinv.shape[0], dinv.shape[1], dinv.shape[-1]
+    phi = kout.shape[-1]
+    piv = _cuda_operands("thomas_chunk_bwd", rho_idx, dinv, phi, (
+        ("dinv", dinv, (R, L, bs, bs)), ("kout", kout, (L, phi, phi)),
+        ("T", T, (L, bs)), ("x_in", x_in, (bs,))))
+    x = torch.empty_like(T)
+    _launch("thomas_chunk_bwd", piv, kout, T, x_in, x, bs // phi, L, phi)
+    thomas_chunk_bwd.launches += 1
+    return x
+
+
+thomas_chunk_bwd.launches = 0

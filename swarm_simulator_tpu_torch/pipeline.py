@@ -37,8 +37,18 @@ class StageTimes:
 
 
 def default_device() -> torch.device:
-    """CUDA when a card is present, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card: the port's entry points run on CUDA unless the caller
+    asks for the CPU (``device="cpu"``)."""
+    return torch.device("cuda")
+
+
+def _resolve_device(device) -> torch.device:
+    device = default_device() if device is None else torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested (device=None means the card) but "
+            "no CUDA card is available; pass device='cpu' to run on the CPU")
+    return device
 
 
 def plan(
@@ -50,8 +60,8 @@ def plan(
     ns_phases: tuple | None = None,
     device: torch.device | str | None = None,
 ) -> tuple[PlanResult, StageTimes]:
-    """Plan the mission; the QP solve runs on ``device`` (None = CUDA when
-    available, else CPU)."""
+    """Plan the mission; the QP solve runs on ``device`` (None = the card;
+    raises without one: pass ``device="cpu"`` for the CPU)."""
     if param.solver != "nullspace":
         raise NotImplementedError(
             f"Param.solver={param.solver!r}: only the joint 'nullspace' "
@@ -60,7 +70,7 @@ def plan(
     if param.corridor_mode == "flat":
         raise NotImplementedError(
             "corridor_mode='flat' is not ported (ROADMAP queue 1, item 10)")
-    device = default_device() if device is None else torch.device(device)
+    device = _resolve_device(device)
     times = StageTimes()
     t_all = time.perf_counter()
 
@@ -118,9 +128,10 @@ def evaluate(result: PlanResult, mission: Mission, param: Param,
              device: torch.device | str | None = None) -> dict:
     """Acceptance metrics (RBPPublisher::plot, rbp_publisher.hpp:117-127),
     sampled in float64 on ``device`` (None = the device the plan was
-    solved on)."""
+    solved on, else the card)."""
     if device is None:
-        device = (result.solver_info or {}).get("device", "cpu")
+        device = (result.solver_info or {}).get("device")
+    device = _resolve_device(device)
     ts = sample.sample_times(result.T, step)
     states = sample.sample_trajectories(
         result.coef, np.asarray(result.T), ts, n=param.n,

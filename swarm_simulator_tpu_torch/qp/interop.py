@@ -9,7 +9,9 @@ each GW = phi*G row, pad lanes zero) is undone back to the flat
 [R, Mi, bs, bs] layout, bs = B3*phi with row index b3*phi + f.  The
 zero padding of an operator prepared for the JAX streaming Thomas kernel
 (``thomas_kernel=True``: ``pad_pivots`` pads both block dims to the
-128-lane grid) is stripped back to bs.
+128-lane grid) is stripped back to bs.  A JAX ``SpikeOp`` (the SPIKE prep
+of the sharded solve) comes across as the port's
+``nullspace_shard.SpikeOp``.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 
 from .assemble import QPData
 from .nullspace import NSOp
+from .nullspace_shard import SpikeOp
 
 
 def flat_pivots(d: np.ndarray) -> np.ndarray:
@@ -32,13 +35,21 @@ def flat_pivots(d: np.ndarray) -> np.ndarray:
 
 
 def from_numpy(data, op, *, device="cpu"):
-    """(QPData, NSOp) on ``device`` from objects carrying the JAX
-    package's field names with numpy (or array-like) leaves.  Extra
+    """(QPData, NSOp or SpikeOp) on ``device`` from objects carrying the
+    JAX package's field names with numpy (or array-like) leaves.  Extra
     fields of the source (the dense-mode ``Kinvs``) are ignored."""
     data_t = QPData(**{
         f.name: (None if getattr(data, f.name, None) is None
                  else np.asarray(getattr(data, f.name)))
         for f in dataclasses.fields(QPData)}).to(device)
+    if hasattr(op, "Dloc"):
+        base = NSOp(**{k: None if getattr(op.base, k) is None
+                       else torch.as_tensor(np.asarray(getattr(op.base, k)),
+                                            device=device)
+                       for k in NSOp._fields})
+        return data_t, SpikeOp(base, *(
+            torch.as_tensor(np.asarray(getattr(op, k)), device=device)
+            for k in ("Dloc", "Ssch", "Soff")))
     leaves = {k: np.asarray(getattr(op, k)) for k in NSOp._fields}
     if leaves["Dinvs"].ndim == 5:
         leaves["Dinvs"] = flat_pivots(leaves["Dinvs"])

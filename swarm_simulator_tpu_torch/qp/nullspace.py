@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -550,9 +550,32 @@ def _A_x(x: torch.Tensor, pop: PairOp) -> NSConstr:
     return NSConstr(box=x, pair=pair)
 
 
+def _AT_pair(pair: torch.Tensor, pop: PairOp) -> torch.Tensor:
+    """The pair rows' part of A^T y."""
+    return torch.einsum("pb,pkd->bkd", pop.S, pop.n_d * pair[:, None, :])
+
+
 def _AT_x(y: NSConstr, pop: PairOp) -> torch.Tensor:
-    contrib = pop.n_d * y.pair[:, None, :]
-    return y.box + torch.einsum("pb,pkd->bkd", pop.S, contrib)
+    return y.box + _AT_pair(y.pair, pop)
+
+
+class ConstrOp(NamedTuple):
+    """x -> A x and y -> A^T y of the constraint rows, as the ADMM steps,
+    the PCG and the residuals apply them."""
+    A_x: Callable
+    AT_x: Callable
+
+
+def constr_op(pop: PairOp, pair_sum=None) -> ConstrOp:
+    """A and A^T of the box rows and the pair rows of ``pop``.  A sharded
+    solve holds a share of the pair rows on each rank: ``pair_sum`` (its
+    all_reduce) sums their A^T y part over the ranks, and the box term,
+    which every rank holds whole, is added once, outside it."""
+    def AT_x(y):
+        part = _AT_pair(y.pair, pop)
+        return y.box + (part if pair_sum is None else pair_sum(part))
+
+    return ConstrOp(lambda x: _A_x(x, pop), AT_x)
 
 
 def _clip(v: NSConstr, l: NSConstr, u: NSConstr) -> NSConstr:
@@ -622,19 +645,19 @@ def cold_chunk_inputs(data: QPData, op: NSOp, s: NSSettings):
     return nsfused.build_operands(data, op, pop, l, u), cold
 
 
-def admm_steps(op: NSOp, pop: PairOp, l: NSConstr, u: NSConstr,
+def admm_steps(op: NSOp, cop: ConstrOp, l: NSConstr, u: NSConstr,
                rho_idx: int, sigma: float, alpha: float, w, z, y,
                n_inner: int, solve_w):
     """``n_inner`` knot-state ADMM iterations at rung ``rho_idx`` in plain
-    torch; ``solve_w(rhs_w, rho)`` is the w-update (the KKT solve).
-    Returns the new (w, z, y)."""
+    torch; ``cop`` applies the constraint rows, ``solve_w(rhs_w, rho)`` is
+    the w-update (the KKT solve).  Returns the new (w, z, y)."""
     rho = op.ladder[rho_idx]
     for _ in range(n_inner):
         rhs_x = NSConstr(*(rho * zz - yy for zz, yy in zip(z, y)))
         rhs_w = sigma * w - op.g + torch.einsum(
-            "da,bkd->bka", op.N, _AT_x(rhs_x, pop))
+            "da,bkd->bka", op.N, cop.AT_x(rhs_x))
         w_t = solve_w(rhs_w, rho)
-        ax_t = _A_x(_x_of(op, w_t), pop)
+        ax_t = cop.A_x(_x_of(op, w_t))
         w = alpha * w_t + (1 - alpha) * w
         v = NSConstr(*(alpha * a + (1 - alpha) * zz + yy / rho
                        for a, zz, yy in zip(ax_t, z, y)))
@@ -644,7 +667,7 @@ def admm_steps(op: NSOp, pop: PairOp, l: NSConstr, u: NSConstr,
     return w, z, y
 
 
-def pcg_w_update(data: QPData, op: NSOp, pop: PairOp, s: NSSettings,
+def pcg_w_update(data: QPData, op: NSOp, cop: ConstrOp, s: NSSettings,
                  kinv_apply, rho_idx: int):
     """The kkt_refine w-update ``(rhs_w, rho) -> w_t``: the inventory solve
     of rhs_w, then ``s.kkt_refine`` preconditioned-CG steps on
@@ -657,7 +680,7 @@ def pcg_w_update(data: QPData, op: NSOp, pop: PairOp, s: NSSettings,
     def K_fresh(v, rho):
         x_v = torch.einsum("da,bka->bkd", op.N, v)
         qx = op.c_s * _apply_Qseg(data.Qseg, x_v)
-        aax = _AT_x(_A_x(x_v, pop), pop)
+        aax = cop.AT_x(cop.A_x(x_v))
         return s.sigma * v + torch.einsum("da,bkd->bka", op.N,
                                           qx + rho * aax)
 
@@ -683,38 +706,57 @@ def pcg_w_update(data: QPData, op: NSOp, pop: PairOp, s: NSSettings,
 
 def _iterate_ns(data: QPData, op: NSOp, s: NSSettings, schedule,
                 init=None, return_state: bool = False):
-    """Phased ADMM loop in knot-state coordinates.
+    """Phased ADMM loop in knot-state coordinates on one device.
 
     schedule: (max_iters [K], idx_lo [K], idx_hi [K]) host ints — K fenced
     phases run back to back, each a loop of check_every chunks that stops
     at its budget or when the residuals converge.  init: (w, z, y,
     rho_idx) from a previous call with return_state=True."""
-    dt_ = data.lb.dtype
-    dev = data.lb.device
-    npf = {torch.float32: np.float32, torch.float64: np.float64}[dt_]
-
     # every chunk reaches a kernel's wrapper, which routes by the tensors'
     # device (the kernel on CUDA, the plain twin on the CPU): refine
     # chunks solve through ops/thomas, the others are one ops/nsfused chunk
     if s.kkt_refine:
         pop, l, u, cold = _cold_state(data, op, s)
+        cop = constr_op(pop)
         B, K3, _ = data.lb.shape
         kinv_apply = make_kinv_apply(op, B, K3, op.F0.shape[0],
                                      op.F0.shape[1])
 
         def chunk(w, z, y, rho_idx):
-            return admm_steps(op, pop, l, u, rho_idx, s.sigma, s.alpha,
+            return admm_steps(op, cop, l, u, rho_idx, s.sigma, s.alpha,
                               w, z, y, s.check_every,
-                              pcg_w_update(data, op, pop, s, kinv_apply,
+                              pcg_w_update(data, op, cop, s, kinv_apply,
                                            rho_idx))
     else:
         ops_f, cold = cold_chunk_inputs(data, op, s)
-        pop, l, u = ops_f.pop, ops_f.l, ops_f.u
+        cop, l, u = constr_op(ops_f.pop), ops_f.l, ops_f.u
 
         def chunk(w, z, y, rho_idx):
             return nsfused.nsfused_chunk(ops_f, rho_idx, s.sigma, s.alpha,
                                          w, z, y, n_inner=s.check_every)
 
+    x, info, state = phased_loop(data, op, s, schedule, chunk, cop, l, u,
+                                 cold, init)
+    if return_state:
+        return x, info, state
+    return x, info
+
+
+def phased_loop(data: QPData, op: NSOp, s: NSSettings, schedule, chunk,
+                cop: ConstrOp, l: NSConstr, u: NSConstr, cold, init=None,
+                pair_max=None):
+    """The phased schedule loop that the single-device and the sharded
+    solves share: ``chunk(w, z, y, rho_idx)`` runs check_every ADMM
+    iterations, then one host sync reads the residuals and the rung walk
+    (on the host, in the problem dtype) picks the next rung.  Starts from
+    ``init`` (w, z, y, rho_idx), or without it from ``cold`` (w, z, y) at
+    the rung nearest s.rho.  ``pair_max`` maps the pair parts' maxima [k] to
+    their maxima over all ranks (a sharded solve's all_reduce MAX; None on
+    one device).  Returns (x, SolveInfo, (w, z, y, rho_idx)), iterations
+    totalled over the phases."""
+    dt_ = data.lb.dtype
+    dev = data.lb.device
+    npf = {torch.float32: np.float32, torch.float64: np.float64}[dt_]
     eps_abs = torch.tensor(s.eps_abs, dtype=dt_, device=dev)
     eps_dual = torch.tensor(
         s.eps_abs if s.eps_dual_abs is None else s.eps_dual_abs,
@@ -735,23 +777,30 @@ def _iterate_ns(data: QPData, op: NSOp, s: NSSettings, schedule,
         w, z, y, rho_idx = init
         z = _clip(z, l, u)
 
+    zero = torch.zeros((), dtype=dt_, device=dev)
+
+    def cmax(parts):
+        # max |.| of each NSConstr: the box part whole, the pair parts
+        # through one pair_max call
+        def m(v):
+            return v.abs().max() if v.numel() > 0 else zero
+        pair = torch.stack([m(c.pair) for c in parts])
+        if pair_max is not None:
+            pair = pair_max(pair)
+        return [torch.maximum(m(c.box), p) for c, p in zip(parts, pair)]
+
     def residuals(w, z, y):
         x = _x_of(op, w)
-        ax = _A_x(x, pop)
+        ax = cop.A_x(x)
         # duals live in the cost-normalized problem: judge stationarity
         # in ORIGINAL units, (c_s Qx + A^T y) / c_s
         px = _apply_Qseg(data.Qseg, x)
-        aty = _AT_x(y, pop) / op.c_s
+        aty = cop.AT_x(y) / op.c_s
         grad_w = torch.einsum("da,bkd->bka", op.N, px + aty)
-
-        def tmax(t):
-            vals = [v.abs().max() for v in t if v.numel() > 0]
-            return (torch.stack(vals).max() if vals
-                    else torch.zeros((), dtype=dt_, device=dev))
-
-        r_prim = tmax(NSConstr(*(a - b for a, b in zip(ax, z))))
+        r_prim, n_ax, n_z = cmax(
+            [NSConstr(*(a - b for a, b in zip(ax, z))), ax, z])
         r_dual = grad_w.abs().max()
-        n_prim = torch.maximum(tmax(ax), tmax(z))
+        n_prim = torch.maximum(n_ax, n_z)
         n_dual = torch.maximum(
             torch.einsum("da,bkd->bka", op.N, px).abs().max(),
             torch.einsum("da,bkd->bka", op.N, aty).abs().max())
@@ -797,9 +846,7 @@ def _iterate_ns(data: QPData, op: NSOp, s: NSSettings, schedule,
     x = _x_of(op, w)
     obj = 0.5 * torch.sum(x * _apply_Qseg(data.Qseg, x))
     info = SolveInfo(iters=total, r_prim=r_prim, r_dual=r_dual, obj=obj)
-    if return_state:
-        return x, info, (w, z, y, rho_idx)
-    return x, info
+    return x, info, (w, z, y, rho_idx)
 
 
 def schedule_arrays(phases: tuple[NSSettings, ...]):

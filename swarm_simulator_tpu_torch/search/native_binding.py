@@ -1,10 +1,9 @@
 """ctypes bindings for the C++ host runtime (ECBS, EDT, SFC expansion).
 
-The source is the JAX package's ``swarm_simulator_tpu/search/native/
-swarm_native.cpp``, compiled BY PATH (reading a source file is not an
-import): both packages run the same host search code.  The library is
-built on first use with g++ into this package's git-ignored ``build/``
-directory, never next to the JAX source.  The build writes a temporary
+The source is this package's own ``csrc/swarm_native.cpp``, a byte-equal
+copy of the JAX package's host runtime, so both packages run the same
+host search code.  The library is built on first use with g++ into this
+package's git-ignored ``build/`` directory.  The build writes a temporary
 file and renames it into place, so concurrent test workers never load a
 half-written library.
 """
@@ -18,8 +17,7 @@ from pathlib import Path
 
 import numpy as np
 
-_SRC = (Path(__file__).resolve().parents[2] / "swarm_simulator_tpu" / "search"
-        / "native" / "swarm_native.cpp")
+_SRC = Path(__file__).resolve().parents[1] / "csrc" / "swarm_native.cpp"
 _BUILD = Path(__file__).resolve().parents[1] / "build"
 _LIB = _BUILD / "libswarm_native.so"
 _lock = threading.Lock()

@@ -1,7 +1,8 @@
-"""PyTorch port on a CUDA card: the fused ADMM chunk kernel (K1) and the
-Thomas solve kernel (K2) against their plain twins, and the planning paths
-through them: the cold plan through K1, the corridor replan and the
-device-prep cold plan through K2.
+"""PyTorch port on a CUDA card: the fused ADMM chunk kernel (K1), the
+Thomas solve kernel (K2) and the chunked Thomas sweeps (K3a/K3b) against
+their plain twins, and the planning paths through them: the cold plan
+through K1, the corridor replan and the device-prep cold plan through K2,
+and the sharded joint solve on a 1-rank NCCL group through K3a/K3b.
 
 These tests import torch and the port only (no jax), so they also run on
 a machine with a card and no JAX:
@@ -11,6 +12,8 @@ a machine with a card and no JAX:
 Without a card they skip: the kernel has no CPU mode.
 """
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,12 +22,18 @@ import torch
 import swarm_simulator_tpu_torch as st
 from swarm_simulator_tpu_torch.corridor.times import build_corridors
 from swarm_simulator_tpu_torch.io.mission_json import perimeter_swap_mission
+from swarm_simulator_tpu_torch.eval.gate import gate_quality
 from swarm_simulator_tpu_torch.ops import nsfused, thomas
-from swarm_simulator_tpu_torch.qp import joint
+from swarm_simulator_tpu_torch.parallel import distributed as pd
+from swarm_simulator_tpu_torch.qp import convert, joint
 from swarm_simulator_tpu_torch.qp import nullspace as ns
+from swarm_simulator_tpu_torch.qp import nullspace_shard as shard
 from swarm_simulator_tpu_torch.search.planner import plan_initial_trajectories
 from swarm_simulator_tpu_torch.world.esdf import ESDF
 from swarm_simulator_tpu_torch.world.forest import generate_forest
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import chunked_solve  # noqa: E402
 
 pytestmark = [
     pytest.mark.cuda,
@@ -46,11 +55,16 @@ def _forest(n_agents=8, seed=1):
     return mission, param, world
 
 
-def _host_prep():
+def _corridors():
     mission, param, world = _forest()
     esdf = ESDF(world, max_dist=param.esdf_max_dist)
     plan = plan_initial_trajectories(esdf, mission, param)
     build_corridors(esdf, plan, mission.radius, param)
+    return plan, mission, param
+
+
+def _host_prep():
+    plan, mission, param = _corridors()
     s = joint.production_phases()[0]
     data, _ = joint.assemble_joint(plan, mission, param)
     return s, data, ns.prepare_ns_np(data, s)
@@ -114,6 +128,11 @@ def _reset_counts():
     nsfused.nsfused_chunk_reference.cuda_calls = 0
     thomas.thomas_solve.launches = 0
     thomas.thomas_solve_reference.cuda_calls = 0
+    for f in (thomas.thomas_chunk_fwd, thomas.thomas_chunk_bwd):
+        f.launches = 0
+    for f in (thomas.thomas_chunk_fwd_reference,
+              thomas.thomas_chunk_bwd_reference):
+        f.cuda_calls = 0
 
 
 @pytest.mark.parametrize("prep", ["host", "device"])
@@ -169,3 +188,64 @@ def test_replan_and_device_prep_launch_thomas_kernel_not_twins(change):
     assert np.isfinite(result.ctrl).all()
     metrics = st.evaluate(result, mission, param, device="cuda")
     assert metrics["min_safety_ratio"] >= 1.0
+
+
+@pytest.mark.parametrize("n", [1, 4])
+def test_chunk_kernels_match_twins_on_cuda(n):
+    """K3a/K3b at the 64-agent shapes (bs = 576, Mi = 35; n = 4 gives
+    L = 9 and one pad knot), seeded well-conditioned pivots and per-knot
+    couplings: the chained kernels are as accurate as the chained float32
+    twins against float64 twins (thomas.twin_gap_use), and agree with K2's
+    full solve on the same input."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(3)
+    Mi, bs, phi, R = 35, 576, 3, 2
+    dinv = (torch.eye(bs, dtype=torch.float64) * 0.5
+            + 0.02 * torch.randn((R, Mi, bs, bs), generator=gen,
+                                 dtype=torch.float64) / bs ** 0.5)
+    kos = 0.3 * torch.randn((Mi - 1, phi, phi), generator=gen,
+                            dtype=torch.float64)
+    b = torch.randn((Mi, bs), generator=gen, dtype=torch.float64)
+    d32, k32, b32 = (t.float().to(dev).contiguous() for t in (dinv, kos, b))
+    d64, k64, b64 = (t.to(dev) for t in (dinv, kos, b))
+    k_err, t_err = [], []
+    for r in range(R):
+        fwd0, bwd0 = thomas.thomas_chunk_fwd.launches, \
+            thomas.thomas_chunk_bwd.launches
+        kern = chunked_solve(d32, k32, b32, r, n)[:Mi]
+        assert thomas.thomas_chunk_fwd.launches == fwd0 + n
+        assert thomas.thomas_chunk_bwd.launches == bwd0 + n
+        twins = (thomas.thomas_chunk_fwd_reference,
+                 thomas.thomas_chunk_bwd_reference)
+        twin32 = chunked_solve(d32, k32, b32, r, n, *twins)[:Mi]
+        twin64 = chunked_solve(d64, k64, b64, r, n, *twins)[:Mi]
+        assert torch.isfinite(kern).all()
+        k_err.append(thomas.rel_error(kern, twin64))
+        t_err.append(thomas.rel_error(twin32, twin64))
+        full = thomas.thomas_solve(d32, k32, b32, r)
+        assert thomas.rel_error(full, twin64) <= \
+            thomas.TWIN_GAP_FACTOR * t_err[-1] + thomas.TWIN_GAP_FLOOR
+    assert thomas.twin_gap_use(k_err, t_err) <= 1.0, (k_err, t_err)
+
+
+def test_sharded_solve_on_one_nccl_rank():
+    """The sharded joint solve (chunk mode) on a 1-rank NCCL group for the
+    8-agent forest: every KKT solve goes through K3a/K3b, neither K1 nor
+    K2 nor a twin runs, and the plan passes the gate."""
+    plan, mission, param = _corridors()
+    phases = joint.production_phases()
+    data, _ = joint.assemble_joint(plan, mission, param)
+    op = ns.prepare_ns_np(data, phases[0])
+    _reset_counts()
+    x, iters, _, obj, _ = pd.run_ranks(shard.rank_solve, 1, data, phases, op,
+                                       "chunk", backend="nccl")
+    assert thomas.thomas_chunk_fwd.launches == \
+        thomas.thomas_chunk_bwd.launches == iters > 0
+    assert nsfused.nsfused_chunk.launches == 0
+    assert thomas.thomas_solve.launches == 0
+    assert thomas.thomas_chunk_fwd_reference.cuda_calls == 0
+    assert thomas.thomas_chunk_bwd_reference.cuda_calls == 0
+    ctrl = convert.x_to_ctrl(x, plan.M, param.n)
+    ok, metrics = gate_quality(ctrl, plan, mission, param, device="cuda")
+    assert ok, metrics
+    assert np.isfinite(obj)
