@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero):
-  1. the card's name and power limit (nvidia-smi), then the build of both
-     kernels from the checkout, one nvcc each, started together: the fused
-     ADMM chunk (K1, csrc/nsfused.cu) and the Thomas solve (K2,
-     csrc/thomas.cu);
+  1. the card's name and power limit (nvidia-smi), then the build of the
+     kernels from the checkout, one nvcc per source, started together: the
+     fused ADMM chunk (K1, csrc/nsfused.cu), the Thomas solves (K2 and
+     K3a/K3b, csrc/thomas.cu) and the pivot stream (T4,
+     csrc/thomas_stream.cu);
   2. the kernel against its plain torch twin at the canonical 64-agent
      shapes: one 50-iteration chunk from the cold state on every rho rung,
      through the kernel, the float32 twin and a float64 twin; on each part
@@ -46,15 +47,51 @@ Phases (any failure raises and exits non-zero):
      1-rank NCCL group for the 64-agent forest with phase 2's host prep and
      the production phases, with the K1/K2/K3 launch counts read around
      it and a digest of its inputs, then phase 3's gate and objective pin
-     on its solution.
+     on its solution;
+ 10. K2 on bf16 pivots against its twins at the 64-agent shapes: phase 5's
+     device-prep inventory rounded to bf16, one seeded right-hand side per
+     rung through the kernel, the float32 twin and the float64 twin, both
+     twins on the same bf16 pivots (thomas.twin_gap_use); the median time
+     per solve of K2 on the float32 inventory, K2 on the bf16 one and the
+     bf16 twin (CUDA events);
+ 11. the refine-1 production solve of phase 2's problem (the one
+     ``cold_prep="device"`` solves) on phase 5's float32 device-prep
+     pivots, then with precond_dtype="bfloat16" (device prep rounded to
+     bf16) through K2-bf16 and once more with the float32 twin in K2's
+     place: K2-bf16 launched, K2 on float32 pivots and the twins not, a
+     finite solution, and the kernel's run against the twin's (the same
+     iterations, finite objectives within RUN_VS_TWIN); reported, not
+     required: phase 3's gate and objective pin on it and its objective
+     against the float32-pivot solve (a bf16 inventory preconditions the
+     production ladder too poorly for one PCG step, in the JAX package
+     too: PERF.md);
+ 12. the big-swarm route through the entry point: ``plan(...,
+     cold_prep="device")`` of the 256-agent scatter problem (the
+     budget256 study's, tools/budget256_study.py) with stage times, the
+     inventory's bytes, the peak device memory, iterations, objective and
+     the gate (no objective pin at this size); then, on the same host
+     problem, the study's full-budget arm (200, 600, 100) at refine 1: on
+     float32 pivots K2 held against its twins on the arm's inventory (as
+     in phase 5) and the arm checked (ratio >= 1, box and continuity <
+     1e-3); on bf16 pivots K2-bf16 held against its twins likewise, the
+     arm run through the kernel and again with the float32 twin in K2's
+     place, the two runs held together as in phase 11, and its checks and
+     objective gap against the float32 arm reported;
+ 13. the pivot-stream study T4 at the 256-agent shapes
+     (tools/thomas_bw_study.py, [2, 71, 2304, 2304] made on the card):
+     GB/s of every variant on float32 and bf16 pivots, of K2 on both and
+     of torch.sum, with the launch counts read around the study; then each
+     variant's output held against the plain version.
 The line before the last is the kernels' JSON record (each kernel's
 launches on its own path, errors, times of kernel and plain twin, and its
 bound: the larger of its bytes over 3.35 TB/s and its float32 operations
-over 67 TFLOP/s); the last line is {"ok": true, "device": {...}}.
-Without a CUDA card the script exits non-zero and prints no result.
+over 67 TFLOP/s; T4's library time is torch.sum's); the last line is
+{"ok": true, "device": {...}}.  Without a CUDA card the script exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -268,15 +305,19 @@ def solve_kernel_vs_twin(data, op, dev):
           "iterations")
 
 
-def thomas_vs_twin(op, dev, label: str):
-    """Phase 5: one solve per rung through K2, the float32 twin and a
-    float64 twin, on the rung inventory ``op`` (its float32 pivots; the
-    float64 twin solves with the same pivots in float64)."""
+def thomas_vs_twin(op, dev, label: str, pivots=torch.float32,
+                   reps: tuple[int, int] = (20, 3)):
+    """Phase 5 (and 10 and 12, with bf16 ``pivots``): one solve per rung
+    through K2, the float32 twin and a float64 twin, on the rung inventory
+    ``op`` (its pivots rounded to ``pivots``; both twins solve with those
+    same pivots, the float64 one widening them to float64); ``reps`` timed
+    solves per rung of kernel and twin."""
     from swarm_simulator_tpu_torch.ops import thomas
 
-    dinv32 = torch.as_tensor(op.Dinvs, device=dev).float().contiguous()
+    dinv32 = torch.as_tensor(op.Dinvs, device=dev).to(pivots).contiguous()
     ho32 = torch.as_tensor(op.Kos, device=dev).float().contiguous()
-    dinv64, ho64 = dinv32.double(), ho32.double()
+    ho64 = ho32.double()
+    dinv64 = dinv32.double() if pivots == torch.float32 else dinv32
     Mi, bs = dinv32.shape[1], dinv32.shape[-1]
     gen = torch.Generator().manual_seed(SEED)
     k64, t64, k32 = [], [], []
@@ -294,13 +335,15 @@ def thomas_vs_twin(op, dev, label: str):
         k32.append(thomas.rel_error(kern, twin))
         k64.append(thomas.rel_error(kern, twin64))
         t64.append(thomas.rel_error(twin, twin64))
-        k_ms += cuda_ms(lambda: thomas.thomas_solve(dinv32, ho32, b32, r), 20)
+        k_ms += cuda_ms(lambda: thomas.thomas_solve(dinv32, ho32, b32, r),
+                        reps[0])
         t_ms += cuda_ms(lambda: thomas.thomas_solve_reference(
-            dinv32, ho32, b32, r), 3)
+            dinv32, ho32, b32, r), reps[1])
         log(f"K2 {label} rung {r}: rel err k-t32 {k32[-1]:.1e} k-t64 "
             f"{k64[-1]:.1e} t32-t64 {t64[-1]:.1e}; kernel "
-            f"{np.median(k_ms[-20:]):.4f} ms twin {np.median(t_ms[-3:]):.3f} "
-            "ms")
+            f"{np.median(k_ms[-reps[0]:]):.4f} ms twin "
+            f"{np.median(t_ms[-reps[1]:]):.3f} ms")
+    del dinv64
     use = thomas.twin_gap_use(k64, t64)
     log(f"K2 {label}: share of the tolerance used (worst kernel vs float64 "
         f"twin over {thomas.TWIN_GAP_FACTOR} x worst float32 twin vs "
@@ -311,35 +354,41 @@ def thomas_vs_twin(op, dev, label: str):
           f"the float32 twin allows ({use:.2f} of the tolerance)")
     # one rung's pivots, b, x and Ho once; 2Mi-1 pivot matvecs
     phi = ho32.shape[-1]
-    nbytes = 4 * (Mi * bs * bs + 2 * Mi * bs + (Mi - 1) * phi * phi)
+    nbytes = (Mi * bs * bs * dinv32.element_size()
+              + 4 * (2 * Mi * bs + (Mi - 1) * phi * phi))
     return dict(use=use, max_abs_err=max_abs, ms=float(np.median(k_ms)),
                 plain_ms=float(np.median(t_ms)),
                 bound=bound(nbytes, (2 * Mi - 1) * 2 * bs * bs))
 
 
-def _counted():
+def _counters() -> dict:
+    """{name: (function, counter attribute)}: each kernel's launches (K2's
+    on float32 and on bf16 pivots apart) and each twin's calls on CUDA."""
     from swarm_simulator_tpu_torch.ops import nsfused, thomas
+    from swarm_simulator_tpu_torch.ops import thomas_stream as ts
 
-    return dict(k1=nsfused.nsfused_chunk, k2=thomas.thomas_solve,
-                k3a=thomas.thomas_chunk_fwd, k3b=thomas.thomas_chunk_bwd), \
-        dict(twin1=nsfused.nsfused_chunk_reference,
-             twin2=thomas.thomas_solve_reference,
-             twin3a=thomas.thomas_chunk_fwd_reference,
-             twin3b=thomas.thomas_chunk_bwd_reference)
+    return dict(k1=(nsfused.nsfused_chunk, "launches"),
+                k2=(thomas.thomas_solve, "launches"),
+                k2bf16=(thomas.thomas_solve, "launches_bf16"),
+                k3a=(thomas.thomas_chunk_fwd, "launches"),
+                k3b=(thomas.thomas_chunk_bwd, "launches"),
+                t4=(ts.thomas_stream, "launches"),
+                twin1=(nsfused.nsfused_chunk_reference, "cuda_calls"),
+                twin2=(thomas.thomas_solve_reference, "cuda_calls"),
+                twin3a=(thomas.thomas_chunk_fwd_reference, "cuda_calls"),
+                twin3b=(thomas.thomas_chunk_bwd_reference, "cuda_calls"))
 
 
 def reset_counts():
-    kernels, twins = _counted()
-    for f in kernels.values():
-        f.launches = 0
-    for f in twins.values():
-        f.cuda_calls = 0
+    for f, attr in _counters().values():
+        setattr(f, attr, 0)
 
 
 def read_counts() -> dict:
-    kernels, twins = _counted()
-    return {**{k: f.launches for k, f in kernels.items()},
-            **{k: f.cuda_calls for k, f in twins.items()}}
+    return {k: getattr(f, attr) for k, (f, attr) in _counters().items()}
+
+
+TWINS = ("twin1", "twin2", "twin3a", "twin3b")
 
 
 def gate(result, mission, param, dev, label: str):
@@ -429,20 +478,167 @@ def refine_solve_alone(plan, mission, param, cold_ctrl, dev):
         t0 = time.perf_counter()
         x, info = ns.solve_ns_schedule(d, op, s0, it_k, lo_k, hi_k)
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, int(info.iters), x.double()
+        return (time.perf_counter() - t0, int(info.iters), x.double(),
+                float(info.obj))
 
-    k1_s, k1_it, xk = run()
+    k1_s, k1_it, xk, obj = run()
     with mock.patch.object(thomas, "thomas_solve",
                            thomas.thomas_solve_reference):
-        tw_s, tw_it, xt = run()
-    k2_s, k2_it, _ = run()
+        tw_s, tw_it, xt, _ = run()
+    k2_s, k2_it, _, _ = run()
     dx = float((xk - xt).abs().max()) / float(xt.abs().max())
     log(f"refine-1 solve alone (device prep {prep_s:.3f} s), host clock: "
         f"K2 {k1_s:.3f} s ({k1_it} iters), float32 twin {tw_s:.3f} s "
         f"({tw_it} iters), K2 {k2_s:.3f} s ({k2_it} iters); solution rel "
-        f"diff K2 vs twin {dx:.2e}")
+        f"diff K2 vs twin {dx:.2e}; objective {obj:.6f}")
     check(k1_it == k2_it, f"K2 solves disagree: {k1_it} vs {k2_it} "
           "iterations")
+
+
+#: the kernel's run of a refine-1 solve on bf16 pivots against the same
+#: solve with the float32 twin in K2's place: objectives within this share
+#: of the twin's (900 float32 iterations stopped by their cap carry the
+#: order of the sums into the objective; 2-4% on float32 pivots, PERF.md)
+RUN_VS_TWIN = 0.05
+
+
+@contextlib.contextmanager
+def traced(twin: bool = False):
+    """Record (rung, ||w||) after every chunk of the refine solves run
+    inside (one host read per chunk, beside the loop's own), with the
+    float32 twin in K2's place when ``twin``; yields the list."""
+    from unittest import mock
+
+    from swarm_simulator_tpu_torch.ops import thomas
+    from swarm_simulator_tpu_torch.qp import nullspace as ns
+
+    trace = []
+    steps = ns.admm_steps
+
+    def admm_steps(op, cop, l, u, rho_idx, *a, **k):
+        w, z, y = steps(op, cop, l, u, rho_idx, *a, **k)
+        trace.append((int(rho_idx),
+                      float(torch.linalg.vector_norm(w.double()))))
+        return w, z, y
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(ns, "admm_steps", admm_steps))
+        if twin:
+            stack.enter_context(mock.patch.object(
+                thomas, "thomas_solve", thomas.thomas_solve_reference))
+        yield trace
+
+
+def compare_runs(label: str, kern: dict, twin: dict) -> None:
+    """Check the kernel's run of a solve against the twin's run (records
+    with "obj", "iters" and "trace", traced()'s (rung, ||w||) per chunk):
+    the same iterations, the same first non-finite chunk (or none), and
+    finite objectives within RUN_VS_TWIN; log the rungs and norms."""
+    def first_bad(norms):
+        return next((i for i, v in enumerate(norms) if not np.isfinite(v)),
+                    None)
+
+    rk, nk = (np.asarray(v) for v in zip(*kern["trace"]))
+    rt, nt = (np.asarray(v) for v in zip(*twin["trace"]))
+    both = np.isfinite(nk) & np.isfinite(nt)
+    part = (np.abs(nk - nt)[both] / np.maximum(nt[both], 1e-30))
+    bad = (first_bad(nk), first_bad(nt))
+    upto = len(nk) if bad[0] is None else bad[0] + 1
+    log(f"{label}, kernel vs twin run: objective {kern['obj']:.6g} vs "
+        f"{twin['obj']:.6g}, iters {kern['iters']} vs {twin['iters']}; "
+        f"first non-finite chunk {bad[0]} vs {bad[1]} of {len(nk)}; "
+        f"per chunk up to it, rung kernel {rk[:upto].tolist()} twin "
+        f"{rt[:upto].tolist()}, ||w|| kernel "
+        + " ".join(f"{v:.4g}" for v in nk[:upto]) + ", twin "
+        + " ".join(f"{v:.4g}" for v in nt[:upto])
+        + f"; worst rel gap over {int(both.sum())} finite chunks "
+        f"{part.max() if part.size else float('nan'):.2e}")
+    check(kern["iters"] == twin["iters"], f"{label}: kernel and twin runs "
+          f"took {kern['iters']} and {twin['iters']} iterations")
+    check(bad[0] == bad[1], f"{label}: first non-finite chunk {bad[0]} in "
+          f"the kernel's run, {bad[1]} in the twin's")
+    if bad[0] is None:
+        gap = abs(kern["obj"] - twin["obj"]) / abs(twin["obj"])
+        check(gap <= RUN_VS_TWIN, f"{label}: objective {100 * gap:.2f}% "
+              f"from the twin run's (limit {100 * RUN_VS_TWIN:.0f}%)")
+
+
+def bf16_refine_solve(data, op32, plan, mission, param, dev):
+    """Phase 11: the 64-agent forest's cold problem (phase 2's data, the one
+    ``cold_prep="device"`` solves) through the refine-1 production phases
+    on device-prep pivots: float32 (phase 5's inventory), then bf16
+    through K2-bf16, then the same bf16 inventory with the float32 twin in
+    K2's place.  Checked: the launches, a finite solution, and the kernel's
+    run against the twin's (compare_runs).  Reported: phase 3's gate and
+    objective pin on the bf16 solution and its objective against the
+    float32-pivot solve's (5% wanted; the JAX package misses it on the
+    same data too: tests/test_torch_bf16.py's witness_forest64, PERF.md)."""
+    from swarm_simulator_tpu_torch.eval.gate import gate_quality
+    from swarm_simulator_tpu_torch.qp import convert, joint, nullspace as ns
+
+    base = dataclasses.replace(joint.production_settings(),
+                               precond_dtype="bfloat16")
+    phases = joint.production_phases(base=base, kkt_refine=1)
+    sched = ns.schedule_arrays(phases)
+    d = data.to(dev)
+    log(f"bf16 refine-1 solve inputs: data {digest(data)}")
+    t0 = time.perf_counter()
+    _, info32 = ns.solve_ns_schedule(
+        d, op32, *ns.schedule_arrays(joint.production_phases(kkt_refine=1)))
+    torch.cuda.synchronize()
+    solve32_s = time.perf_counter() - t0
+    obj32 = float(info32.obj)
+    t0 = time.perf_counter()
+    op = ns.prepare_ns(d, phases[0])
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    check(op.Dinvs.dtype == torch.bfloat16,
+          f"bf16 prep gave {op.Dinvs.dtype} pivots")
+    runs = {}
+    for twin in (False, True):
+        reset_counts()
+        t0 = time.perf_counter()
+        with traced(twin) as trace:
+            x, info = ns.solve_ns_schedule(d, op, *sched)
+            torch.cuda.synchronize()
+        runs[twin] = dict(x=x, obj=float(info.obj), iters=int(info.iters),
+                          r_prim=float(info.r_prim), trace=trace,
+                          solve_s=time.perf_counter() - t0,
+                          counts=read_counts())
+    counts, obj = runs[False]["counts"], runs[False]["obj"]
+    gap = abs(obj - obj32) / abs(obj32)
+    log(f"bf16-pivot refine-1 solve: device prep {prep_s:.3f} s (pivots "
+        f"{op.Dinvs.numel() * 2 / 1e6:.1f} MB bf16), solve "
+        f"{runs[False]['solve_s']:.3f} s host clock (twin in K2's place "
+        f"{runs[True]['solve_s']:.3f} s), iters {runs[False]['iters']} "
+        f"r_prim {runs[False]['r_prim']:.3e}, objective {obj:.6f} vs "
+        f"float32 pivots {obj32:.6f} (gap {100 * gap:.2f}%, 5% wanted; "
+        f"float32-pivot solve {solve32_s:.3f} s); launches K2-bf16 "
+        f"{counts['k2bf16']} K2-f32 {counts['k2']} K1 {counts['k1']}, twin "
+        f"calls on CUDA {sum(counts[k] for k in TWINS)}")
+    check(counts["k2bf16"] > 0, "the bf16 solve launched K2-bf16 0 times")
+    check(counts["k2"] == 0 and counts["k1"] == 0,
+          f"the bf16 solve launched K2 on float32 pivots or K1 ({counts})")
+    check(all(counts[k] == 0 for k in TWINS),
+          f"the bf16 solve ran a plain twin on CUDA ({counts})")
+    ct = runs[True]["counts"]
+    check(ct["k2bf16"] == 0 and ct["twin2"] > 0,
+          f"the twin run launched K2-bf16 or skipped the twin ({ct})")
+    compare_runs("64-agent bf16 refine-1 solve", runs[False], runs[True])
+    ctrl = convert.x_to_ctrl(runs[False]["x"].double().cpu().numpy(), plan.M,
+                             param.n)
+    check(bool(np.isfinite(ctrl).all()), "bf16 solve: non-finite")
+    ok, m = gate_quality(ctrl, plan, mission, param, device=dev)
+    # reported, not required: a bf16 inventory preconditions the production
+    # ladder too poorly for a refine-1 solve to reach the float32-pivot
+    # solve, in the JAX package too (PERF.md, the bf16 findings)
+    log(f"bf16 solve quality (reported): gate {'passed' if ok else 'FAILED'}"
+        f", objective {'within' if gap < 0.05 else 'NOT within'} 5% of the "
+        f"float32-pivot solve's, pin < {OBJ_PIN} "
+        f"{'held' if obj < OBJ_PIN else 'NOT held'}: " + json.dumps(
+            {k: (float(v) if not isinstance(v, bool) else v)
+             for k, v in m.items()}))
+    return dict(counts=counts, obj=obj, obj32=obj32, gap=gap, gate=ok)
 
 
 def chunked_solve(dinv, kos, b, rho_idx: int, n: int, fwd=None, bwd=None):
@@ -589,8 +785,7 @@ def sharded_solve(data, op, plan, mission, param, dev):
           "the sharded solve launched K3a/K3b 0 times")
     check(counts["k1"] == 0 and counts["k2"] == 0,
           f"the sharded solve launched K1/K2 ({counts})")
-    check(all(counts[k] == 0 for k in ("twin1", "twin2", "twin3a",
-                                       "twin3b")),
+    check(all(counts[k] == 0 for k in TWINS),
           f"the sharded solve ran a plain twin on CUDA ({counts})")
     ctrl = convert.x_to_ctrl(x, plan.M, param.n)
     check(bool(np.isfinite(ctrl).all()), "sharded solve: non-finite")
@@ -603,6 +798,165 @@ def sharded_solve(data, op, plan, mission, param, dev):
     check(ok, f"sharded solve: acceptance gate failed: {m}")
     check(obj < OBJ_PIN, f"sharded solve: objective {obj} >= {OBJ_PIN}")
     return dict(counts=counts, solve_s=solve_s, iters=iters)
+
+
+def big_swarm_plan(dev, agents: int = 256):
+    """Phase 12, first part: the 256-agent scatter problem through
+    ``plan(..., cold_prep="device")`` (stage times, inventory bytes, peak
+    device memory, launch counts, the gate without the 64-agent objective
+    pin)."""
+    import swarm_simulator_tpu_torch as port
+    from swarm_simulator_tpu_torch.eval.gate import gate_quality
+    from swarm_simulator_tpu_torch.tools import budget256_study as bud
+
+    mission, param, world = bud.scatter_config(agents)
+    param = dataclasses.replace(param, cold_prep="device")
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    result, times = port.plan(mission, param, world, device=dev)
+    torch.cuda.synchronize()
+    cycle_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    info = result.solver_info
+    log(f"{agents} agents, cold_prep=device: M={result.M} pairs "
+        f"{len(result.pair_idx)}; cycle {cycle_s:.3f} s: esdf "
+        f"{times.esdf:.3f} search {times.init_traj:.3f} corridor "
+        f"{times.corridor:.3f} qp {times.qp:.3f} (device prep "
+        f"{info['prep_s']:.3f} cold solve {info['solve_s']:.3f} polish "
+        f"{info['polish_rounds']} rounds {info['polish_s']:.3f}) timescale "
+        f"{times.timescale:.3f}; inventory {info['inventory_bytes'] / 1e9:.3f}"
+        f" GB, peak device memory {peak / 1e9:.3f} GB; iters "
+        f"{info['iters'][0]} r_prim {info['r_prim'][0]:.3e} objective "
+        f"{info['obj'][0]:.4f}; launches K2 {counts['k2']} K2-bf16 "
+        f"{counts['k2bf16']} K1 {counts['k1']}, twin calls on CUDA "
+        f"{sum(counts[k] for k in TWINS)}")
+    check(counts["k2"] > 0, "the big-swarm plan launched K2 0 times")
+    check(counts["k1"] == 0, "the big-swarm device-prep plan launched K1")
+    check(all(counts[k] == 0 for k in TWINS),
+          f"the big-swarm plan ran a plain twin on CUDA ({counts})")
+    check(result.ctrl.shape == (agents, result.M, param.n + 1, 3)
+          and bool(np.isfinite(result.ctrl).all()),
+          f"{agents} agents: control points {result.ctrl.shape}, finite "
+          f"{bool(np.isfinite(result.ctrl).all())}")
+    ok, m = gate_quality(result.ctrl, result, mission, param, device=dev)
+    log(f"{agents}-agent gate (no objective pin): " + json.dumps(
+        {k: (float(v) if not isinstance(v, bool) else v)
+         for k, v in m.items()}))
+    check(ok, f"{agents} agents: acceptance gate failed: {m}")
+    return dict(counts=counts, cycle_s=cycle_s)
+
+
+def budget_arms(dev, agents: int = 256):
+    """Phase 12, second part: on the same host problem, the budget256
+    study's full-budget arm (200, 600, 100) at refine 1, first on float32
+    and then on bf16 pivots.  For each: the device prep; K2 (K2-bf16) held
+    against its twins on that inventory, at the shapes the arm gives it
+    (thomas_vs_twin: 96 cooperative blocks, rows of 2304); the arm through
+    the kernel, checked (ratio >= 1, box and continuity < 1e-3) on float32
+    pivots; on bf16 pivots the arm once more with the float32 twin in
+    K2's place, the two runs held together (compare_runs), and the bf16
+    arm's checks and objective against the float32 arm's reported."""
+    from swarm_simulator_tpu_torch.tools import budget256_study as bud
+
+    t0 = time.perf_counter()
+    plan, mission, param, data = bud.build_problem(agents)
+    log(f"budget arms: host problem rebuilt in {time.perf_counter() - t0:.3f}"
+        " s")
+    data_dev = data.to(dev)
+    arms, k2 = {}, {}
+    for bf16 in (False, True):
+        label = "bf16" if bf16 else "float32"
+        base = bud.base_settings(1, bf16)
+        t0 = time.perf_counter()
+        op = bud.prepare(data_dev, base)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        k2[label] = thomas_vs_twin(op, dev, f"{agents}-agent {label}",
+                                   op.Dinvs.dtype, reps=(5, 1))
+        for twin in ((False, True) if bf16 else (False,)):
+            reset_counts()
+            with traced(twin) as trace:
+                r = bud.run_arm(data_dev, op, base, bud.ARMS[0], plan,
+                                mission, param, data, dev)
+            counts = read_counts()
+            r["trace"] = trace
+            check((counts["twin2"] > 0) == twin and (counts["k2bf16"]
+                                                     > 0) == (bf16 and not
+                                                              twin),
+                  f"{label} arm (twin {twin}): launches {counts}")
+            how = " (float32 twin in K2's place)" if twin else ""
+            log(f"full-budget arm {bud.ARMS[0]}, refine 1, {label} pivots"
+                f"{how}: prep {prep_s:.3f} s, solve {r['solve_s']:.3f} s "
+                f"({r['iters']} iters, r_prim {r['r_prim']:.3e}) ratio "
+                f"{r['ratio']:.4f} box {r['box_viol']:.2e} cont "
+                f"{r['cont']:.2e} objective {r['obj']:.4f}")
+            arms[label + (" twin" if twin else "")] = r
+        del op
+        torch.cuda.empty_cache()
+    check(arms["float32"]["ok"], "the float32-pivot full-budget arm failed "
+          f"its checks: {arms['float32']}")
+    compare_runs(f"{agents}-agent bf16 full-budget arm", arms["bf16"],
+                 arms["bf16 twin"])
+    gap = abs(arms["bf16"]["obj"] - arms["float32"]["obj"]) / abs(
+        arms["float32"]["obj"])
+    # reported, not required (see phase 11): the bf16 arm's checks and its
+    # objective against the float32 arm's
+    verdict = "passed" if arms["bf16"]["ok"] else "FAILED"
+    log(f"bf16 arm (reported): checks {verdict}, objective "
+        f"{100 * gap:.2f}% from the float32 arm's (5% wanted)")
+    return dict(arms=arms, k2=k2)
+
+
+def stream_study(dev, agents: int = 256):
+    """Phase 13: T4 at the 256-agent shapes through the study
+    (tools/thomas_bw_study.run_study), with the launch counts read around
+    it; then each variant on float32 and bf16 pivots held against the
+    plain version, and the plain version timed."""
+    from swarm_simulator_tpu_torch.ops import thomas_stream as ts
+    from swarm_simulator_tpu_torch.tools import thomas_bw_study as bw
+
+    dinv = bw.synthetic_inventory(agents, 72, dev)
+    R, Mi, bs = dinv.shape[0], dinv.shape[1], dinv.shape[-1]
+    reset_counts()
+    study = bw.run_study(dinv, 10)
+    counts = read_counts()
+    check(counts["t4"] > 0, "the study launched T4 0 times")
+    for label in ("float32", "bfloat16"):
+        rows = ", ".join(f"{k} {v['ms']:.4f} ms {v['gbps']:.1f} GB/s"
+                         for k, v in study[label].items()
+                         if isinstance(v, dict))
+        log(f"T4 {label} (rung {study[label]['rung_gb']:.3f} GB): {rows}")
+    max_abs, worst = 0.0, 0.0
+    plain_ms = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        d = dinv.to(dtype)
+        for r in range(R):
+            want = ts.thomas_stream_reference(d, r)
+            absum = d[r].float().abs().sum(dim=(0, 1))
+            for name, (slots, split) in ts.VARIANTS.items():
+                got = ts.thomas_stream(d, r, slots, split)
+                err = (got - want).abs()
+                max_abs = max(max_abs, float(err.max()))
+                worst = max(worst, float((err / absum).max()))
+        plain_ms[dtype] = float(np.median(cuda_ms(
+            lambda: ts.thomas_stream_reference(d, 0), 5)))
+        del d
+    log(f"T4 vs plain on both dtypes, every variant, both rungs: max abs "
+        f"err {max_abs:.3e}, worst over columns of err / column abs sum "
+        f"{worst:.2e} (limit 1e-5); plain ms float32 "
+        f"{plain_ms[torch.float32]:.4f} bf16 {plain_ms[torch.bfloat16]:.4f}")
+    check(worst <= 1e-5, f"T4 disagrees with the plain version ({worst:.2e})")
+    del dinv
+    torch.cuda.empty_cache()
+    f32 = study["float32"]
+    # the default variant (2 slots, whole tiles) on float32 pivots: the
+    # rung read once, [bs] written; one add per element
+    return dict(counts=counts, max_abs_err=max_abs, ms=f32["dma2"]["ms"],
+                plain_ms=plain_ms[torch.float32],
+                library_ms=f32["torch.sum"]["ms"],
+                bound=bound(Mi * bs * bs * 4 + bs * 4, Mi * bs * bs))
 
 
 def main() -> int:
@@ -624,7 +978,7 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    built = _build.build("nsfused", "thomas", verbose=True)
+    built = _build.build("nsfused", "thomas", "thomas_stream", verbose=True)
     log(f"kernel builds (parallel): {time.perf_counter() - t0:.2f} s")
     for name, (path, build_s, ptxas) in built.items():
         log(f"  {name}: {build_s:.2f} s -> {path.name}")
@@ -690,7 +1044,6 @@ def main() -> int:
     log(f"device prep (float32, 5 rungs batched): "
         f"{time.perf_counter() - t0:.3f} s")
     k2_dev = thomas_vs_twin(op_dev, dev, "device-prep")
-    del op_dev
 
     # ---- phases 6 and 7: the replan slice, then its solve alone ----
     rp = replan_paths(mission, param, world, dev)
@@ -700,37 +1053,61 @@ def main() -> int:
     k3 = chunk_sweeps_vs_twins(k1["op"], dev)
     sh = sharded_solve(k1["data"], k1["op"], plan0, mission, param, dev)
 
-    def entry(name, replaces, launches, max_abs_err, ms, plain_ms, bnd):
-        # no single PyTorch call computes these functions (a Thomas solve
-        # or sweep from stored pivot inverses, a fused ADMM chunk), so
-        # there is no library time to stand beside them
+    # ---- phases 10 and 11: K2 on bf16 pivots, then the bf16 solve ----
+    k2_16 = thomas_vs_twin(op_dev, dev, "device-prep bf16", torch.bfloat16)
+    log(f"K2 median ms per solve at 64 agents: float32 pivots "
+        f"{k2_dev['ms']:.4f}, bf16 pivots {k2_16['ms']:.4f}, bf16 twin "
+        f"{k2_16['plain_ms']:.3f}")
+    b16 = bf16_refine_solve(k1["data"], op_dev, plan0, mission, param, dev)
+    del op_dev
+
+    # ---- phases 12 and 13: the 256-agent route, then the stream study ----
+    big_swarm_plan(dev)
+    big = budget_arms(dev)
+    t4 = stream_study(dev)
+
+    def entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
+              bnd, library_ms=None):
+        # no single PyTorch call computes a Thomas solve or sweep from
+        # stored pivot inverses or a fused ADMM chunk, so those have no
+        # library time; T4's function is one torch.sum
         return {"name": name, "route": "cuda",
-                "source": "swarm_simulator_tpu_torch/csrc/"
-                          + ("nsfused.cu" if name == "nsfused_chunk"
-                             else "thomas.cu"),
+                "source": "swarm_simulator_tpu_torch/csrc/" + source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms}
 
     # the sharded solve's path runs one rank: the chunk sweeps at n = 1
     k3_1 = k3[1]
     k3_err = max(k3[1]["max_abs_err"], k3[4]["max_abs_err"])
     print(json.dumps({"kernels": [
-        entry("nsfused_chunk",
+        entry("nsfused_chunk", "nsfused.cu",
               "swarm_simulator_tpu/ops/pallas_nsfused.py:506", launches,
               k1["max_abs_err"], k1["ms"], k1["plain_ms"], k1["bound"]),
-        entry("thomas_solve", "swarm_simulator_tpu/ops/pallas_thomas.py:359",
+        entry("thomas_solve", "thomas.cu",
+              "swarm_simulator_tpu/ops/pallas_thomas.py:359",
               rp["replan"]["counts"]["k2"],
-              max(k2["max_abs_err"], k2_dev["max_abs_err"]), k2["ms"],
+              max(k2["max_abs_err"], k2_dev["max_abs_err"],
+                  big["k2"]["float32"]["max_abs_err"]), k2["ms"],
               k2["plain_ms"], k2["bound"]),
-        entry("thomas_chunk_fwd",
+        entry("thomas_chunk_fwd", "thomas.cu",
               "swarm_simulator_tpu/ops/pallas_thomas.py:291",
               sh["counts"]["k3a"], k3_err, k3_1["fwd"], k3_1["fwd_twin"],
               k3_1["bound"]),
-        entry("thomas_chunk_bwd",
+        entry("thomas_chunk_bwd", "thomas.cu",
               "swarm_simulator_tpu/ops/pallas_thomas.py:326",
               sh["counts"]["k3b"], k3_err, k3_1["bwd"], k3_1["bwd_twin"],
-              k3_1["bound"])]}), flush=True)
+              k3_1["bound"]),
+        entry("thomas_solve_bf16", "thomas.cu",
+              "swarm_simulator_tpu/ops/pallas_thomas.py:359",
+              b16["counts"]["k2bf16"],
+              max(k2_16["max_abs_err"], big["k2"]["bf16"]["max_abs_err"]),
+              k2_16["ms"], k2_16["plain_ms"], k2_16["bound"]),
+        entry("thomas_stream", "thomas_stream.cu",
+              "tools/thomas_bw_study.py:103", t4["counts"]["t4"],
+              t4["max_abs_err"], t4["ms"], t4["plain_ms"], t4["bound"],
+              t4["library_ms"])]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

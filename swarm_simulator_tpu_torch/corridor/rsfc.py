@@ -8,7 +8,10 @@ normalized and z-rescaled.  The QP then enforces
 for every pair of matching control points (rbp_planner.hpp:636-684).
 
 Numpy form only (the JAX package's ``_pair_planes_numpy``, which its
-tests pin equal to the jitted einsum form).
+tests pin equal to the jitted einsum form), at every size: the JAX
+package takes its jitted form above 200,000 pair-segments (256 agents
+have 2.3 M) to run it on its device; this chain is already vectorised
+and stays on the host.
 """
 from __future__ import annotations
 

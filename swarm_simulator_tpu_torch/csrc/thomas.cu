@@ -37,7 +37,16 @@
 // pivots are NOT assumed symmetric (the device prep's LU-plus-Newton
 // inverses are not): every product is Dinv_k @ v, a row of Dinv_k against
 // the vector.  Arithmetic is float32 FMA on CUDA cores.
+//
+// K2 also reads bf16 pivots (the preconditioner-only inventory of
+// NSSettings.precond_dtype="bfloat16", the Pallas kernel's bf16 double
+// buffer): each pivot is widened to float32 at the multiply, as the TPU
+// kernel promotes its bf16 slab, and b, y, x stay float32.  The rows are
+// read 8 bf16 (16 bytes) per lane, so the stream is half of float32's: at
+// 256 agents (bs = 2304, Mi = 71) a rung is 0.754 GB instead of 1.508 GB,
+// read once by each sweep.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -47,8 +56,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxPhi = 4;
 
+template <typename T>
 struct Params {
-  const float* dinv;  // [Mi, bs, bs] pivot inverses of the rung
+  const T* dinv;      // [Mi, bs, bs] pivot inverses of the rung
   const float* ho;    // [Mi-1, phi, phi]
   const float* b;     // [Mi, bs]
   float* y;           // [Mi, bs] scratch: forward rows y_k
@@ -84,7 +94,47 @@ __device__ __forceinline__ float row_dot(const float* __restrict__ row,
   return warp_sum(s);
 }
 
-__global__ void __launch_bounds__(kThreads) thomas_kernel(const Params p) {
+// the same for a bf16 row, each element widened to float32 at the FMA;
+// vec8: 8 bf16 (one 16-byte load) per lane step
+__device__ __forceinline__ float row_dot(const __nv_bfloat16* __restrict__ row,
+                                         const float* vec, int n, int lane,
+                                         bool vec8) {
+  float s = 0.f;
+  if (vec8) {
+    const uint4* r8 = reinterpret_cast<const uint4*>(row);
+    const float4* v4 = reinterpret_cast<const float4*>(vec);
+    for (int j = lane; j < (n >> 3); j += 32) {
+      const uint4 u = __ldg(r8 + j);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+      const float4 b0 = v4[2 * j], b1 = v4[2 * j + 1];
+      const float2 a0 = __bfloat1622float2(h[0]);
+      const float2 a1 = __bfloat1622float2(h[1]);
+      const float2 a2 = __bfloat1622float2(h[2]);
+      const float2 a3 = __bfloat1622float2(h[3]);
+      s = fmaf(a0.x, b0.x, s);
+      s = fmaf(a0.y, b0.y, s);
+      s = fmaf(a1.x, b0.z, s);
+      s = fmaf(a1.y, b0.w, s);
+      s = fmaf(a2.x, b1.x, s);
+      s = fmaf(a2.y, b1.y, s);
+      s = fmaf(a3.x, b1.z, s);
+      s = fmaf(a3.y, b1.w, s);
+    }
+  } else {
+    for (int j = lane; j < n; j += 32)
+      s = fmaf(__bfloat162float(row[j]), vec[j], s);
+  }
+  return warp_sum(s);
+}
+
+// elements of T in one 16-byte row load
+template <typename T>
+__device__ __forceinline__ bool rows_vectorised(int bs) {
+  return bs % (16 / (int)sizeof(T)) == 0;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) thomas_kernel(const Params<T> p) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float4 smem4[];
   float* sh = reinterpret_cast<float*>(smem4);
@@ -94,7 +144,7 @@ __global__ void __launch_bounds__(kThreads) thomas_kernel(const Params p) {
   const int warps_per_block = blockDim.x >> 5;
   const int gwarp = blockIdx.x * warps_per_block + (threadIdx.x >> 5);
   const int nwarps = gridDim.x * warps_per_block;
-  const bool vec4 = (bs & 3) == 0;
+  const bool vec = rows_vectorised<T>(bs);
   const size_t blk = (size_t)bs * bs;
 
   // ---- forward sweep ----
@@ -104,12 +154,12 @@ __global__ void __launch_bounds__(kThreads) thomas_kernel(const Params p) {
     const float* yk = k == 0 ? p.b : p.y + (size_t)k * bs;
     for (int i = threadIdx.x; i < bs; i += blockDim.x) sh[i] = __ldcg(yk + i);
     __syncthreads();
-    const float* Dk = p.dinv + (size_t)k * blk;
+    const T* Dk = p.dinv + (size_t)k * blk;
     for (int grp = gwarp; grp < B3; grp += nwarps) {
       float tv[kMaxPhi];
       for (int a = 0; a < phi; ++a)
         tv[a] = row_dot(Dk + (size_t)(grp * phi + a) * bs, sh, bs, lane,
-                        vec4);
+                        vec);
       if (lane == 0) {
         const int r0 = grp * phi;
         if (k == 0)
@@ -145,12 +195,12 @@ __global__ void __launch_bounds__(kThreads) thomas_kernel(const Params p) {
       sh[i] = s;
     }
     __syncthreads();
-    const float* Dk = p.dinv + (size_t)k * blk;
+    const T* Dk = p.dinv + (size_t)k * blk;
     for (int grp = gwarp; grp < B3; grp += nwarps) {
       float tv[kMaxPhi];
       for (int a = 0; a < phi; ++a)
         tv[a] = row_dot(Dk + (size_t)(grp * phi + a) * bs, sh, bs, lane,
-                        vec4);
+                        vec);
       if (lane == 0)
         for (int a = 0; a < phi; ++a)
           p.x[(size_t)k * bs + grp * phi + a] = tv[a];
@@ -305,6 +355,23 @@ int launch_coop(void (*kernel)(const P), P p, int B3, int phi,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int solve_as(void* dinv, void* ho, void* b, void* y, void* x, int B3, int Mi,
+             int phi, void* stream) {
+  if (phi < 1 || phi > kMaxPhi || Mi < 1 || B3 < 1)
+    return (int)cudaErrorInvalidValue;
+  Params<T> p;
+  p.dinv = (const T*)dinv;
+  p.ho = (const float*)ho;
+  p.b = (const float*)b;
+  p.y = (float*)y;
+  p.x = (float*)x;
+  p.B3 = B3;
+  p.Mi = Mi;
+  p.phi = phi;
+  return launch_coop(thomas_kernel<T>, p, B3, phi, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -316,18 +383,13 @@ extern "C" {
 // K2: x [Mi, bs] = K^-1 b; `y` is [Mi, bs] scratch.
 int thomas_solve(void* dinv, void* ho, void* b, void* y, void* x, int B3,
                  int Mi, int phi, void* stream) {
-  if (phi < 1 || phi > kMaxPhi || Mi < 1 || B3 < 1)
-    return (int)cudaErrorInvalidValue;
-  Params p;
-  p.dinv = (const float*)dinv;
-  p.ho = (const float*)ho;
-  p.b = (const float*)b;
-  p.y = (float*)y;
-  p.x = (float*)x;
-  p.B3 = B3;
-  p.Mi = Mi;
-  p.phi = phi;
-  return launch_coop(thomas_kernel, p, B3, phi, stream);
+  return solve_as<float>(dinv, ho, b, y, x, B3, Mi, phi, stream);
+}
+
+// K2 on bf16 pivots (`dinv` [Mi, bs, bs] bf16; ho, b, y, x float32).
+int thomas_solve_bf16(void* dinv, void* ho, void* b, void* y, void* x,
+                      int B3, int Mi, int phi, void* stream) {
+  return solve_as<__nv_bfloat16>(dinv, ho, b, y, x, B3, Mi, phi, stream);
 }
 
 // K3a on `stream`: T [L, bs] of one chunk from b [L, bs], the couplings

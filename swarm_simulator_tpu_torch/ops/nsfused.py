@@ -99,9 +99,23 @@ def pair_csr(pair_bi: np.ndarray, pair_bj: np.ndarray,
             coef[order].astype(np.float32))
 
 
+def refuse_bf16(dinv) -> None:
+    """The fused chunk reads float32 pivots: a bf16 inventory
+    (NSSettings.precond_dtype="bfloat16") is a preconditioner for the
+    kkt_refine >= 1 solve through ops/thomas, never K1's operator."""
+    if isinstance(dinv, torch.Tensor) and dinv.dtype == torch.bfloat16:
+        raise ValueError(
+            "bf16 pivot inventory (precond_dtype='bfloat16') requires "
+            "kkt_refine >= 1 (the Thomas solve, K2): the fused chunk (K1) "
+            "would widen it back to float32 and solve with the rounded "
+            "pivots as its exact operator")
+
+
 def build_operands(data, op, pop, l, u) -> FusedOperands:
     """Kernel operands from the solver's data, operator, pair operator and
-    (tightened) bounds — all tensors on one device."""
+    (tightened) bounds — all tensors on one device.  Refuses a bf16 pivot
+    inventory (refuse_bf16)."""
+    refuse_bf16(op.Dinvs)
     B, K3, D = data.lb.shape
     M = data.Qseg.shape[0]
     npp = D // M
@@ -214,6 +228,7 @@ def nsfused_chunk(ops: FusedOperands, rho_idx: int, sigma: float,
     w [B, 3, nw], z/y NSConstr(box [B, 3, D], pair [P, D]).  CUDA float32
     tensors launch the fused kernel once; CPU tensors run the plain twin;
     anything else raises.  Returns the new (w, z, y)."""
+    refuse_bf16(ops.op.Dinvs)
     if w.device.type == "cpu":
         return nsfused_chunk_reference(ops, rho_idx, sigma, alpha, w, z, y,
                                        n_inner)

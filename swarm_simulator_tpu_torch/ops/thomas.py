@@ -3,19 +3,21 @@
 Three wrappers of the hand-written CUDA kernels in ``csrc/thomas.cu``,
 one library:
 
-  thomas_solve       (K2)  one x = K(rho_r)^-1 b; replaces the JAX
-                           package's Pallas TPU kernel
-                           ``ops/pallas_thomas.py::_kernel``
-                           (``thomas_solve_pallas``)
+  thomas_solve       (K2)  one x = K(rho_r)^-1 b on float32 or bf16
+                           pivots; replaces the JAX package's Pallas TPU
+                           kernel ``ops/pallas_thomas.py::_kernel``
+                           (``thomas_solve_pallas``) in both of its
+                           inventory dtypes
   thomas_chunk_fwd   (K3a) the forward sweep over one knot chunk of the
                            cross-device pipeline (qp/nullspace_shard);
                            replaces ``_chunk_fwd_kernel``
   thomas_chunk_bwd   (K3b) the back substitution over one chunk; replaces
                            ``_chunk_bwd_kernel``
 
-For CUDA float32 tensors a wrapper launches its kernel once or raises; it
-takes its plain twin (``*_reference``) only for tensors on the CPU.  The
-twins define what the kernels compute and are what the CPU tests run.
+For CUDA float32 tensors (K2: pivots float32 or bf16) a wrapper launches
+its kernel once or raises; it takes its plain twin (``*_reference``) only
+for tensors on the CPU.  The twins define what the kernels compute and are
+what the CPU tests run.
 
 Layouts (Mi interior knots, L knots of a chunk, B3 = 3 * agents,
 bs = B3 * phi), contiguous:
@@ -58,18 +60,23 @@ def thomas_solve_reference(dinv: torch.Tensor, ho: torch.Tensor,
     """Plain torch twin of K2: the Thomas sweeps over knots with the stored
     pivot inverses of rung ``rho_idx``; the off-diagonal blocks I_B3 (x) Ho
     are applied through the Kronecker structure.  Returns x [Mi, bs] in the
-    dtype of the operands."""
+    dtype of b.  Pivots of another dtype (the bf16 inventory) are widened
+    to b's dtype block by block, before each product, as the kernels do."""
     if b.is_cuda:
         thomas_solve_reference.cuda_calls += 1
     Mi = b.shape[0]
-    Dinv = dinv[rho_idx]
+    rung = dinv[rho_idx]
+
+    def Dinv(k):
+        return rung[k].to(b.dtype)
+
     y = [b[0]]
     for k in range(1, Mi):
-        y.append(b[k] - ko_t(ho[k - 1], Dinv[k - 1] @ y[k - 1]))
+        y.append(b[k] - ko_t(ho[k - 1], Dinv(k - 1) @ y[k - 1]))
     x = [None] * Mi
-    x[Mi - 1] = Dinv[Mi - 1] @ y[Mi - 1]
+    x[Mi - 1] = Dinv(Mi - 1) @ y[Mi - 1]
     for k in range(Mi - 2, -1, -1):
-        x[k] = Dinv[k] @ (y[k] - ko(ho[k], x[k + 1]))
+        x[k] = Dinv(k) @ (y[k] - ko(ho[k], x[k + 1]))
     return torch.stack(x)
 
 
@@ -145,8 +152,9 @@ def twin_gap_use(kernel_vs_f64, f32_vs_f64) -> float:
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.thomas_solve.restype = ci
-    lib.thomas_solve.argtypes = [vp] * 5 + [ci] * 3 + [vp]
+    for fn in (lib.thomas_solve, lib.thomas_solve_bf16):
+        fn.restype = ci
+        fn.argtypes = [vp] * 5 + [ci] * 3 + [vp]
     lib.thomas_chunk_fwd.restype = ci
     lib.thomas_chunk_fwd.argtypes = [vp] * 6 + [ci] * 3 + [vp]
     lib.thomas_chunk_bwd.restype = ci
@@ -156,10 +164,12 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 def _cuda_operands(fname: str, rho_idx: int, dinv: torch.Tensor, phi: int,
-                   named: tuple) -> torch.Tensor:
-    """Check a kernel's operands (CUDA, float32, the expected shapes,
-    contiguous; ``named`` holds (name, tensor, shape) triples, dinv's
-    among them) and return the rung's pivots dinv[rho_idx]."""
+                   named: tuple, pivot_dtypes=(torch.float32,)
+                   ) -> torch.Tensor:
+    """Check a kernel's operands (CUDA, float32 — dinv one of
+    ``pivot_dtypes`` —, the expected shapes, contiguous; ``named`` holds
+    (name, tensor, shape) triples, dinv's among them) and return the rung's
+    pivots dinv[rho_idx]."""
     R, bs = dinv.shape[0], dinv.shape[-1]
     if phi < 1 or bs % phi:
         raise ValueError(f"{fname}: blocks of {bs} rows do not split into "
@@ -170,16 +180,18 @@ def _cuda_operands(fname: str, rho_idx: int, dinv: torch.Tensor, phi: int,
         if t.device.type != "cuda":
             raise ValueError(f"{fname}: {name} is on {t.device}, expected a "
                              "CUDA tensor")
-        if t.dtype != torch.float32:
+        allowed = pivot_dtypes if t is dinv else (torch.float32,)
+        if t.dtype not in allowed:
             raise ValueError(f"{fname}: {name} has dtype {t.dtype}, "
-                             "expected torch.float32")
+                             f"expected {' or '.join(map(str, allowed))}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{fname}: {name} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{fname}: {name} is not contiguous")
     piv = dinv[rho_idx]
-    if bs % 4 == 0 and piv.data_ptr() % 16:
+    # the kernels read a row 16 bytes at a time when its length allows
+    if bs % (16 // dinv.element_size()) == 0 and piv.data_ptr() % 16:
         raise ValueError(f"{fname}: dinv is not 16-byte aligned")
     return piv
 
@@ -201,25 +213,33 @@ def _launch(fname: str, *args) -> None:
 
 def thomas_solve(dinv: torch.Tensor, ho: torch.Tensor, b: torch.Tensor,
                  rho_idx: int) -> torch.Tensor:
-    """x [Mi, bs] = K(ladder[rho_idx])^-1 b.  CUDA float32 tensors launch
-    K2 once; CPU tensors run the plain twin; anything else raises."""
+    """x [Mi, bs] = K(ladder[rho_idx])^-1 b.  CUDA tensors launch K2 once:
+    on float32 pivots (counted in ``launches``) or bf16 pivots (the
+    preconditioner inventory, counted in ``launches_bf16``; ho and b stay
+    float32).  CPU tensors run the plain twin; anything else raises."""
     if b.device.type == "cpu":
         return thomas_solve_reference(dinv, ho, b, rho_idx)
     R, Mi, bs = dinv.shape[0], dinv.shape[1], dinv.shape[-1]
     phi = ho.shape[-1]
     piv = _cuda_operands("thomas_solve", rho_idx, dinv, phi, (
         ("dinv", dinv, (R, Mi, bs, bs)), ("ho", ho, (Mi - 1, phi, phi)),
-        ("b", b, (Mi, bs))))
+        ("b", b, (Mi, bs))), pivot_dtypes=(torch.float32, torch.bfloat16))
     x = torch.empty_like(b)
     y = torch.empty_like(b)
-    _launch("thomas_solve", piv, ho, b, y, x, bs // phi, Mi, phi)
-    thomas_solve.launches += 1
+    bf16 = dinv.dtype == torch.bfloat16
+    _launch("thomas_solve_bf16" if bf16 else "thomas_solve", piv, ho, b, y,
+            x, bs // phi, Mi, phi)
+    if bf16:
+        thomas_solve.launches_bf16 += 1
+    else:
+        thomas_solve.launches += 1
     # the scratch y may be released while the launch is in flight: the
     # caching allocator reuses its block only in stream order
     return x
 
 
 thomas_solve.launches = 0
+thomas_solve.launches_bf16 = 0
 
 
 def thomas_chunk_fwd(dinv: torch.Tensor, kin: torch.Tensor, b: torch.Tensor,

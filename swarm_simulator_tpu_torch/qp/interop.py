@@ -9,7 +9,9 @@ each GW = phi*G row, pad lanes zero) is undone back to the flat
 [R, Mi, bs, bs] layout, bs = B3*phi with row index b3*phi + f.  The
 zero padding of an operator prepared for the JAX streaming Thomas kernel
 (``thomas_kernel=True``: ``pad_pivots`` pads both block dims to the
-128-lane grid) is stripped back to bs.  A JAX ``SpikeOp`` (the SPIKE prep
+128-lane grid) is stripped back to bs.  A bf16 inventory
+(``precond_dtype="bfloat16"``) comes across bit for bit as a
+``torch.bfloat16`` tensor.  A JAX ``SpikeOp`` (the SPIKE prep
 of the sharded solve) comes across as the port's
 ``nullspace_shard.SpikeOp``.
 """
@@ -58,5 +60,16 @@ def from_numpy(data, op, *, device="cpu"):
     if leaves["Dinvs"].shape[-1] != bs:
         leaves["Dinvs"] = np.ascontiguousarray(
             leaves["Dinvs"][..., :bs, :bs])
-    return data_t, NSOp(**{k: torch.as_tensor(v, device=device)
-                           for k, v in leaves.items()})
+    out = {k: torch.as_tensor(v, device=device) for k, v in leaves.items()
+           if k != "Dinvs"}
+    return data_t, NSOp(Dinvs=_pivots(leaves["Dinvs"], device), **out)
+
+
+def _pivots(d: np.ndarray, device) -> torch.Tensor:
+    """The pivot inventory as a tensor: a bf16 one (an ``ml_dtypes``
+    array, recognised by its dtype's name: the port does not import
+    ``ml_dtypes``) crosses as its 16-bit patterns."""
+    if d.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(d).view(np.uint16)
+                                ).view(torch.bfloat16).to(device)
+    return torch.as_tensor(d, device=device)

@@ -156,7 +156,10 @@ def solve_trajectories(plan: PlanResult, mission: Mission, param: Param,
       None      auto: "device" when ``device`` is not the CPU, else
                 "fresh".
     cold_prep, the round-0 inventory: "host" (host f64) or "device"
-    (prepare_ns + kkt_refine=1 phases, the low-latency first plan).
+    (prepare_ns + kkt_refine=1 phases, the low-latency first plan; the
+    route of big swarms, whose host prep takes minutes).  Device-prepped
+    rounds keep kkt_refine=1 in their warm polish extensions too, and
+    take ``precond_dtype`` from ``phases`` (bf16 pivots need the refine).
 
     dummy: the warm start and x0 seed (None = the initTraj midpoint
     interpolation)."""
@@ -196,6 +199,7 @@ def solve_trajectories(plan: PlanResult, mission: Mission, param: Param,
         op = nullspace.prepare_ns_np(data, phases[0])   # host f64, once
         op_dev = op.to(device)      # pivot inventory uploaded ONCE
     prep_s = time.perf_counter() - t0
+    inventory_bytes = op_dev.Dinvs.numel() * op_dev.Dinvs.element_size()
 
     def run(data_h, op_d, ph):
         t0 = time.perf_counter()
@@ -287,6 +291,7 @@ def solve_trajectories(plan: PlanResult, mission: Mission, param: Param,
         "device": str(device),
         "solved": np.ones(N, dtype=bool),
         "prep_s": prep_s,
+        "inventory_bytes": inventory_bytes,
         "solve_s": solve_s,
         "polish_rounds": polish_rounds,
         "polish_s": polish_s,

@@ -30,8 +30,13 @@ tensors and a plain twin otherwise:
 The loop is a Python loop; the termination test after each chunk is one
 host sync.
 
-Not ported yet: the dense KKT mode, Anderson acceleration and the bf16
-preconditioner.
+The bf16 preconditioner (NSSettings.precond_dtype="bfloat16"): both
+preps round the rung inventory to bf16 (K2 reads it, widening each pivot
+at the multiply); legal only with kkt_refine >= 1, where the PCG against
+the float32 K_fresh absorbs the ~8-bit mantissa.  The fused chunk (K1)
+refuses such an inventory.
+
+Not ported yet: the dense KKT mode and Anderson acceleration.
 """
 from __future__ import annotations
 
@@ -81,6 +86,10 @@ class NSSettings:
     # was prepared in float64 for this data); replans on a device-prepped
     # or stale inventory run 1
     kkt_refine: int = 0
+    # storage dtype of the rung inventory: "bfloat16" halves the pivot
+    # stream of every Thomas solve (K2 reads bf16 pivots); legal ONLY as a
+    # preconditioner, with kkt_refine >= 1 (checked at prep)
+    precond_dtype: str = "float32"
 
 
 class NSConstr(NamedTuple):
@@ -103,8 +112,23 @@ class NSOp(NamedTuple):
     Kos: object      # [Mi-1, phi, phi]
 
     def to(self, device) -> "NSOp":
-        return NSOp(*(torch.as_tensor(np.asarray(v), device=device)
+        return NSOp(*(v.to(device) if isinstance(v, torch.Tensor)
+                      else torch.as_tensor(np.asarray(v), device=device)
                       for v in self))
+
+
+def check_precond(s: NSSettings) -> None:
+    """The conditions of NSSettings.precond_dtype: "float32" or
+    "bfloat16", and bf16 pivots only as a preconditioner (kkt_refine >= 1:
+    the refine chunks solve through ops/thomas, whose K2 reads them)."""
+    if s.precond_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"precond_dtype {s.precond_dtype!r}: expected "
+                         "'float32' or 'bfloat16'")
+    if s.precond_dtype == "bfloat16" and s.kkt_refine < 1:
+        raise ValueError(
+            "precond_dtype='bfloat16' is only a PRECONDITIONER: it requires "
+            "kkt_refine >= 1 (fresh-operator PCG absorbs the ~8-bit "
+            "mantissa)")
 
 
 def pin_ieee_fp32() -> None:
@@ -326,9 +350,13 @@ def prepare_ns_np(data: QPData, s: NSSettings) -> NSOp:
     The rung pivot inverses are the one prep quantity whose float32
     computation measurably degrades solution quality, so the Schur chain
     runs in float64 and each block is rounded once.  Pivots stay FLAT
-    [R, Mi, bs, bs], row index (agent*3 + axis)*phi + derivative order."""
+    [R, Mi, bs, bs], row index (agent*3 + axis)*phi + derivative order.
+    With s.precond_dtype="bfloat16" the pivots are rounded once more, from
+    the problem dtype to bf16 (round to nearest even, as the JAX package's
+    two casts do), into a CPU torch tensor (numpy has no bf16)."""
     from concurrent.futures import ThreadPoolExecutor
 
+    check_precond(s)
     ctx = _host_prep_ctx_np(data, s)
     Qseg, phi = ctx["Qseg"], ctx["phi"]
     B3, dt_, Mi = ctx["B3"], ctx["dt_"], ctx["Mi"]
@@ -363,6 +391,8 @@ def prepare_ns_np(data: QPData, s: NSSettings) -> NSOp:
     def cast(v):
         return np.asarray(v).astype(dt_, copy=False)
 
+    if s.precond_dtype == "bfloat16":
+        Dinvs = torch.from_numpy(Dinvs).to(torch.bfloat16)
     return NSOp(N=cast(N), x_pin=cast(x_pin), g=cast(g), F0=cast(F0),
                 FT=cast(FT), c_s=cast(c_s), ladder=cast(ladder),
                 Dinvs=Dinvs, Kos=cast(Ho))
@@ -416,7 +446,14 @@ def prepare_ns(data: QPData, s: NSSettings) -> NSOp:
     x_pin) are built on the host in float64, as the host prep builds
     them.  Pins IEEE float32 products: under TF32 the low-rho rung
     inverses come out orders of magnitude wrong.  The Newton step leaves
-    the pivots close to, not exactly, symmetric."""
+    the pivots close to, not exactly, symmetric.  With
+    s.precond_dtype="bfloat16" the chain still runs in the data's dtype;
+    each knot's pivots are rounded to bf16 as they are stored, once the
+    next knot has used them (the same bits as one cast at the end, without
+    a full-precision inventory beside the bf16 one).  On a card torch
+    takes MAGMA's batched LU for the inverses; at 256 agents ([5, 2304,
+    2304] per knot) MAGMA prints a size warning to stdout at every call."""
+    check_precond(s)
     pin_ieee_fp32()
     with torch.no_grad():
         return _prepare_ns_impl(data, s)
@@ -492,11 +529,15 @@ def _prepare_ns_impl(data: QPData, s: NSSettings) -> NSOp:
         X = torch.linalg.inv(S)
         return X @ (I2 - S @ X)
 
-    Dinvs = torch.empty((len(ladder), Mi, bs, bs), **kw)
-    Dinvs[:, 0] = inv_refined(kd_knot(0))
+    store = torch.bfloat16 if s.precond_dtype == "bfloat16" else dt_
+    Dinvs = torch.empty((len(ladder), Mi, bs, bs), dtype=store,
+                        device=data.lb.device)
+    prev = inv_refined(kd_knot(0))
+    Dinvs[:, 0] = prev
     for k in range(1, Mi):
-        Dinvs[:, k] = inv_refined(kd_knot(k)
-                                  - ko_sandwich(Dinvs[:, k - 1], Ho[k - 1]))
+        prev = inv_refined(kd_knot(k) - ko_sandwich(prev, Ho[k - 1]))
+        Dinvs[:, k] = prev
+    del prev
     # contiguous leaves, as NSOp.to gives the host prep's: the kernels
     # take their operands as they are and refuse strided views
     return NSOp(*(v.contiguous() for v in (N, x_pin, g, F0, FT, c_s,

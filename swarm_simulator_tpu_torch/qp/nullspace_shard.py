@@ -165,6 +165,11 @@ def place(data: QPData, op, group=None, mode: str = "chunk"):
     prepare_ns_np / prepare_spike_np give them."""
     if mode not in MODES:
         raise ValueError(f"unknown shard mode {mode!r}")
+    if getattr(op, "Dinvs", None) is not None and \
+            op.Dinvs.dtype == torch.bfloat16:
+        raise ValueError("the sharded solve's sweeps (K3a/K3b) read float32 "
+                         "pivots; a bf16 inventory (precond_dtype="
+                         "'bfloat16') is for the single-device refine solve")
     rank, n = dist.get_rank(group), dist.get_world_size(group)
     dev = pd.group_device(group)
 

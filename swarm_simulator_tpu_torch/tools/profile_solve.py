@@ -1,7 +1,7 @@
 """Profile the phased solve of the 64-agent forest on one CUDA card.
 
     python3 -m swarm_simulator_tpu_torch.tools.profile_solve [--seed 0]
-        [--refine | --sharded]
+        [--refine | --sharded | --scatter AGENTS]
 
 Run from the repository root (it takes the problem from chip_smoke.py).
 Builds the problem and its rung inventory once, runs the production
@@ -18,7 +18,13 @@ launch per chunk).  With ``--refine``: the refine path of replans and
 device-prep cold plans (device prep, kkt_refine=1, three K2 launches and
 the PCG's torch operations per iteration).  With ``--sharded``: the
 sharded joint solve (qp/nullspace_shard, chunk mode, host-f64 prep) on a
-1-rank NCCL group, one K3a and one K3b launch per iteration.
+1-rank NCCL group, one K3a and one K3b launch per iteration.  With
+``--scatter AGENTS``: the refine solve of the big-swarm route instead,
+on the scatter problem of tools/budget256_study.py (device prep, float32
+pivots): first the median CUDA-event time of one refine iteration and of
+its parts (the PCG w-update, one inventory solve through K2, A x and
+A^T y of the constraint rows), printed as they are measured, then the
+profile of a 150-iteration schedule, budgets (50, 50, 50).
 """
 from __future__ import annotations
 
@@ -40,6 +46,9 @@ def main() -> int:
     mode.add_argument("--sharded", action="store_true",
                       help="profile the sharded chunk-mode solve on a "
                            "1-rank NCCL group")
+    mode.add_argument("--scatter", type=int, metavar="AGENTS",
+                      help="profile the refine solve of the AGENTS-agent "
+                           "scatter problem (tools/budget256_study.py)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_solve: needs a CUDA card", file=sys.stderr)
@@ -48,6 +57,16 @@ def main() -> int:
     from swarm_simulator_tpu_torch.qp import joint, nullspace as ns
 
     dev = torch.device("cuda", 0)
+    if args.scatter:
+        from swarm_simulator_tpu_torch.tools import budget256_study as bud
+
+        _, _, _, data = bud.build_problem(args.scatter)
+        base = bud.base_settings(1, False)
+        d = data.to(dev)
+        o = bud.prepare(d, base)
+        refine_parts(d, o, base)
+        sched = ns.schedule_arrays(bud.phases(base, (50, 50, 50)))
+        return profile_run(lambda: timed_solve(d, o, sched))
     plan, mission, param, _ = chip_smoke.build_problem(args.seed)
     phases = joint.production_phases(kkt_refine=int(args.refine))
     s0, it_k, lo_k, hi_k = ns.schedule_arrays(phases)
@@ -73,14 +92,56 @@ def main() -> int:
     d = data.to(dev)
     o = (ns.prepare_ns(d, phases[0]) if args.refine
          else ns.prepare_ns_np(data, phases[0]).to(dev))
+    return profile_run(lambda: timed_solve(d, o, (s0, it_k, lo_k, hi_k)))
 
-    def solve():
-        t0 = time.perf_counter()
-        _, info = ns.solve_ns_schedule(d, o, s0, it_k, lo_k, hi_k)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, int(info.iters)
 
-    return profile_run(solve)
+def refine_parts(d, o, s, rho_idx: int = 2, reps: int = 10) -> None:
+    """Median CUDA-event ms of one refine iteration (admm_steps with one
+    inner step) and of its parts, from the cold state at rung ``rho_idx``;
+    each line is printed as soon as it is measured."""
+    import numpy as np
+
+    from swarm_simulator_tpu_torch.qp import nullspace as ns
+
+    pop, l, u, (w, z, y) = ns._cold_state(d, o, s)
+    cop = ns.constr_op(pop)
+    B, K3, _ = d.lb.shape
+    kinv = ns.make_kinv_apply(o, B, K3, o.F0.shape[0], o.F0.shape[1])
+    w_update = ns.pcg_w_update(d, o, cop, s, kinv, rho_idx)
+    rho = o.ladder[rho_idx]
+    x = ns._x_of(o, w)
+    parts = {
+        "refine iteration": lambda: ns.admm_steps(
+            o, cop, l, u, rho_idx, s.sigma, s.alpha, w, z, y, 1, w_update),
+        "PCG w-update": lambda: w_update(w, rho),
+        "inventory solve (K2)": lambda: kinv(rho_idx, w),
+        "A x": lambda: cop.A_x(x),
+        "A^T y": lambda: cop.AT_x(z),
+    }
+    for name, fn in parts.items():
+        fn()
+        ms = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        print(f"{name}: {float(np.median(ms)):.3f} ms (median of {reps})",
+              flush=True)
+
+
+def timed_solve(d, o, sched):
+    """One phased solve: (host seconds ending in a device sync,
+    iterations)."""
+    from swarm_simulator_tpu_torch.qp import nullspace as ns
+
+    t0 = time.perf_counter()
+    _, info = ns.solve_ns_schedule(d, o, *sched)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, int(info.iters)
 
 
 def profile_run(solve) -> int:

@@ -1,8 +1,9 @@
 """PyTorch port on a CUDA card: the fused ADMM chunk kernel (K1), the
-Thomas solve kernel (K2) and the chunked Thomas sweeps (K3a/K3b) against
-their plain twins, and the planning paths through them: the cold plan
-through K1, the corridor replan and the device-prep cold plan through K2,
-and the sharded joint solve on a 1-rank NCCL group through K3a/K3b.
+Thomas solve kernel (K2, on float32 and bf16 pivots), the chunked Thomas
+sweeps (K3a/K3b) and the pivot-stream kernel (T4) against their plain
+twins, and the planning paths through them: the cold plan through K1, the
+corridor replan and the device-prep cold plan through K2, and the sharded
+joint solve on a 1-rank NCCL group through K3a/K3b.
 
 These tests import torch and the port only (no jax), so they also run on
 a machine with a card and no JAX:
@@ -24,6 +25,7 @@ from swarm_simulator_tpu_torch.corridor.times import build_corridors
 from swarm_simulator_tpu_torch.io.mission_json import perimeter_swap_mission
 from swarm_simulator_tpu_torch.eval.gate import gate_quality
 from swarm_simulator_tpu_torch.ops import nsfused, thomas
+from swarm_simulator_tpu_torch.ops import thomas_stream as ts
 from swarm_simulator_tpu_torch.parallel import distributed as pd
 from swarm_simulator_tpu_torch.qp import convert, joint
 from swarm_simulator_tpu_torch.qp import nullspace as ns
@@ -249,3 +251,68 @@ def test_sharded_solve_on_one_nccl_rank():
     ok, metrics = gate_quality(ctrl, plan, mission, param, device="cuda")
     assert ok, metrics
     assert np.isfinite(obj)
+
+
+def test_thomas_kernel_bf16_matches_twin_on_cuda():
+    """K2 on the device inventory rounded to bf16: as accurate as the
+    float32 twin on the same bf16 pivots, both judged against a float64
+    twin on those pivots (thomas.twin_gap_use), so the comparison holds
+    the arithmetic, not the rounding; counted as a bf16 launch."""
+    s, data, op = _host_prep()
+    dev = torch.device("cuda")
+    op = ns.prepare_ns(data.to(dev), dataclasses.replace(
+        s, kkt_refine=1, precond_dtype="bfloat16"))
+    d16, ho = op.Dinvs, op.Kos.float().contiguous()
+    assert d16.dtype == torch.bfloat16
+    Mi, bs = d16.shape[1], d16.shape[-1]
+    gen = torch.Generator().manual_seed(0)
+    k64, t64 = [], []
+    for r in range(d16.shape[0]):
+        b = torch.randn((Mi, bs), generator=gen, dtype=torch.float64)
+        b32, b64 = b.float().to(dev), b.to(dev)
+        before = (thomas.thomas_solve.launches,
+                  thomas.thomas_solve.launches_bf16)
+        kern = thomas.thomas_solve(d16, ho, b32, r)
+        assert (thomas.thomas_solve.launches,
+                thomas.thomas_solve.launches_bf16) == (before[0],
+                                                       before[1] + 1)
+        twin32 = thomas.thomas_solve_reference(d16, ho, b32, r)
+        twin64 = thomas.thomas_solve_reference(d16, ho.double(), b64, r)
+        assert torch.isfinite(kern).all()
+        k64.append(thomas.rel_error(kern, twin64))
+        t64.append(thomas.rel_error(twin32, twin64))
+    assert thomas.twin_gap_use(k64, t64) <= 1.0, (k64, t64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", sorted(ts.VARIANTS))
+def test_stream_kernel_matches_plain_on_cuda(variant, dtype):
+    """T4 on a seeded [2, 12, 576, 576] inventory (64-agent blocks): each
+    column sum within 1e-5 of the column's absolute sum of the plain
+    version's float32 sums (the kernel adds each block's rows in order and
+    the blocks' partials in order; float32 either way)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dinv = torch.randn((2, 12, 576, 576), generator=gen, device=dev).to(dtype)
+    slots, split = ts.VARIANTS[variant]
+    for r in range(2):
+        before = ts.thomas_stream.launches
+        got = ts.thomas_stream(dinv, r, slots, split)
+        assert ts.thomas_stream.launches == before + 1
+        want = ts.thomas_stream_reference(dinv, r)
+        absum = dinv[r].float().abs().sum(dim=(0, 1))
+        assert ((got - want).abs() <= 1e-5 * absum).all()
+
+
+def test_bf16_inventory_refused_on_cuda_k1_path():
+    """A kkt_refine=0 solve (one fused chunk, K1, per check) on a bf16
+    inventory raises before any launch."""
+    s, data, op = _host_prep()
+    dev = torch.device("cuda")
+    s16 = dataclasses.replace(s, kkt_refine=1, precond_dtype="bfloat16")
+    op16 = ns.prepare_ns(data.to(dev), s16)
+    s0 = dataclasses.replace(s16, kkt_refine=0)
+    _reset_counts()
+    with pytest.raises(ValueError, match="bf16 pivot inventory"):
+        ns.solve_ns_schedule(data.to(dev), op16, *ns.schedule_arrays((s0,)))
+    assert nsfused.nsfused_chunk.launches == 0
