@@ -7,8 +7,10 @@ Phases (any failure raises and exits non-zero):
   1. the card's name and power limit (nvidia-smi), then the build of the
      kernels from the checkout, one nvcc per source, started together: the
      fused ADMM chunk (K1, csrc/nsfused.cu), the Thomas solves (K2 and
-     K3a/K3b, csrc/thomas.cu) and the pivot stream (T4,
-     csrc/thomas_stream.cu);
+     K3a/K3b, csrc/thomas.cu), the pivot stream (T4,
+     csrc/thomas_stream.cu) and the probes (T2 csrc/thomas_prim.cu, T3
+     csrc/thomas_probe.cu, T1 csrc/nsfused_probe.cu, T5
+     csrc/row_patterns.cu);
   2. the kernel against its plain torch twin at the canonical 64-agent
      shapes: one 50-iteration chunk from the cold state on every rho rung,
      through the kernel, the float32 twin and a float64 twin; on each part
@@ -81,11 +83,32 @@ Phases (any failure raises and exits non-zero):
      (tools/thomas_bw_study.py, [2, 71, 2304, 2304] made on the card):
      GB/s of every variant on float32 and bf16 pivots, of K2 on both and
      of torch.sum, with the launch counts read around the study; then each
-     variant's output held against the plain version.
+     variant's output held against the plain version;
+ 14. the chain-primitive bench T2 (tools/thomas_prim_bench.py) at its own
+     shape (bs 640, Mi 35), the 64-agent (576, 35) and the 256-agent
+     (2304, 71) shapes: every mode and dma@4 on each grid timed there (one
+     block and K2's; K2's alone at 2304), from zeros and from a seeded
+     acc0, held against the plain version at REPS 2; then, with the launch
+     counts read around it, us per step of each (one block at REPS 2, K2's
+     grid at REPS 20), each timed launch held against the plain version at
+     its own REPS;
+ 15. the staged Thomas probe T3 (tools/thomas_probe.py): its four stages
+     held against the plain version at its own shape (bs 256, Mi 4), then
+     us per stage of each at the 64-agent and 256-agent shapes beside K2's
+     on the same pivots;
+ 16. the fused-chunk probes T1 (tools/nsfused_probe.py): P1-P4 against
+     their plain versions (P3 also against float64, 3e-6) and timed, P4 in
+     ms per iteration beside K1's;
+ 17. the row-assembly patterns T5 (tools/row_patterns.py): all fourteen
+     against their plain versions (bit-equal; P8's sum within 1e-6), and
+     timed beside the one PyTorch call that computes each, where there is
+     one (held to the plain version too).
 The line before the last is the kernels' JSON record (each kernel's
 launches on its own path, errors, times of kernel and plain twin, and its
-bound: the larger of its bytes over 3.35 TB/s and its float32 operations
-over 67 TFLOP/s; T4's library time is torch.sum's); the last line is
+bound: the larger of its bytes over 3.35 TB/s and its operations over the
+card's peak for their type, 67 TFLOP/s float32 or 989 TFLOP/s bf16 on the
+tensor cores; the library time is that of the one PyTorch call computing
+the same function, where there is one); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card the script exits
 non-zero and prints no result.
 """
@@ -107,15 +130,18 @@ N_AGENTS = 64
 N_INNER = 50
 OBJ_PIN = 4.0
 #: H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 FLOP/s on
-#: the CUDA cores (the kernels' FMA arithmetic)
+#: the CUDA cores (the kernels' FMA arithmetic), dense bf16 FLOP/s on the
+#: tensor cores
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          rate: float = F32_FLOPS) -> tuple[float, str]:
     """(ms, what bounds it): the least time the card could take to move
-    ``nbytes`` and do ``flops`` float32 operations."""
-    t_b, t_f = nbytes / HBM_BPS, flops / F32_FLOPS
+    ``nbytes`` and do ``flops`` operations at ``rate`` a second."""
+    t_b, t_f = nbytes / HBM_BPS, flops / rate
     return (1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations")
 
 
@@ -168,19 +194,6 @@ def digest(tree) -> str:
     return h.hexdigest()[:12]
 
 
-def cuda_ms(fn, reps: int) -> list[float]:
-    out = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        out.append(a.elapsed_time(b))
-    return out
-
-
 def on_device(data, op, dev, dtype):
     """The host QP and operator on ``dev``, floating leaves in ``dtype``."""
     from swarm_simulator_tpu_torch.qp import nullspace as ns
@@ -198,6 +211,7 @@ def kernel_vs_twin(plan, mission, param, dev):
     times, and the host problem and operator for phase 4."""
     from swarm_simulator_tpu_torch.ops import nsfused
     from swarm_simulator_tpu_torch.qp import joint, nullspace as ns
+    from swarm_simulator_tpu_torch.tools._timing import event_ms
 
     s = joint.production_phases()[0]
     data, _ = joint.assemble_joint(plan, mission, param)
@@ -229,10 +243,10 @@ def kernel_vs_twin(plan, mission, param, dev):
         errs["k32"].append(nsfused.state_errors(kern, twin))
         errs["k64"].append(nsfused.state_errors(kern, twin64))
         errs["t64"].append(nsfused.state_errors(twin, twin64))
-        k_ms += cuda_ms(lambda: nsfused.nsfused_chunk(*a32, n_inner=N_INNER),
-                        3)
-        t_ms += cuda_ms(lambda: nsfused.nsfused_chunk_reference(
-            *a32, n_inner=N_INNER), 1)
+        k_ms += event_ms(lambda: nsfused.nsfused_chunk(
+            *a32, n_inner=N_INNER), 3, warmup=0)
+        t_ms += event_ms(lambda: nsfused.nsfused_chunk_reference(
+            *a32, n_inner=N_INNER), 1, warmup=0)
         log(f"rung {r} (rho {float(op.ladder[r]):.3g}) rel err "
             + " ".join(f"{n}: k-t32 {a:.1e} k-t64 {b:.1e} t32-t64 {c:.1e};"
                        for n, a, b, c in zip(nsfused.STATE_PARTS,
@@ -313,6 +327,7 @@ def thomas_vs_twin(op, dev, label: str, pivots=torch.float32,
     same pivots, the float64 one widening them to float64); ``reps`` timed
     solves per rung of kernel and twin."""
     from swarm_simulator_tpu_torch.ops import thomas
+    from swarm_simulator_tpu_torch.tools._timing import event_ms
 
     dinv32 = torch.as_tensor(op.Dinvs, device=dev).to(pivots).contiguous()
     ho32 = torch.as_tensor(op.Kos, device=dev).float().contiguous()
@@ -335,10 +350,10 @@ def thomas_vs_twin(op, dev, label: str, pivots=torch.float32,
         k32.append(thomas.rel_error(kern, twin))
         k64.append(thomas.rel_error(kern, twin64))
         t64.append(thomas.rel_error(twin, twin64))
-        k_ms += cuda_ms(lambda: thomas.thomas_solve(dinv32, ho32, b32, r),
-                        reps[0])
-        t_ms += cuda_ms(lambda: thomas.thomas_solve_reference(
-            dinv32, ho32, b32, r), reps[1])
+        k_ms += event_ms(lambda: thomas.thomas_solve(dinv32, ho32, b32, r),
+                         reps[0], warmup=0)
+        t_ms += event_ms(lambda: thomas.thomas_solve_reference(
+            dinv32, ho32, b32, r), reps[1], warmup=0)
         log(f"K2 {label} rung {r}: rel err k-t32 {k32[-1]:.1e} k-t64 "
             f"{k64[-1]:.1e} t32-t64 {t64[-1]:.1e}; kernel "
             f"{np.median(k_ms[-reps[0]:]):.4f} ms twin "
@@ -365,6 +380,10 @@ def _counters() -> dict:
     """{name: (function, counter attribute)}: each kernel's launches (K2's
     on float32 and on bf16 pivots apart) and each twin's calls on CUDA."""
     from swarm_simulator_tpu_torch.ops import nsfused, thomas
+    from swarm_simulator_tpu_torch.ops import nsfused_probe as npb
+    from swarm_simulator_tpu_torch.ops import row_patterns as rp
+    from swarm_simulator_tpu_torch.ops import thomas_prim as tp
+    from swarm_simulator_tpu_torch.ops import thomas_probe as tq
     from swarm_simulator_tpu_torch.ops import thomas_stream as ts
 
     return dict(k1=(nsfused.nsfused_chunk, "launches"),
@@ -373,6 +392,13 @@ def _counters() -> dict:
                 k3a=(thomas.thomas_chunk_fwd, "launches"),
                 k3b=(thomas.thomas_chunk_bwd, "launches"),
                 t4=(ts.thomas_stream, "launches"),
+                t2=(tp.thomas_prim, "launches"),
+                t3=(tq.thomas_probe, "launches"),
+                t1p1=(npb.p1_reshape_combine, "launches"),
+                t1p2=(npb.p2_tile_apply, "launches"),
+                t1p3=(npb.p3_split_pair_product, "launches"),
+                t1p4=(npb.p4_resident_thomas, "launches"),
+                t5=(rp.row_pattern, "launches"),
                 twin1=(nsfused.nsfused_chunk_reference, "cuda_calls"),
                 twin2=(thomas.thomas_solve_reference, "cuda_calls"),
                 twin3a=(thomas.thomas_chunk_fwd_reference, "cuda_calls"),
@@ -686,6 +712,7 @@ def chunk_sweeps_vs_twins(op, dev):
     full solve too."""
     from swarm_simulator_tpu_torch.ops import thomas
     from swarm_simulator_tpu_torch.qp import nullspace_shard as shard
+    from swarm_simulator_tpu_torch.tools._timing import event_ms
 
     dinv32 = torch.as_tensor(op.Dinvs, device=dev).float().contiguous()
     ho32 = torch.as_tensor(op.Kos, device=dev).float().contiguous()
@@ -730,7 +757,7 @@ def chunk_sweeps_vs_twins(op, dev):
                     ("bwd", thomas.thomas_chunk_bwd, (d0, kout, T0), 20),
                     ("fwd_twin", twins[0], (d0, kin, bl), 3),
                     ("bwd_twin", twins[1], (d0, kout, T0), 3)):
-                ms[key] += cuda_ms(lambda: f(*args, t0, r), reps)
+                ms[key] += event_ms(lambda: f(*args, t0, r), reps, warmup=0)
             log(f"K3 n={n} (L={L}) rung {r}: rel err k-t64 {k64[-1]:.1e} "
                 f"t32-t64 {t64[-1]:.1e} K2-t64 {k2_64[-1]:.1e} k-K2 "
                 f"{k3_k2[-1]:.1e}")
@@ -916,6 +943,7 @@ def stream_study(dev, agents: int = 256):
     plain version, and the plain version timed."""
     from swarm_simulator_tpu_torch.ops import thomas_stream as ts
     from swarm_simulator_tpu_torch.tools import thomas_bw_study as bw
+    from swarm_simulator_tpu_torch.tools._timing import median_ms
 
     dinv = bw.synthetic_inventory(agents, 72, dev)
     R, Mi, bs = dinv.shape[0], dinv.shape[1], dinv.shape[-1]
@@ -940,8 +968,8 @@ def stream_study(dev, agents: int = 256):
                 err = (got - want).abs()
                 max_abs = max(max_abs, float(err.max()))
                 worst = max(worst, float((err / absum).max()))
-        plain_ms[dtype] = float(np.median(cuda_ms(
-            lambda: ts.thomas_stream_reference(d, 0), 5)))
+        plain_ms[dtype] = median_ms(
+            lambda: ts.thomas_stream_reference(d, 0), 5, warmup=0)
         del d
     log(f"T4 vs plain on both dtypes, every variant, both rungs: max abs "
         f"err {max_abs:.3e}, worst over columns of err / column abs sum "
@@ -957,6 +985,256 @@ def stream_study(dev, agents: int = 256):
                 plain_ms=plain_ms[torch.float32],
                 library_ms=f32["torch.sum"]["ms"],
                 bound=bound(Mi * bs * bs * 4 + bs * 4, Mi * bs * bs))
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| relative to the plain output's scale max |want|."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+#: T2's modes as the JAX tool names them, and the ring variant it shows
+T2_SPECS = ("dma", "mv_sub", "mv_lane", "mv_mxu", "trans", "fwd", "dmag",
+            "dmaq", "dma@4")
+
+
+#: T2's mv_mxu: rounding the carried row to bf16 errs by up to 2^-9 of a
+#: value a step, so two runs whose float32 sums round it differently
+#: walk apart by ~2^-9 sqrt(n) over n steps; they are held to twice that
+MXU_WALK = 2.0 ** -8
+
+
+def mxu_exact_pivots(Mi: int, bs: int, dev) -> torch.Tensor:
+    """[1, Mi, bs, bs] pivots under which mv_mxu's chain is exact in any
+    summation order: each block a seeded signed permutation of 0.5 +
+    2^-12, which bf16 rounds to 0.5, so every output element is one
+    product."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    perm = torch.stack([torch.randperm(bs, generator=g, device=dev)
+                        for _ in range(Mi)])
+    sign = torch.randint(0, 2, (Mi, bs), generator=g, device=dev) * 2 - 1
+    d = torch.zeros((1, Mi, bs, bs), device=dev)
+    d[0, torch.arange(Mi, device=dev)[:, None],
+      torch.arange(bs, device=dev)[None, :], perm] = sign * (0.5 + 2 ** -12)
+    return d
+
+
+def mxu_vs_plain(dinv, koM, b, acc0, grids) -> list[float]:
+    """The shares of their tolerances that T2's mv_mxu uses against its
+    plain version on ``grids``: from zeros at REPS 2 (zero, as the plain
+    version: rel 1e-5); on mxu_exact_pivots from acc0 at REPS 2, where it
+    must equal the plain version bit for bit (the bf16 rounding of row
+    and block, the tensor-core tiles' wiring); and on the probe's pivots
+    from acc0 * 2^64 (the row shrinks by 0.25-0.5 a step) at REPS 1 and 2,
+    where its error against a float64 plain run is held to TWIN_GAP_FACTOR
+    times the float32 plain run's plus MXU_WALK * sqrt(steps)."""
+    from swarm_simulator_tpu_torch.ops import thomas
+    from swarm_simulator_tpu_torch.ops import thomas_prim as tp
+
+    Mi, bs = b.shape
+    exact = mxu_exact_pivots(Mi, bs, b.device)
+    use = []
+    for grid in grids:
+        got = tp.thomas_prim(dinv, koM, b, "mv_mxu", 2, 2, grid=grid)
+        use.append(rel_err(got, torch.zeros_like(got)) / 1e-5)
+        got = tp.thomas_prim(exact, koM, b, "mv_mxu", 2, 2, acc0, grid=grid)
+        want = tp.thomas_prim_reference(exact, koM, b, "mv_mxu", 2, 2, acc0)
+        use.append(0.0 if torch.equal(got, want) else float("inf"))
+    start = acc0 * 2.0 ** 64
+    for reps in (1, 2):
+        want = tp.thomas_prim_reference(dinv, koM, b, "mv_mxu", 2, reps,
+                                        start)
+        w64 = tp.thomas_prim_reference(dinv, koM.double(), b.double(),
+                                       "mv_mxu", 2, reps, start.double())
+        tol = (thomas.TWIN_GAP_FACTOR * thomas.rel_error(want, w64)
+               + MXU_WALK * (reps * Mi) ** 0.5)
+        for grid in grids:
+            got = tp.thomas_prim(dinv, koM, b, "mv_mxu", 2, reps, start,
+                                 grid=grid)
+            use.append(thomas.rel_error(got, w64) / tol)
+    return use
+
+
+def prim_vs_plain(spec: str, dinv, koM, b, acc0, grids) -> float:
+    """The largest share of its tolerance that T2 in mode ``spec`` uses
+    against its plain version on ``grids``, from zeros and from ``acc0`` at
+    REPS 2, held to rel 1e-5 (mv_mxu: mxu_vs_plain)."""
+    from swarm_simulator_tpu_torch.ops import thomas_prim as tp
+
+    mode, nbuf = tp.parse_mode(spec)
+    if mode == "mv_mxu":
+        use = mxu_vs_plain(dinv, koM, b, acc0, grids)
+    else:
+        use = []
+        for a0 in (None, acc0):
+            want = tp.thomas_prim_reference(dinv, koM, b, mode, nbuf, 2, a0)
+            for grid in grids:
+                got = tp.thomas_prim(dinv, koM, b, mode, nbuf, 2, a0,
+                                     grid=grid)
+                use.append(rel_err(got, want) / 1e-5)
+    check(all(u == u for u in use), f"T2 {spec} bs {b.shape[1]}: not "
+          "finite")
+    return max(use)
+
+
+def prim_bench(dev):
+    """Phase 14: T2 at its own shape (bs 640, Mi 35) and at the 64-agent
+    (576, 35) and 256-agent (2304, 71) shapes: every mode held against its
+    plain version at REPS 2 from zeros and from a seeded acc0 on each grid
+    that is timed there, then timed through the tool (each timed launch
+    held against the plain version at its own REPS), with the launch counts
+    read around the timing runs.  One block streams each step's whole
+    block through one SM, so it runs at REPS 2 and not at bs 2304 (the
+    tool's)."""
+    from swarm_simulator_tpu_torch.ops import thomas_prim as tp
+    from swarm_simulator_tpu_torch.tools import thomas_prim_bench as t2
+
+    launches, fwd = 0, None
+    for bs, Mi in ((640, 35), (576, 35), (2304, 71)):
+        d, k, bb = t2.inputs(bs, Mi, dev)
+        acc0 = torch.randn((bs, bs), generator=torch.Generator(
+            device=dev).manual_seed(1), device=dev)
+        grids = ("k2",) if bs == 2304 else tp.GRIDS
+        for spec in T2_SPECS:
+            use = prim_vs_plain(spec, d, k, bb, acc0, grids)
+            log(f"T2 {spec} vs plain (bs {bs}, Mi {Mi}, REPS 2; zero and "
+                f"seeded start, grids {', '.join(grids)}): share of the "
+                f"tolerance used {use:.2f}")
+            check(use <= 1.0, f"T2 {spec} at bs {bs} disagrees with the "
+                  f"plain version ({use:.2f} of the tolerance)")
+        reset_counts()
+        for spec in T2_SPECS:
+            for grid in grids:
+                reps = 2 if grid == "one" else 20
+                # the JSON entry: the forward step on K2's grid at the
+                # 64-agent shape, its plain version timed beside it
+                entry = (bs, spec, grid) == (576, "fwd", "k2")
+                r = t2.time_mode(d, k, bb, spec, reps, grid,
+                                 plain_reps=1 if entry else 0)
+                fwd = r if entry else fwd
+                log(f"T2 bs {bs} Mi {Mi} {spec:>7} {grid:>3} "
+                    f"({r['blocks']} blocks, REPS {reps}): "
+                    f"{r['us_per_step']:.3f} us/step ({r['ms']:.4f} ms), "
+                    f"rel err vs plain {r['rel_err']:.2e}")
+                check(t2.agrees(r), f"T2 {spec} {grid} at bs {bs}, REPS "
+                      f"{reps}: rel err vs plain {r['rel_err']:.2e}")
+        launches += read_counts()["t2"]
+        del d, k, bb, acc0
+        torch.cuda.empty_cache()
+    check(launches > 0, "the T2 bench launched T2 0 times")
+    Mi, bs = 35, 576
+    return dict(counts={"t2": launches}, max_abs_err=fwd["max_abs_err"],
+                ms=fwd["ms"], plain_ms=fwd["plain_ms"],
+                bound=bound(4 * (Mi * bs * bs + bs * bs + 2 * Mi * bs),
+                            20 * Mi * 6 * bs * bs))
+
+
+def probe_stages(dev):
+    """Phase 15: T3's stages against the plain version at its own shape,
+    then through the tool at the 64-agent and 256-agent shapes (each stage
+    and K2 timed, each held against the plain version), with the launch
+    counts read around the tool's runs; the library time of the mv stage
+    (torch.einsum) at the 64-agent shape."""
+    from swarm_simulator_tpu_torch.ops import thomas_probe as tq
+    from swarm_simulator_tpu_torch.tools import thomas_probe as t3
+    from swarm_simulator_tpu_torch.tools._timing import median_ms
+
+    dinvs, koM, b, dsym = t3.inputs(256, 4, 2, dev)
+    max_abs = 0.0
+    for st in tq.STAGES:
+        piv = dsym if st == "full" else dinvs
+        got = tq.thomas_probe(piv, koM, b, st, 1)
+        want = tq.thomas_probe_reference(piv, koM, b, st, 1)
+        err = rel_err(got, want)
+        max_abs = max(max_abs, float((got - want).abs().max()))
+        log(f"T3 {st} vs plain (bs 256, Mi 4): rel err {err:.2e}")
+        check(err <= 1e-5, f"T3 {st} disagrees with the plain version "
+              f"({err:.2e})")
+    out = {}
+    reset_counts()
+    for bs, Mi in ((576, 35), (2304, 71)):
+        ins = t3.inputs(bs, Mi, 2, dev)
+        res = t3.run_stages(*ins, tq.STAGES)
+        for st in tq.STAGES:
+            check(res[st]["finite"] and res[st]["rel_err"] <= 1e-4,
+                  f"T3 {st} at bs {bs}: rel err {res[st]['rel_err']:.2e}")
+        out[bs] = res
+        if bs == 576:
+            d, k, bb = ins[0], ins[1], ins[2]
+            mv = dict(res["mv"], plain_ms=median_ms(
+                lambda: tq.thomas_probe_reference(d, k, bb, "mv", 1), 3),
+                library_ms=median_ms(lambda: torch.einsum(
+                    "kbc,kc->kb", d[1], bb), 10))
+        del ins
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    check(counts["t3"] > 0, "the T3 probe launched T3 0 times")
+    Mi, bs = 35, 576
+    return dict(counts=counts, max_abs_err=max_abs, ms=mv["ms"],
+                plain_ms=mv["plain_ms"], library_ms=mv["library_ms"],
+                bound=bound(4 * (Mi * bs * bs + 2 * Mi * bs),
+                            2 * Mi * bs * bs), stages=out)
+
+
+def nsfused_probes(dev):
+    """Phase 16: T1's P1-P4 through the tool (each against its plain
+    version, P3 also against float64; timed) with the launch counts read
+    around it."""
+    from swarm_simulator_tpu_torch.ops import nsfused_probe as npb
+    from swarm_simulator_tpu_torch.tools import nsfused_probe as t1
+
+    reset_counts()
+    res = t1.run((1, 2, 3, 4), dev, True)
+    counts = read_counts()
+    for p in range(1, 5):
+        check(counts[f"t1p{p}"] > 0, f"T1 P{p} launched 0 times")
+        check(res[f"P{p}"]["rel_err"] <= 1e-5, f"T1 P{p} disagrees with the "
+              f"plain version ({res[f'P{p}']['rel_err']:.2e})")
+    check(res["P3"]["rel_err_f64"] <= 3e-6, "T1 P3 is "
+          f"{res['P3']['rel_err_f64']:.2e} from float64 (limit 3e-6)")
+    log(f"T1 P4: {res['P4']['ms']:.3f} ms per {npb.INNER}-iteration launch, "
+        f"{res['P4']['ms_per_iter']:.4f} ms per iteration (K1: "
+        f"{res['P4']['k1_ms_per_iter']} ms per ADMM iteration)")
+    B3, phi, Mi, MP, PL = npb.B3, npb.PHI, npb.MI, npb.MP, npb.PL
+    n = phi * B3
+    bounds = {
+        1: bound(4 * (MP * B3 + 108 * B3), 2 * 108 * B3),
+        2: bound(4 * (phi * phi * B3 * B3 + 2 * n), 2 * n * n),
+        3: bound(4 * (MP * B3 + B3 * PL + MP * PL), 3 * 2 * MP * B3 * PL,
+                 BF16_FLOPS),
+        4: bound(4 * (Mi * phi * phi * B3 * B3 + phi * phi + 2 * Mi * n),
+                 npb.INNER * (2 * Mi - 1) * 2 * n * n)}
+    return {p: dict(res[f"P{p}"], launches=counts[f"t1p{p}"],
+                    bound=bounds[p]) for p in range(1, 5)}
+
+
+def row_pattern_probes(dev):
+    """Phase 17: T5's fourteen patterns through the tool (each against its
+    plain version, bit-equal but P8; timed beside its plain version and,
+    where one PyTorch call computes it, that call, held to the plain
+    version too) with the launch counts read around it."""
+    from swarm_simulator_tpu_torch.ops import row_patterns as rp
+    from swarm_simulator_tpu_torch.tools import row_patterns as t5
+
+    reset_counts()
+    res = t5.run(dev, True)
+    counts = read_counts()
+    check(counts["t5"] > 0, "the T5 patterns launched T5 0 times")
+    bad = [k for k, v in res.items() if not t5.agrees(v)]
+    check(not bad, f"T5 patterns (or their library calls) disagree with "
+          f"their plain versions: {bad}")
+    nbytes = 0
+    for name, ins in rp.pattern_inputs(dev).items():
+        nbytes += 4 * (sum(t.numel() for t in ins)
+                       + int(np.prod(rp.PATTERNS[name].out)))
+    lib = {k: v["library_ms"] for k, v in res.items() if v["library_ms"]}
+    log("T5 library calls (ms): " + ", ".join(f"{k.split()[0]} {v:.4f}"
+                                              for k, v in lib.items()))
+    return dict(counts=counts, patterns=res,
+                max_abs_err=max(v["max_abs_err"] for v in res.values()),
+                ms=sum(v["ms"] for v in res.values()),
+                plain_ms=sum(v["plain_ms"] for v in res.values()),
+                bound=bound(nbytes, 2 * 3 * 192 * 192))
 
 
 def main() -> int:
@@ -978,7 +1256,9 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    built = _build.build("nsfused", "thomas", "thomas_stream", verbose=True)
+    built = _build.build("nsfused", "thomas", "thomas_stream", "thomas_prim",
+                         "thomas_probe", "nsfused_probe", "row_patterns",
+                         verbose=True)
     log(f"kernel builds (parallel): {time.perf_counter() - t0:.2f} s")
     for name, (path, build_s, ptxas) in built.items():
         log(f"  {name}: {build_s:.2f} s -> {path.name}")
@@ -1066,11 +1346,20 @@ def main() -> int:
     big = budget_arms(dev)
     t4 = stream_study(dev)
 
+    # ---- phases 14-17: the probes T2, T3, T1, T5 ----
+    t2 = prim_bench(dev)
+    t3 = probe_stages(dev)
+    t1 = nsfused_probes(dev)
+    t5 = row_pattern_probes(dev)
+
     def entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
               bnd, library_ms=None):
         # no single PyTorch call computes a Thomas solve or sweep from
-        # stored pivot inverses or a fused ADMM chunk, so those have no
-        # library time; T4's function is one torch.sum
+        # stored pivot inverses, a fused ADMM chunk, a chain-primitive
+        # recurrence, P4's sweeps or T5's fourteen patterns together, so
+        # those have no library time (phase 17 times each pattern's own);
+        # T4's function is one torch.sum, T3's mv stage and T1's P2 one
+        # torch.einsum, P1 one torch.add on views, P3 one torch.matmul
         return {"name": name, "route": "cuda",
                 "source": "swarm_simulator_tpu_torch/csrc/" + source,
                 "replaces": replaces, "launches": launches,
@@ -1107,7 +1396,24 @@ def main() -> int:
         entry("thomas_stream", "thomas_stream.cu",
               "tools/thomas_bw_study.py:103", t4["counts"]["t4"],
               t4["max_abs_err"], t4["ms"], t4["plain_ms"], t4["bound"],
-              t4["library_ms"])]}), flush=True)
+              t4["library_ms"]),
+        entry("thomas_prim", "thomas_prim.cu",
+              "tools/pallas_debug/thomas_prim_bench.py:188",
+              t2["counts"]["t2"], t2["max_abs_err"], t2["ms"],
+              t2["plain_ms"], t2["bound"]),
+        entry("thomas_probe", "thomas_probe.cu",
+              "tools/pallas_debug/thomas_probe.py:83", t3["counts"]["t3"],
+              t3["max_abs_err"], t3["ms"], t3["plain_ms"], t3["bound"],
+              t3["library_ms"]),
+        *(entry(f"nsfused_probe_p{p}", "nsfused_probe.cu",
+                f"tools/pallas_debug/nsfused_probe.py:{line}",
+                t1[p]["launches"], t1[p]["max_abs_err"], t1[p]["ms"],
+                t1[p]["plain_ms"], t1[p]["bound"], t1[p]["library_ms"])
+          for p, line in ((1, 67), (2, 106), (3, 156), (4, 231))),
+        entry("row_pattern", "row_patterns.cu",
+              "tools/pallas_debug/mosaic_patterns.py:21",
+              t5["counts"]["t5"], t5["max_abs_err"], t5["ms"],
+              t5["plain_ms"], t5["bound"])]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with nvcc
 (``sm_90a``) into its own shared library ``build/lib<name>.so`` in the
 package's git-ignored build directory, loaded with ctypes.  A library is
-rebuilt when it is missing or older than its source.  Nothing is built
+rebuilt when it is missing or older than its source or a shared header
+(``csrc/*.cuh``).  Nothing is built
 when a module is imported: the first launch builds.
 """
 from __future__ import annotations
@@ -36,7 +37,8 @@ def _nvcc() -> str:
 def _compile(name: str, verbose: bool) -> tuple[Path, float, str]:
     src = CSRC / f"{name}.cu"
     lib = BUILD / f"lib{name}.so"
-    if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+    newest = max(p.stat().st_mtime for p in (src, *CSRC.glob("*.cuh")))
+    if lib.exists() and lib.stat().st_mtime >= newest:
         return lib, 0.0, ""
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
@@ -59,6 +61,33 @@ def build(*names: str, verbose: bool = False) -> dict[str, tuple]:
     with _lock, ThreadPoolExecutor(max_workers=max(1, len(names))) as ex:
         futs = {n: ex.submit(_compile, n, verbose) for n in names}
         return {n: f.result() for n, f in futs.items()}
+
+
+def check_operands(fname: str, named) -> None:
+    """Raise ValueError unless every (name, tensor, shape) of ``named`` is
+    a contiguous CUDA float32 tensor of that shape."""
+    import torch
+
+    for name, t, shape in named:
+        if t.device.type != "cuda":
+            raise ValueError(f"{fname}: {name} is on {t.device}, expected a "
+                             "CUDA tensor")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{fname}: {name} has dtype {t.dtype}, "
+                             "expected torch.float32")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{fname}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fname}: {name} is not contiguous")
+
+
+def check_error(fname: str, err: int, describe) -> None:
+    """Raise RuntimeError for a non-zero cudaError_t ``err`` returned by a
+    library function; ``describe(err)`` is the library's error string."""
+    if err != 0:
+        raise RuntimeError(f"{fname}: CUDA error {err} "
+                           f"({describe(err).decode()})")
 
 
 def load(name: str, declare) -> ctypes.CDLL:

@@ -51,12 +51,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.thomas_stream_error_string.argtypes = [ci]
 
 
-def _check(lib, name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} "
-                           f"({lib.thomas_stream_error_string(err).decode()})")
-
-
 def tile_rows(bs: int, element_size: int) -> int:
     """Rows per tile: as many whole rows as fit in TILE_BYTES, at least
     one."""
@@ -107,16 +101,18 @@ def thomas_stream(dinv: torch.Tensor, rho_idx: int, slots: int = 2,
         grid = _grids.get(key)
         if grid is None:
             g = ctypes.c_int(0)
-            _check(lib, "thomas_stream_grid", lib.thomas_stream_grid(
-                elt, slots, int(split), bs, rows, ctypes.byref(g)))
+            _build.check_error("thomas_stream_grid", lib.thomas_stream_grid(
+                elt, slots, int(split), bs, rows, ctypes.byref(g)),
+                lib.thomas_stream_error_string)
             grid = _grids[key] = g.value
         partial = torch.empty((grid, bs), dtype=torch.float32, device=dev)
         out = torch.empty(bs, dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _check(lib, "thomas_stream", lib.thomas_stream(
+        _build.check_error("thomas_stream", lib.thomas_stream(
             ctypes.c_void_p(rung.data_ptr()), Mi * bs, bs, elt, slots,
             int(split), rows, grid, ctypes.c_void_p(partial.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream)))
+            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream)),
+            lib.thomas_stream_error_string)
     thomas_stream.launches += 1
     return out
 

@@ -17,18 +17,19 @@ card from seed 0, and rounded to bf16 for the bf16 half) it times:
   torch.sum              one PyTorch call computing T4's function
 
 each on float32 and on bf16 pivots, alternating the rung from call to
-call as the JAX study does.  Times are CUDA events around each call,
-the median of ``--reps`` calls after one warm-up call; GB/s is the
-rung's bytes (twice them for K2) over that time.  Lines go to stderr, the
-JSON to stdout; no file is written.  Needs a CUDA card.
+call as the JAX study does.  Times are CUDA events around each call
+(tools/_timing, after a ~0.5 ms stream spin), the median of ``--reps``
+calls after one warm-up call; GB/s is the rung's bytes (twice them for
+K2) over that time.  Lines go to stderr, the JSON to stdout; no file is
+written.  Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import sys
 
-import numpy as np
 import torch
 
 
@@ -47,20 +48,13 @@ def synthetic_inventory(agents: int, M: int, dev, R: int = 2,
                        device=dev).mul_(0.01)
 
 
-def median_ms(fn, R: int, reps: int) -> float:
+def rung_ms(fn, R: int, reps: int) -> float:
     """Median CUDA-event milliseconds of ``fn(rung)`` over ``reps`` calls
     after one warm-up call, the rung alternating 0, 1, ..."""
-    fn(0)
-    out = []
-    for i in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn(i % R)
-        b.record()
-        torch.cuda.synchronize()
-        out.append(a.elapsed_time(b))
-    return float(np.median(out))
+    from swarm_simulator_tpu_torch.tools._timing import median_ms
+
+    rungs = itertools.cycle(range(R))
+    return median_ms(lambda: fn(next(rungs)), reps)
 
 
 def run_study(dinv32: torch.Tensor, reps: int) -> dict:
@@ -81,14 +75,13 @@ def run_study(dinv32: torch.Tensor, reps: int) -> dict:
         rung_bytes = Mi * bs * bs * dinv.element_size()
         rows = {}
         for name, (slots, split) in ts.VARIANTS.items():
-            ms = median_ms(lambda r, s=slots, p=split: ts.thomas_stream(
+            ms = rung_ms(lambda r, s=slots, p=split: ts.thomas_stream(
                 dinv, r, s, p), R, reps)
             rows[name] = dict(ms=ms, gbps=rung_bytes / ms / 1e6)
-        ms = median_ms(lambda r: thomas.thomas_solve(dinv, ho, b, r), R,
-                       reps)
+        ms = rung_ms(lambda r: thomas.thomas_solve(dinv, ho, b, r), R, reps)
         rows["thomas"] = dict(ms=ms, gbps=2 * rung_bytes / ms / 1e6)
-        ms = median_ms(lambda r: torch.sum(dinv[r], dim=(0, 1),
-                                           dtype=torch.float32), R, reps)
+        ms = rung_ms(lambda r: torch.sum(dinv[r], dim=(0, 1),
+                                         dtype=torch.float32), R, reps)
         rows["torch.sum"] = dict(ms=ms, gbps=rung_bytes / ms / 1e6)
         for name, v in rows.items():
             log(f"{label} {name}: {v['ms']:.4f} ms -> {v['gbps']:.1f} GB/s")

@@ -1,7 +1,8 @@
 """PyTorch port on a CUDA card: the fused ADMM chunk kernel (K1), the
 Thomas solve kernel (K2, on float32 and bf16 pivots), the chunked Thomas
-sweeps (K3a/K3b) and the pivot-stream kernel (T4) against their plain
-twins, and the planning paths through them: the cold plan through K1, the
+sweeps (K3a/K3b), the pivot-stream kernel (T4) and the probe kernels
+(T1, T2, T3, T5) against their plain twins, and the planning paths
+through them: the cold plan through K1, the
 corridor replan and the device-prep cold plan through K2, and the sharded
 joint solve on a 1-rank NCCL group through K3a/K3b.
 
@@ -25,6 +26,10 @@ from swarm_simulator_tpu_torch.corridor.times import build_corridors
 from swarm_simulator_tpu_torch.io.mission_json import perimeter_swap_mission
 from swarm_simulator_tpu_torch.eval.gate import gate_quality
 from swarm_simulator_tpu_torch.ops import nsfused, thomas
+from swarm_simulator_tpu_torch.ops import nsfused_probe as npb
+from swarm_simulator_tpu_torch.ops import row_patterns as rp
+from swarm_simulator_tpu_torch.ops import thomas_prim as tp
+from swarm_simulator_tpu_torch.ops import thomas_probe as tq
 from swarm_simulator_tpu_torch.ops import thomas_stream as ts
 from swarm_simulator_tpu_torch.parallel import distributed as pd
 from swarm_simulator_tpu_torch.qp import convert, joint
@@ -316,3 +321,109 @@ def test_bf16_inventory_refused_on_cuda_k1_path():
     with pytest.raises(ValueError, match="bf16 pivot inventory"):
         ns.solve_ns_schedule(data.to(dev), op16, *ns.schedule_arrays((s0,)))
     assert nsfused.nsfused_chunk.launches == 0
+
+
+def _rel(got, want):
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+@pytest.mark.parametrize("grid", tp.GRIDS)
+@pytest.mark.parametrize("spec", ["dma", "mv_sub", "mv_lane", "mv_mxu",
+                                  "trans", "fwd", "dmag", "dmaq", "dma@4"])
+def test_prim_kernel_matches_plain_on_cuda(spec, grid):
+    """T2 at bs 576 (Mi 6, two reps) from a seeded start, on one block and
+    on K2's grid: within 1e-5 of the plain version's scale (float32 sums in
+    another order); mv_mxu, which rounds its carried row to bf16 each step
+    (so float32 runs summing in another order drift apart), against a
+    float64 plain run within 3x the float32 plain run's error plus one
+    bf16 unit, 2^-8 (a rounding flip of the carried row)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bs, Mi = 576, 6
+    dinv = torch.randn((1, Mi, bs, bs), generator=gen, device=dev) * 0.01
+    koM = torch.randn((bs, bs), generator=gen, device=dev) * 0.1
+    b = torch.randn((Mi, bs), generator=gen, device=dev)
+    acc0 = torch.randn((bs, bs), generator=gen, device=dev)
+    mode, nbuf = tp.parse_mode(spec)
+    before = tp.thomas_prim.launches
+    got = tp.thomas_prim(dinv, koM, b, mode, nbuf, 2, acc0, grid=grid)
+    assert tp.thomas_prim.launches == before + 1
+    want = tp.thomas_prim_reference(dinv, koM, b, mode, nbuf, 2, acc0)
+    if mode != "mv_mxu":
+        assert _rel(got, want) <= 1e-5
+        return
+    w64 = tp.thomas_prim_reference(dinv, koM.double(), b.double(), mode,
+                                   nbuf, 2, acc0.double())
+    assert thomas.rel_error(got, w64) <= \
+        thomas.TWIN_GAP_FACTOR * thomas.rel_error(want, w64) + 2.0 ** -8
+
+
+@pytest.mark.parametrize("stage", tq.STAGES)
+def test_probe_kernel_matches_plain_on_cuda(stage):
+    """T3 at the 64-agent width (bs 576, Mi 8, rung 1 of 2): within 1e-5
+    of the plain version's scale."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bs, Mi = 576, 8
+    dinv = torch.randn((2, Mi, bs, bs), generator=gen, device=dev) * 0.01
+    dinv += torch.eye(bs, device=dev)
+    koM = torch.randn((bs, bs), generator=gen, device=dev) * 0.5 / bs ** 0.5
+    b = torch.randn((Mi, bs), generator=gen, device=dev)
+    before = tq.thomas_probe.launches
+    got = tq.thomas_probe(dinv, koM, b, stage, 1)
+    assert tq.thomas_probe.launches == before + 1
+    assert _rel(got, tq.thomas_probe_reference(dinv, koM, b, stage, 1)) \
+        <= 1e-5
+
+
+@pytest.mark.parametrize("probe", [1, 2, 3, 4])
+def test_nsfused_probe_kernels_match_plain_on_cuda(probe):
+    """T1's P1-P4 at their fixed sizes (P4 over 9 knots, 2 iterations):
+    within 1e-5 of the plain version's scale; P3 also within 3e-6 of a
+    float64 product."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    if probe == 1:
+        wrapper, args = npb.p1_reshape_combine, (r(216, 192),)
+        plain = npb.p1_reshape_combine_reference
+    elif probe == 2:
+        wrapper, args = npb.p2_tile_apply, (r(2, 4, 3, 3, 192, 192),
+                                            r(3, 192), 1)
+        plain = npb.p2_tile_apply_reference
+    elif probe == 3:
+        s = torch.randint(-1, 2, (192, 2048), generator=gen,
+                          device=dev).float()
+        wrapper, args = npb.p3_split_pair_product, (r(216, 192, scale=3.0), s)
+        plain = npb.p3_split_pair_product_reference
+    else:
+        wrapper, args = npb.p4_resident_thomas, (
+            r(1, 9, 3, 3, 192, 192, scale=0.1), r(3, 3, scale=0.1),
+            r(9, 3, 192), 0, 2)
+        plain = npb.p4_resident_thomas_reference
+    before = wrapper.launches
+    got = wrapper(*args)
+    assert wrapper.launches == before + 1
+    assert _rel(got, plain(*args)) <= 1e-5
+    if probe == 3:
+        ref = args[0].double() @ args[1].double()
+        assert float((got.double() - ref).abs().max()) <= \
+            3e-6 * max(float(ref.abs().max()), 1.0)
+
+
+def test_row_pattern_kernel_matches_plain_on_cuda():
+    """T5's fourteen patterns on the probe's inputs: bit-equal to the plain
+    versions (P8's sum within 1e-6 of its scale)."""
+    for name, ins in rp.pattern_inputs("cuda").items():
+        before = rp.row_pattern.launches
+        got = rp.row_pattern(name, *ins)
+        assert rp.row_pattern.launches == before + 1
+        want = rp.PATTERNS[name].plain(*ins)
+        if name == rp.SUM_PATTERN:
+            assert _rel(got, want) <= 1e-6, name
+        else:
+            assert torch.equal(got, want), name

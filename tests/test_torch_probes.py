@@ -1,0 +1,346 @@
+"""PyTorch port, the probe slice (T2, T3, T1, T5): each probe's plain
+version against the JAX package's Pallas kernels, run by the JAX tools
+themselves in interpret mode.
+
+Each JAX tool (tools/pallas_debug/*.py) is loaded by path and its main()
+run with a spy on ``jax.experimental.pallas.pallas_call`` that forces
+interpret mode and records every call's (args, out); ``jax.config.update``
+is a no-op meanwhile (the tools set the platform and a compilation cache).
+T2's accumulator is read before it is written, so its capture runs with
+``InterpretParams(uninitialized_memory="zero")`` under ``jax.disable_jit``
+(it jits its runs); the port defines that start as zeros.  Checked:
+
+  inputs   the port's builders give the captured inputs bit for bit;
+  outputs  the plain versions within rel 1e-5 of each JAX output's scale
+           (T1 P3 also rel 3e-6 against float64; T5 bit-equal, P8 1e-6);
+  T2       its matvec modes from a seeded acc0 against a float64 numpy
+           run of the same recurrence (from zeros they are zero);
+  library  each single PyTorch call the tools time beside T1 and T5
+           computes the probe's function (T5 by the tool's own rule);
+  wrappers CPU tensors take the plain version and leave ``.launches`` as
+           it was, a meta tensor raises a ValueError naming CUDA;
+  tools    each prints its JSON line with ``--cpu``, and exits non-zero
+           without a card and without ``--cpu``.
+
+The kernels themselves are held against the plain versions in
+tests/test_torch_cuda.py, which needs a card.
+"""
+import contextlib
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas
+from jax.experimental.pallas import tpu as pltpu
+
+from swarm_simulator_tpu_torch.ops import nsfused_probe as npb
+from swarm_simulator_tpu_torch.ops import row_patterns as rp
+from swarm_simulator_tpu_torch.ops import thomas_prim as tp
+from swarm_simulator_tpu_torch.ops import thomas_probe as tq
+from swarm_simulator_tpu_torch.tools import nsfused_probe as t1_tool
+from swarm_simulator_tpu_torch.tools import row_patterns as t5_tool
+from swarm_simulator_tpu_torch.tools import thomas_prim_bench as t2_tool
+from swarm_simulator_tpu_torch.tools import thomas_probe as t3_tool
+
+REPO = Path(__file__).resolve().parents[1]
+T2_MODES = ("dma", "mv_sub", "mv_lane", "mv_mxu", "trans", "fwd", "dmag",
+            "dmaq", "dma@4")
+T2_BS, T2_MI, T2_REPS = 128, 5, 2
+T3_BS, T3_MI, T3_R = 128, 4, 2
+#: calls of each mode by the JAX T2 tool: one warm-up, three timed
+T2_CALLS = 4
+
+
+def capture(rel: str, argv: list, interpret, nojit: bool) -> list:
+    """Run the JAX tool ``rel``'s main() with ``argv`` and return each
+    pallas_call's (numpy args, numpy output), in call order."""
+    calls = []
+    orig, update = pallas.pallas_call, jax.config.update
+
+    def spy(kernel, *a, **k):
+        k["interpret"] = interpret
+        f = orig(kernel, *a, **k)
+
+        def run(*args):
+            out = f(*args)
+            calls.append(([np.asarray(x) for x in args], np.asarray(out)))
+            return out
+        return run
+
+    spec = importlib.util.spec_from_file_location(
+        "jax_" + Path(rel).stem, REPO / rel)
+    mod = importlib.util.module_from_spec(spec)
+    old_argv = sys.argv
+    pallas.pallas_call = spy
+    jax.config.update = lambda *a, **k: None
+    sys.argv = [rel] + argv
+    try:
+        spec.loader.exec_module(mod)
+        with jax.disable_jit() if nojit else contextlib.nullcontext():
+            mod.main()
+    finally:
+        pallas.pallas_call, jax.config.update = orig, update
+        sys.argv = old_argv
+    return calls
+
+
+def within(got, want, rtol):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want).max() <= rtol * np.abs(want).max()
+
+
+# ---- T2 ----
+
+@pytest.fixture(scope="module")
+def t2_calls():
+    calls = capture("tools/pallas_debug/thomas_prim_bench.py",
+                    ["--bs", str(T2_BS), "--mi", str(T2_MI), "--reps",
+                     str(T2_REPS), "--interpret", "--modes",
+                     ",".join(T2_MODES)],
+                    pltpu.InterpretParams(uninitialized_memory="zero"),
+                    nojit=True)
+    assert len(calls) == T2_CALLS * len(T2_MODES)
+    return {m: calls[T2_CALLS * i:T2_CALLS * (i + 1)]
+            for i, m in enumerate(T2_MODES)}
+
+
+@pytest.mark.parametrize("spec", T2_MODES)
+def test_t2_plain_matches_pallas(t2_calls, spec):
+    dinvs, koM, b = t2_tool.probe_inputs(T2_BS, T2_MI)
+    mode, nbuf = tp.parse_mode(spec)
+    for rep, (args, want) in enumerate(t2_calls[spec]):
+        assert int(args[0][0]) == 0
+        assert np.array_equal(args[1], dinvs) and np.array_equal(args[2], koM)
+        # the JAX tool runs b + 1e-6 (rep) after its warm-up on b
+        bb = b if rep == 0 else np.array(args[3])
+        assert np.array_equal(args[3], bb)
+        got = tp.thomas_prim(*(torch.from_numpy(a) for a in (dinvs, koM, bb)),
+                             mode, nbuf, T2_REPS)
+        assert got.shape == want.shape and np.isfinite(want).all()
+        assert np.abs(got.numpy() - want).max() <= \
+            1e-5 * max(np.abs(want).max(), 1e-30)
+    if mode in ("dma", "dmaq", "dmag", "trans", "fwd"):
+        assert np.abs(want[0]).max() > 0
+
+
+def _f64_recurrence(dinv, koM, b, mode, reps, acc0):
+    """The T2 recurrence in float64 numpy (bf16 rounding for mv_mxu)."""
+    def bf(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(
+            torch.bfloat16).to(torch.float64).numpy()
+
+    acc = acc0.astype(np.float64)
+    rung = dinv[0].astype(np.float64)
+    for _ in range(reps):
+        for k in range(b.shape[0]):
+            A = rung[k]
+            if mode == "mv_sub":
+                acc[0] = acc[:, 0] @ A
+            elif mode == "mv_lane":
+                acc[:, 0] = A @ acc[0]
+            elif mode == "mv_mxu":
+                acc[0] = bf(acc[0]) @ bf(A)
+            elif mode == "trans":
+                acc = 0.5 * acc + A.T
+            else:
+                t = A @ acc[0]
+                acc[0] = b[k] - t @ koM + 1e-30 * (t @ A)
+    return acc[0]
+
+
+@pytest.mark.parametrize("mode", ["mv_sub", "mv_lane", "mv_mxu", "trans",
+                                  "fwd"])
+def test_t2_seeded_start_matches_float64(mode):
+    dinvs, koM, b = t2_tool.probe_inputs(T2_BS, T2_MI)
+    acc0 = np.random.default_rng(1).standard_normal(
+        (T2_BS, T2_BS)).astype(np.float32)
+    got = tp.thomas_prim(*(torch.from_numpy(a) for a in (dinvs, koM, b)),
+                         mode, 2, T2_REPS, acc0=torch.from_numpy(acc0))
+    want = _f64_recurrence(dinvs, koM.astype(np.float64),
+                           b.astype(np.float64), mode, T2_REPS, acc0)
+    assert np.abs(want).max() > 0
+    assert within(got[0].numpy(), want, 1e-5)
+    assert not got[1:].any()
+
+
+# ---- T3 ----
+
+@pytest.fixture(scope="module")
+def t3_calls():
+    calls = capture("tools/pallas_debug/thomas_probe.py",
+                    ["--bs", str(T3_BS), "--mi", str(T3_MI), "--rungs",
+                     str(T3_R), "--interpret"], True, nojit=True)
+    assert len(calls) == len(tq.STAGES)
+    return dict(zip(tq.STAGES, calls))
+
+
+@pytest.mark.parametrize("stage", tq.STAGES)
+def test_t3_plain_matches_pallas(t3_calls, stage):
+    dinvs, koM, b, dsym = t3_tool.probe_inputs(T3_BS, T3_MI, T3_R)
+    args, want = t3_calls[stage]
+    piv = dsym if stage == "full" else dinvs
+    assert int(args[0][0]) == 1 % T3_R
+    assert np.array_equal(args[1], piv)
+    assert np.array_equal(args[2], koM) and np.array_equal(args[3], b)
+    got = tq.thomas_probe(*(torch.from_numpy(a) for a in (piv, koM, b)),
+                          stage, 1 % T3_R)
+    assert got.shape == want.shape
+    assert within(got.numpy(), want, 1e-5)
+
+
+# ---- T1 ----
+
+@pytest.fixture(scope="module")
+def t1_calls():
+    calls = capture("tools/pallas_debug/nsfused_probe.py", ["--interpret"],
+                    True, nojit=False)
+    # P4 runs once to warm up and once timed, on the same inputs
+    assert len(calls) == 5
+    return {1: calls[0], 2: calls[1], 3: calls[2], 4: calls[3]}
+
+
+@pytest.mark.parametrize("probe", [1, 2, 3, 4])
+def test_t1_plain_matches_pallas(t1_calls, probe):
+    ins = t1_tool.probe_inputs()[probe]
+    args, want = t1_calls[probe]
+    if probe in (2, 4):          # the rung scalar first
+        assert int(args[0][0]) == (1 if probe == 2 else 0)
+        args = args[1:]
+    assert len(args) == len(ins)
+    assert all(np.array_equal(a, i) for a, i in zip(args, ins))
+    t = [torch.from_numpy(a) for a in ins]
+    fn = {1: lambda: npb.p1_reshape_combine(*t),
+          2: lambda: npb.p2_tile_apply(*t, 1),
+          3: lambda: npb.p3_split_pair_product(*t),
+          # each of P4's iterations recomputes x from b, so one gives the
+          # JAX kernel's result after fifty
+          4: lambda: npb.p4_resident_thomas(*t, 0, 1)}[probe]
+    got = fn().numpy()
+    assert got.shape == want.shape
+    assert within(got, want, 1e-5)
+    if probe == 3:
+        x, s = (a.astype(np.float64) for a in ins)
+        ref = x @ s
+        assert np.abs(got - ref).max() <= 3e-6 * max(np.abs(ref).max(), 1)
+
+
+@pytest.mark.parametrize("probe", sorted(t1_tool.LIBRARY))
+def test_t1_library_call_matches_plain(probe):
+    ins = [torch.from_numpy(a) for a in t1_tool.probe_inputs((probe,))[probe]]
+    extra = (1,) if probe == 2 else ()
+    plain = {1: npb.p1_reshape_combine_reference,
+             2: npb.p2_tile_apply_reference,
+             3: npb.p3_split_pair_product_reference}[probe]
+    want = plain(*ins, *extra)
+    got = t1_tool.LIBRARY[probe](*ins, *extra)
+    assert got.shape == want.shape
+    if probe == 1:
+        assert torch.equal(got, want)
+    else:
+        assert within(got.numpy(), want.numpy(), 1e-5)
+
+
+# ---- T5 ----
+
+@pytest.fixture(scope="module")
+def t5_calls():
+    calls = capture("tools/pallas_debug/mosaic_patterns.py", [], True,
+                    nojit=True)
+    assert len(calls) == len(rp.PATTERNS)
+    return dict(zip(rp.PATTERNS, calls))
+
+
+@pytest.mark.parametrize("name", list(rp.PATTERNS))
+def test_t5_plain_matches_pallas(t5_calls, name):
+    ins = rp.pattern_inputs()[name]
+    args, want = t5_calls[name]
+    assert len(args) == len(ins)
+    assert all(np.array_equal(a, i.numpy()) for a, i in zip(args, ins))
+    got = rp.row_pattern(name, *ins).numpy()
+    assert got.shape == want.shape
+    if name == rp.SUM_PATTERN:
+        assert within(got, want, 1e-6)
+    else:
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", [n for n, p in rp.PATTERNS.items()
+                                  if p.library])
+def test_t5_library_call_matches_plain(name):
+    ins = rp.pattern_inputs()[name]
+    pat = rp.PATTERNS[name]
+    r = t5_tool.check(name, pat.library(*ins), pat.plain(*ins),
+                      t5_tool.LIB_RTOL)
+    assert r[0], r
+
+
+# ---- wrappers ----
+
+def _wrapper_calls():
+    """(wrapper, a call of it on the given tensors' device) per kernel, on
+    tiny inputs made from a seed."""
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g)
+
+    d, k, b = r(1, 3, 32, 32), r(32, 32), r(3, 32)
+    x1, x3, s3 = r(216, 192), r(20, 32), r(32, 64)
+    d6, y, ho, bt = r(2, 4, 3, 3, 192, 192), r(3, 192), r(3, 3), r(4, 3, 192)
+    return [
+        (tp.thomas_prim, lambda f: tp.thomas_prim(*map(f, (d, k, b)), "fwd",
+                                                  2, 1)),
+        (tq.thomas_probe, lambda f: tq.thomas_probe(*map(f, (d, k, b)),
+                                                    "full", 0)),
+        (npb.p1_reshape_combine, lambda f: npb.p1_reshape_combine(f(x1))),
+        (npb.p2_tile_apply, lambda f: npb.p2_tile_apply(f(d6), f(y), 1)),
+        (npb.p3_split_pair_product,
+         lambda f: npb.p3_split_pair_product(f(x3), f(s3))),
+        (npb.p4_resident_thomas,
+         lambda f: npb.p4_resident_thomas(f(d6[:1]), f(ho), f(bt), 0, 1)),
+        (rp.row_pattern, lambda f: rp.row_pattern(
+            "P1b lane concat 2x[8,192] -> [8,384]", f(x1[:8, :192]))),
+    ]
+
+
+@pytest.mark.parametrize("i", range(7))
+def test_wrapper_runs_plain_version_only_on_cpu(i):
+    wrapper, call = _wrapper_calls()[i]
+    before = wrapper.launches
+    out = call(lambda t: t)
+    assert out.device.type == "cpu" and torch.isfinite(out).all()
+    assert wrapper.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        call(lambda t: t.to("meta"))
+
+
+# ---- tool entry points ----
+
+TOOLS = {
+    "thomas_prim_bench": (t2_tool, ["--bs", "32", "--mi", "3", "--reps",
+                                    "1", "--modes", ",".join(T2_MODES)]),
+    "thomas_probe": (t3_tool, ["--bs", "32", "--mi", "3"]),
+    "nsfused_probe": (t1_tool, ["--probe", "1"]),
+    "row_patterns": (t5_tool, []),
+}
+
+
+@pytest.mark.parametrize("name", list(TOOLS))
+def test_tool_cpu_prints_json(capsys, name):
+    mod, argv = TOOLS[name]
+    assert mod.main(argv + ["--cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["device"] == "cpu"
+
+
+@pytest.mark.parametrize("name", list(TOOLS))
+def test_tool_without_card_exits_nonzero(monkeypatch, capsys, name):
+    mod, argv = TOOLS[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert mod.main(argv) != 0
+    assert capsys.readouterr().out == ""
