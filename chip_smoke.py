@@ -31,7 +31,10 @@ Phases (any failure raises and exits non-zero):
      the float32 twin's (thomas.twin_gap_use), on phase 2's host-prep
      inventory and again on a device-prep inventory (pivots not
      symmetric); and the median time per solve of kernel and float32
-     twin (CUDA events);
+     twin (CUDA events); then the port's A x (a gather by pair index) on
+     the device-prep problem's cold x against the dense-selection einsum
+     form, computed in the script, float32, relative error <= 1e-5, both
+     timed;
   6. the replan slice through the entry point: ``plan(..., iteration=2)``
      with replan_prep on its auto value ("device" on CUDA), with the K1
      and K2 launch counts read around it, then phase 3's gate; then
@@ -74,8 +77,8 @@ Phases (any failure raises and exits non-zero):
      the gate (no objective pin at this size); then, on the same host
      problem, the study's full-budget arm (200, 600, 100) at refine 1: on
      float32 pivots K2 held against its twins on the arm's inventory (as
-     in phase 5) and the arm checked (ratio >= 1, box and continuity <
-     1e-3); on bf16 pivots K2-bf16 held against its twins likewise, the
+     in phase 5), A x against the einsum form as in phase 5, and the arm
+     checked (ratio >= 1, box and continuity < 1e-3); on bf16 pivots K2-bf16 held against its twins likewise, the
      arm run through the kernel and again with the float32 twin in K2's
      place, the two runs held together as in phase 11, and its checks and
      objective gap against the float32 arm reported;
@@ -374,6 +377,39 @@ def thomas_vs_twin(op, dev, label: str, pivots=torch.float32,
     return dict(use=use, max_abs_err=max_abs, ms=float(np.median(k_ms)),
                 plain_ms=float(np.median(t_ms)),
                 bound=bound(nbytes, (2 * Mi - 1) * 2 * bs * bs))
+
+
+#: the port's A x against the einsum form it replaced: float32 on both
+#: sides, the same products summed in another order
+PAIR_ROWS_TOL = 1e-5
+
+
+def pair_rows_vs_einsum(data, op, s, label: str) -> dict:
+    """Phases 5 and 12: the port's A x (qp/nullspace._A_x, a gather of each
+    pair's two agents and a multiply-and-sum over the three axes) on the
+    cold state's x, against the dense-selection einsum form it replaced,
+    computed here in plain torch (never on the port's path); float32,
+    relative to the result's scale, both timed (CUDA events)."""
+    from swarm_simulator_tpu_torch.qp import nullspace as ns
+    from swarm_simulator_tpu_torch.tools._timing import median_ms
+
+    pop, _, _, (w, _, _) = ns._cold_state(data, op, s)
+    x = ns._x_of(op, w)
+
+    def einsum_form():
+        return torch.einsum("pkd,pkd->pd", pop.n_d,
+                            torch.einsum("pb,bkd->pkd", pop.S, x))
+
+    got, want = ns._A_x(x, pop).pair, einsum_form()
+    err = rel_err(got, want)
+    ms = median_ms(lambda: ns._A_x(x, pop), 10)
+    old_ms = median_ms(einsum_form, 5)
+    log(f"A x {label} ({tuple(x.shape)} x {pop.n_d.shape[0]} pairs, "
+        f"{x.dtype}): gather {ms:.4f} ms, einsum form {old_ms:.4f} ms; "
+        f"rel err {err:.2e} (limit {PAIR_ROWS_TOL})")
+    check(x.dtype == torch.float32 and err <= PAIR_ROWS_TOL,
+          f"A x {label} disagrees with the einsum form ({err:.2e})")
+    return dict(err=err, ms=ms, einsum_ms=old_ms)
 
 
 def _counters() -> dict:
@@ -902,6 +938,8 @@ def budget_arms(dev, agents: int = 256):
         prep_s = time.perf_counter() - t0
         k2[label] = thomas_vs_twin(op, dev, f"{agents}-agent {label}",
                                    op.Dinvs.dtype, reps=(5, 1))
+        if not bf16:
+            pair_rows_vs_einsum(data_dev, op, base, f"{agents} agents")
         for twin in ((False, True) if bf16 else (False,)):
             reset_counts()
             with traced(twin) as trace:
@@ -1106,7 +1144,7 @@ def prim_bench(dev):
         for spec in T2_SPECS:
             for grid in grids:
                 reps = 2 if grid == "one" else 20
-                # the JSON entry: the forward step on K2's grid at the
+                # the JSON entry: the forward step on K2's first grid at the
                 # 64-agent shape, its plain version timed beside it
                 entry = (bs, spec, grid) == (576, "fwd", "k2")
                 r = t2.time_mode(d, k, bb, spec, reps, grid,
@@ -1324,6 +1362,8 @@ def main() -> int:
     log(f"device prep (float32, 5 rungs batched): "
         f"{time.perf_counter() - t0:.3f} s")
     k2_dev = thomas_vs_twin(op_dev, dev, "device-prep")
+    pair_rows_vs_einsum(k1["data"].to(dev), op_dev,
+                        joint.production_phases(kkt_refine=1)[0], "64 agents")
 
     # ---- phases 6 and 7: the replan slice, then its solve alone ----
     rp = replan_paths(mission, param, world, dev)

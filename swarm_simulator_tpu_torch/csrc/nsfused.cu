@@ -18,26 +18,33 @@
 //
 // What the design does about it: one persistent cooperative kernel per
 // chunk (grid = one block per SM, checked against the occupancy query so
-// every block is co-resident), with cooperative_groups grid syncs between
-// dependent stages.  The rung's pivots stay flat float32 in device memory
-// and are read with coalesced row loads that the L2 keeps warm across the
-// chunk's iterations; each knot step is split by (agent, axis) row groups
-// over all warps, and the group that owns rows of T_k also applies the
-// small off-diagonal block locally, so a chain step costs one grid sync.
+// every block is co-resident).  The pair, box and dual phases use all
+// blocks, with cooperative_groups grid syncs between them.  The Thomas
+// sweeps run on the chain blocks alone (csrc/chain_ring.cuh), each owning
+// gpb whole (agent, axis) row groups: no grid sync between stages, the
+// vector passes from stage to stage in tagged entries that each block
+// waits for, and each block streams its pivot rows through a TMA ring
+// that runs ahead of the chain, across stages and across the other
+// phases into the next iteration's sweeps; the rung (46 MB at 64 agents)
+// stays in the 50 MB L2 over the chunk, so these are mostly L2 reads.
+// The block that owns a row group forms the next stage's vector entries
+// for it (the small off-diagonal block Ho), so a chain stage costs one L2
+// round trip for the vector and the dot of the block's rows from shared
+// memory.  The 132 - ncb other blocks wait at the grid sync after the
+// sweeps.
 // Arithmetic is true float32 FMA on CUDA cores: unlike the TPU kernel's
 // bf16 mantissa split (two-term split in production, ~1e-5 relative), the
 // pair contractions here are exact float32.  A^T y is a deterministic
 // per-agent gather over a CSR of the agent's pairs (no atomics), A x a
 // gather by pair index, and the off-diagonal block Ho is read per knot, so
 // non-uniform segment durations need no special layout.
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
+#include "chain_ring.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = chain::kThreads;
 constexpr int kMaxPhi = 4;
 constexpr float kBig = 1e8f;  // qp/assemble.BIG: the pair rows' upper bound
 
@@ -73,59 +80,47 @@ struct Params {
   float* t;            // [Mi, bs]   scratch: T_k rows, then w_t
   float* at;           // [B3, D]    scratch: A^T (rho z - y)
   float* xt;           // [B3, D]    scratch: x_t
+  unsigned long long* vbuf;  // [2, bs] scratch: tagged chain vector entries
   int B, M, phi, P, n_inner;
+  int gpb, tile_rows, nslots;  // the chain's ring plan (ops/thomas)
   float rho, sigma, alpha;
 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// dot(row of length n, shared vector); every lane returns the full sum
-__device__ __forceinline__ float row_dot(const float* __restrict__ row,
-                                         const float* vec, int n, int lane,
-                                         bool vec4) {
-  float s = 0.f;
-  if (vec4) {
-    const float4* r4 = reinterpret_cast<const float4*>(row);
-    const float4* v4 = reinterpret_cast<const float4*>(vec);
-    for (int j = lane; j < (n >> 2); j += 32) {
-      float4 a = __ldg(r4 + j);
-      float4 b = v4[j];
-      s = fmaf(a.x, b.x, s);
-      s = fmaf(a.y, b.y, s);
-      s = fmaf(a.z, b.z, s);
-      s = fmaf(a.w, b.w, s);
-    }
-  } else {
-    for (int j = lane; j < n; j += 32) s = fmaf(__ldg(row + j), vec[j], s);
-  }
-  return warp_sum(s);
-}
 
 __global__ void __launch_bounds__(kThreads)
 nsfused_kernel(const Params p) {
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ float4 smem4[];
-  float* sh = reinterpret_cast<float*>(smem4);
+  extern __shared__ __align__(16) unsigned char smem[];
 
   const int phi = p.phi, M = p.M, Mi = M - 1, npp = 2 * phi;
   const int B3 = 3 * p.B, D = M * npp, bs = B3 * phi, P = p.P;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int nthreads = gridDim.x * blockDim.x;
-  const int lane = threadIdx.x & 31;
-  const int warps_per_block = blockDim.x >> 5;
-  const int gwarp = blockIdx.x * warps_per_block + (threadIdx.x >> 5);
-  const int nwarps = gridDim.x * warps_per_block;
-  // blocks whose first warp owns no (agent, axis) group skip the chain's
-  // shared-memory staging
-  const bool chain_block = blockIdx.x * warps_per_block < B3;
-  const bool vec4 = (bs & 3) == 0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float rho = p.rho, sigma = p.sigma, alpha = p.alpha;
   const float beta = 1.f - alpha;
-  const size_t blk = (size_t)bs * bs;
+
+  // the chain: ncb blocks of gpb row groups; the other blocks skip it
+  const int rows = p.gpb * phi;
+  const int ncb = (B3 + p.gpb - 1) / p.gpb;
+  const bool chain_block = (int)blockIdx.x < ncb;
+  const int nstage = 2 * Mi - 1;
+  chain::RowRing<float> ring;
+  ring.dinv = p.dinv;
+  ring.bs = bs;
+  ring.Mi = Mi;
+  ring.r0 = min((int)blockIdx.x * rows, bs);
+  ring.r1 = min(ring.r0 + rows, bs);
+  ring.tile_rows = p.tile_rows;
+  ring.nslots = p.nslots;
+  ring.ntile = (ring.r1 - ring.r0 + p.tile_rows - 1) / p.tile_rows;
+  ring.nstage = nstage;
+  ring.ntiles = chain_block ? (long long)p.n_inner * nstage * ring.ntile : 0;
+  ring.aligned = bs % 4 == 0;
+  float* vec = reinterpret_cast<float*>(ring.carve(smem));  // [bs]
+  float* tv = vec + bs;  // [rows] this stage's products of the block
+  const int r0 = ring.r0, nrows = ring.r1 - ring.r0;
+  if (threadIdx.x == 0 && chain_block) ring.start();
+  for (int e = tid; e < 2 * bs; e += nthreads) p.vbuf[e] = 0ull;
 
   for (int e = tid; e < Mi * bs; e += nthreads) p.w[e] = p.w_in[e];
   for (int e = tid; e < B3 * D; e += nthreads) {
@@ -138,6 +133,7 @@ nsfused_kernel(const Params p) {
   }
   grid.sync();
 
+  long long tile = 0;  // this block's next ring tile
   for (int it = 0; it < p.n_inner; ++it) {
     // ---- at = A^T (rho z - y): box identity + per-agent pair gather ----
     for (int e = tid; e < B3 * D; e += nthreads) {
@@ -176,58 +172,64 @@ nsfused_kernel(const Params p) {
     }
     grid.sync();
 
-    // ---- forward sweep: T_k = Dinv_k y_k, y_{k+1} = b_{k+1} - Ho_k^T T_k ----
-    for (int k = 0; k < Mi; ++k) {
-      if (chain_block) {
-        for (int i = threadIdx.x; i < bs; i += blockDim.x)
-          sh[i] = p.rhs[k * bs + i];
-        __syncthreads();
-        const float* Dk = p.dinv + (size_t)k * blk;
-        for (int grp = gwarp; grp < B3; grp += nwarps) {
-          float tv[kMaxPhi];
-          for (int a = 0; a < phi; ++a)
-            tv[a] = row_dot(Dk + (size_t)(grp * phi + a) * bs, sh, bs, lane,
-                            vec4);
-          if (lane == 0) {
-            for (int a = 0; a < phi; ++a) p.t[k * bs + grp * phi + a] = tv[a];
-            if (k + 1 < Mi) {
-              const float* H = p.ho + (size_t)k * phi * phi;
-              for (int i = 0; i < phi; ++i) {
-                float s = 0.f;
-                for (int a = 0; a < phi; ++a) s += H[a * phi + i] * tv[a];
-                p.rhs[(k + 1) * bs + grp * phi + i] -= s;
-              }
-            }
+    // ---- Thomas sweeps over the chain blocks: forward T_k = Dinv_k y_k,
+    //      y_{k+1} = rhs_{k+1} - Ho_k^T T_k; back substitution
+    //      x_k = T_k - Dinv_k (Ho_k x_{k+1}), in place in t ----
+    if (chain_block) {
+      for (int s = 0; s < nstage; ++s) {
+        const int k = ring.knot_of(s);
+        // rhs_0 (written before the last grid sync), then the vector the
+        // chain's last stage formed, tagged with the stage's count
+        const unsigned tag = (unsigned)(it * nstage + s);
+        if (s == 0) {
+          for (int j = threadIdx.x; j < bs; j += kThreads)
+            vec[j] = __ldcg(p.rhs + j);
+          __syncthreads();
+        } else {
+          chain::gather_tagged(p.vbuf + (size_t)(s & 1) * bs, vec, bs, tag);
+        }
+        for (int t = 0; t < ring.ntile; ++t, ++tile) {
+          int row0, nr;
+          const float* A = ring.acquire(tile, &row0, &nr);
+          for (int r = warp; r < nr; r += chain::kWarps) {
+            const float v = chain::dot_shared(A + (size_t)r * bs, vec, bs,
+                                              lane, ring.aligned);
+            if (lane == 0) tv[row0 + r] = v;
           }
+          ring.release(tile);
         }
+        float* tk = p.t + (size_t)k * bs + r0;
+        if (s >= Mi) {  // x_k = T_k - Dinv_k (Ho_k x_{k+1})
+          for (int e = threadIdx.x; e < nrows; e += kThreads) {
+            const float x = tk[e] - tv[e];
+            tv[e] = x;
+            tk[e] = x;
+          }
+          __syncthreads();
+        }
+        const float* H = nullptr;
+        if (s < Mi - 1) H = p.ho + (size_t)k * phi * phi;
+        else if (k > 0) H = p.ho + (size_t)(k - 1) * phi * phi;
+        for (int e = threadIdx.x; e < nrows; e += kThreads) {
+          const int a = e % phi;
+          const float* tg = tv + (e - a);  // the row group's T_k or x_k
+          if (s < Mi) tk[e] = tg[a];
+          float next = 0.f, c = 0.f;
+          if (s < Mi - 1) {  // y_{k+1}
+            for (int q = 0; q < phi; ++q) c = fmaf(H[q * phi + a], tg[q], c);
+            next = __ldcg(p.rhs + (size_t)(k + 1) * bs + r0 + e) - c;
+          } else if (k > 0) {  // Ho_{k-1} x_k
+            for (int q = 0; q < phi; ++q) c = fmaf(H[a * phi + q], tg[q], c);
+            next = c;
+          }
+          if (s + 1 < nstage)
+            chain::put_tagged(p.vbuf + (size_t)((s + 1) & 1) * bs + r0 + e,
+                              next, tag + 1);
+        }
+        __syncthreads();  // vec and tv are rewritten by the next stage
       }
-      grid.sync();
     }
-
-    // ---- back substitution: x_k = T_k - Dinv_k (Ho_k x_{k+1}), in place ----
-    for (int k = Mi - 2; k >= 0; --k) {
-      if (chain_block) {
-        const float* H = p.ho + (size_t)k * phi * phi;
-        const float* xn = p.t + (size_t)(k + 1) * bs;
-        for (int i = threadIdx.x; i < bs; i += blockDim.x) {
-          const int grp = i / phi, a = i - grp * phi;
-          float s = 0.f;
-          for (int c = 0; c < phi; ++c) s += H[a * phi + c] * xn[grp * phi + c];
-          sh[i] = s;
-        }
-        __syncthreads();
-        const float* Dk = p.dinv + (size_t)k * blk;
-        for (int grp = gwarp; grp < B3; grp += nwarps) {
-          float tv[kMaxPhi];
-          for (int a = 0; a < phi; ++a)
-            tv[a] = row_dot(Dk + (size_t)(grp * phi + a) * bs, sh, bs, lane,
-                            vec4);
-          if (lane == 0)
-            for (int a = 0; a < phi; ++a) p.t[k * bs + grp * phi + a] -= tv[a];
-        }
-      }
-      grid.sync();
-    }
+    grid.sync();
 
     // ---- x_t = x_pin + N w_t; box relaxation, clip, duals; w update ----
     for (int e = tid; e < B3 * D; e += nthreads) {
@@ -286,8 +288,9 @@ int nsfused_chunk(void* dinv, void* ho, void* lmap, void* rmap, void* xpin,
                   void* acoef, void* w_in, void* zb_in, void* zp_in,
                   void* yb_in, void* yp_in, void* w, void* zb, void* zp,
                   void* yb, void* yp, void* rhs, void* t, void* at, void* xt,
-                  int B, int M, int phi, int P, int n_inner, float rho,
-                  float sigma, float alpha, void* stream) {
+                  void* vbuf, int B, int M, int phi, int P,
+                  int n_inner, int gpb, int tile_rows, int nslots, int smem,
+                  float rho, float sigma, float alpha, void* stream) {
   if (phi < 1 || phi > kMaxPhi || M < 2 || B < 1)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -331,31 +334,32 @@ int nsfused_chunk(void* dinv, void* ho, void* lmap, void* rmap, void* xpin,
   p.sigma = sigma;
   p.alpha = alpha;
 
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  int coop = 0, sms = 0;
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  p.vbuf = (unsigned long long*)vbuf;
+  p.gpb = gpb;
+  p.tile_rows = tile_rows;
+  p.nslots = nslots;
+  const int bs = 3 * B * phi, rows = gpb * phi;
+  if (gpb < 1 || tile_rows < 1 || tile_rows > rows || nslots < 1 ||
+      nslots > chain::kMaxSlots ||
+      (size_t)smem < chain::kBarBytes +
+                         nslots * chain::slot_bytes(tile_rows, bs, 4) +
+                         sizeof(float) * ((size_t)bs + rows))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, grid = 0;
+  cudaError_t c = cudaGetDevice(&dev);
+  if (c != cudaSuccess) return (int)c;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (!coop) return (int)cudaErrorNotSupported;
-  const size_t smem = (size_t)3 * B * phi * sizeof(float);
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(nsfused_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, nsfused_kernel,
-                                                    kThreads, smem);
-  if (e != cudaSuccess) return (int)e;
-  // a cooperative grid larger than what can co-reside would deadlock
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  int e = probe::coop_grid((const void*)nsfused_kernel, kThreads, smem, sms,
+                           &grid);
+  if (e != 0) return e;
+  // one block per SM, the chain's among them, all co-resident
+  if (grid < sms || (3 * B + gpb - 1) / gpb > grid)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel((const void*)nsfused_kernel, dim3(sms),
+  c = cudaLaunchCooperativeKernel((const void*)nsfused_kernel, dim3(grid),
                                   dim3(kThreads), args, smem,
                                   (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
+  if (c != cudaSuccess) return (int)c;
   return (int)cudaGetLastError();
 }
 

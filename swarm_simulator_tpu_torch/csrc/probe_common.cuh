@@ -1,7 +1,8 @@
 // Device helpers shared by the Hopper (sm_90a) microbenchmark kernels of
 // csrc/thomas_prim.cu (T2), csrc/thomas_probe.cu (T3) and
-// csrc/nsfused_probe.cu (T1): warp reductions, mbarriers with 1-D TMA bulk
-// copies (as in csrc/thomas_stream.cu), and one bf16 tensor-core product.
+// csrc/nsfused_probe.cu (T1), and through csrc/chain_ring.cuh by the chain
+// kernels K1 and K2: warp reductions, mbarriers with 1-D TMA bulk copies
+// (as in csrc/thomas_stream.cu), and one bf16 tensor-core product.
 #pragma once
 
 #include <cooperative_groups.h>

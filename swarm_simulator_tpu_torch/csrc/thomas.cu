@@ -23,56 +23,48 @@
 // What bounds them on an H100: a chain of strictly dependent
 // [bs] x [bs, bs] matvecs (K2: 2*Mi - 1 of them; K3a and K3b: L each).  At
 // 64 agents (bs = 576) one pivot block is 1.33 MB, so K2 reads 91.6 MB
-// (27 us at 3.35 TB/s) and a 35-knot chunk sweep 46.4 MB (14 us); the
-// dependency chain, not the bytes, sets the time.
+// (27 us at 3.35 TB/s) and a 35-knot chunk sweep 46.4 MB (14 us): the
+// latency of a chain stage (the barrier between dependent stages, the
+// rows' arrival, the dot), not the bytes, sets the time.  At 256 agents
+// (bs = 2304) a stage moves 21.2 MB, ~6.3 us at the HBM rate, and the
+// stream of rows does.
 //
-// What the design does about it: one cooperative launch per solve or
-// chunk sweep with a grid sync per chain step, and a grid only as large as
-// the chain needs (one warp per (agent, axis) row group, so ceil(B3 / 8)
-// blocks of 256 threads): a smaller grid makes each sync cheaper.  The
-// warp that owns a row group computes its phi rows of Dinv_k v with
-// coalesced float4 row reads and applies the small coupling block to them
-// itself, so a chain step costs one sync.  Ho is read per knot (no
-// uniform-duration rule) and the pivots stay flat and unpadded.  The
-// pivots are NOT assumed symmetric (the device prep's LU-plus-Newton
-// inverses are not): every product is Dinv_k @ v, a row of Dinv_k against
-// the vector.  Arithmetic is float32 FMA on CUDA cores.
+// K2's design (csrc/chain_ring.cuh): a persistent cooperative grid of
+// chain blocks, one per SM at most, block c owning gpb whole row groups of
+// every knot, so its rows of a stage are one contiguous span.  The rows
+// of a stage do not depend on the chain, only the vector does: each block
+// streams its spans through a TMA ring (1-D bulk copies on an mbarrier per
+// slot) that runs ahead of the chain, the copies of the next stages in
+// flight while the block waits for the vector and takes the dot of the
+// current one.  Each warp takes whole rows of the landed tile against the
+// stage's vector, both from shared memory, in float32 FMA (bf16 pivots
+// widened at the FMA, 8 a 16-byte load).  The block that owns a row group
+// also forms the NEXT stage's vector entries of it (the small coupling
+// block Ho, and the y rows it keeps in shared memory) and stores them
+// tagged with the stage, to a parity-buffered vector in global memory;
+// every block then loads the whole vector once all its entries carry the
+// stage's tag.  So a stage costs one L2 round trip after its last entry
+// lands, no barrier, and the dot of the block's few rows.  The ring's
+// tile plan (groups per block, rows per tile, slots) comes from
+// ops/thomas.ring_plan.  Ho is read per knot (no uniform-duration rule)
+// and the pivots stay flat and unpadded; they are NOT assumed symmetric
+// (the device prep's LU-plus-Newton inverses are not): every product is
+// Dinv_k @ v.
 //
-// K2 also reads bf16 pivots (the preconditioner-only inventory of
-// NSSettings.precond_dtype="bfloat16", the Pallas kernel's bf16 double
-// buffer): each pivot is widened to float32 at the multiply, as the TPU
-// kernel promotes its bf16 slab, and b, y, x stay float32.  The rows are
-// read 8 bf16 (16 bytes) per lane, so the stream is half of float32's: at
-// 256 agents (bs = 2304, Mi = 71) a rung is 0.754 GB instead of 1.508 GB,
-// read once by each sweep.
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// K3a/K3b keep the first design: one warp per (agent, axis) row group on
+// ceil(B3 / 8) cooperative blocks, coalesced row reads from device memory
+// into registers, one grid sync per chain step.
+#include "chain_ring.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = chain::kThreads;
 constexpr int kMaxPhi = 4;
 
-template <typename T>
-struct Params {
-  const T* dinv;      // [Mi, bs, bs] pivot inverses of the rung
-  const float* ho;    // [Mi-1, phi, phi]
-  const float* b;     // [Mi, bs]
-  float* y;           // [Mi, bs] scratch: forward rows y_k
-  float* x;           // [Mi, bs] solution
-  int B3, Mi, phi;
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// dot(row of length n, shared vector); every lane returns the full sum
+// dot(row of length n in device memory, shared vector); every lane
+// returns the full sum
 __device__ __forceinline__ float row_dot(const float* __restrict__ row,
                                          const float* vec, int n, int lane,
                                          bool vec4) {
@@ -91,121 +83,100 @@ __device__ __forceinline__ float row_dot(const float* __restrict__ row,
   } else {
     for (int j = lane; j < n; j += 32) s = fmaf(__ldg(row + j), vec[j], s);
   }
-  return warp_sum(s);
+  return probe::warp_sum(s);
 }
 
-// the same for a bf16 row, each element widened to float32 at the FMA;
-// vec8: 8 bf16 (one 16-byte load) per lane step
-__device__ __forceinline__ float row_dot(const __nv_bfloat16* __restrict__ row,
-                                         const float* vec, int n, int lane,
-                                         bool vec8) {
-  float s = 0.f;
-  if (vec8) {
-    const uint4* r8 = reinterpret_cast<const uint4*>(row);
-    const float4* v4 = reinterpret_cast<const float4*>(vec);
-    for (int j = lane; j < (n >> 3); j += 32) {
-      const uint4 u = __ldg(r8 + j);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-      const float4 b0 = v4[2 * j], b1 = v4[2 * j + 1];
-      const float2 a0 = __bfloat1622float2(h[0]);
-      const float2 a1 = __bfloat1622float2(h[1]);
-      const float2 a2 = __bfloat1622float2(h[2]);
-      const float2 a3 = __bfloat1622float2(h[3]);
-      s = fmaf(a0.x, b0.x, s);
-      s = fmaf(a0.y, b0.y, s);
-      s = fmaf(a1.x, b0.z, s);
-      s = fmaf(a1.y, b0.w, s);
-      s = fmaf(a2.x, b1.x, s);
-      s = fmaf(a2.y, b1.y, s);
-      s = fmaf(a3.x, b1.z, s);
-      s = fmaf(a3.y, b1.w, s);
-    }
-  } else {
-    for (int j = lane; j < n; j += 32)
-      s = fmaf(__bfloat162float(row[j]), vec[j], s);
-  }
-  return warp_sum(s);
-}
-
-// elements of T in one 16-byte row load
 template <typename T>
-__device__ __forceinline__ bool rows_vectorised(int bs) {
-  return bs % (16 / (int)sizeof(T)) == 0;
-}
+struct Params {
+  const T* dinv;    // [Mi, bs, bs] pivot inverses of the rung
+  const float* ho;  // [Mi-1, phi, phi]
+  const float* b;   // [Mi, bs]
+  unsigned long long* vbuf;  // [2, bs] scratch: tagged vector entries
+  float* x;                  // [Mi, bs] solution
+  int B3, Mi, phi, gpb, tile_rows, nslots;
+};
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) thomas_kernel(const Params<T> p) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float4 smem4[];
-  float* sh = reinterpret_cast<float*>(smem4);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int phi = p.phi, Mi = p.Mi, bs = p.B3 * phi;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nstage = 2 * Mi - 1;
+  const int rows = p.gpb * phi;
 
-  const int phi = p.phi, Mi = p.Mi, B3 = p.B3, bs = B3 * phi;
-  const int lane = threadIdx.x & 31;
-  const int warps_per_block = blockDim.x >> 5;
-  const int gwarp = blockIdx.x * warps_per_block + (threadIdx.x >> 5);
-  const int nwarps = gridDim.x * warps_per_block;
-  const bool vec = rows_vectorised<T>(bs);
-  const size_t blk = (size_t)bs * bs;
+  chain::RowRing<T> ring;
+  ring.dinv = p.dinv;
+  ring.bs = bs;
+  ring.Mi = Mi;
+  ring.r0 = min((int)blockIdx.x * rows, bs);
+  ring.r1 = min(ring.r0 + rows, bs);
+  ring.tile_rows = p.tile_rows;
+  ring.nslots = p.nslots;
+  ring.ntile = (ring.r1 - ring.r0 + p.tile_rows - 1) / p.tile_rows;
+  ring.nstage = nstage;
+  ring.ntiles = (long long)nstage * ring.ntile;
+  ring.aligned = (bs * (int)sizeof(T)) % 16 == 0;
+  float* vec = reinterpret_cast<float*>(ring.carve(smem));  // [bs]
+  float* tv = vec + bs;    // [rows] this stage's products of the block
+  float* ysh = tv + rows;  // [Mi, rows] the block's forward rows y_k
+  const int r0 = ring.r0, nrows = ring.r1 - ring.r0;
 
-  // ---- forward sweep ----
-  for (int k = 0; k < Mi; ++k) {
-    // y_k, written by other blocks before the last grid sync: read it
-    // through L2 (__ldcg), not a possibly stale L1 line
-    const float* yk = k == 0 ? p.b : p.y + (size_t)k * bs;
-    for (int i = threadIdx.x; i < bs; i += blockDim.x) sh[i] = __ldcg(yk + i);
-    __syncthreads();
-    const T* Dk = p.dinv + (size_t)k * blk;
-    for (int grp = gwarp; grp < B3; grp += nwarps) {
-      float tv[kMaxPhi];
-      for (int a = 0; a < phi; ++a)
-        tv[a] = row_dot(Dk + (size_t)(grp * phi + a) * bs, sh, bs, lane,
-                        vec);
-      if (lane == 0) {
-        const int r0 = grp * phi;
-        if (k == 0)
-          for (int a = 0; a < phi; ++a) p.y[r0 + a] = sh[r0 + a];
-        if (k + 1 < Mi) {
-          const float* H = p.ho + (size_t)k * phi * phi;
-          const float* bn = p.b + (size_t)(k + 1) * bs + r0;
-          float* yn = p.y + (size_t)(k + 1) * bs + r0;
-          for (int i = 0; i < phi; ++i) {
-            float s = 0.f;
-            for (int a = 0; a < phi; ++a) s = fmaf(H[a * phi + i], tv[a], s);
-            yn[i] = bn[i] - s;
-          }
-        } else {
-          for (int a = 0; a < phi; ++a)
-            p.x[(size_t)k * bs + r0 + a] = tv[a];
+  if (tid == 0) ring.start();
+  for (int j = blockIdx.x * kThreads + tid; j < 2 * bs;
+       j += gridDim.x * kThreads)
+    p.vbuf[j] = 0ull;
+  // no entry carries a tag yet, for every block
+  cg::this_grid().sync();
+
+  long long i = 0;  // this block's next tile
+  for (int s = 0; s < nstage; ++s) {
+    const int k = ring.knot_of(s);
+    // ---- the stage's vector: b_0, then what the last stage formed ----
+    if (s == 0) {
+      for (int j = tid; j < bs; j += kThreads) vec[j] = __ldg(p.b + j);
+      __syncthreads();
+    } else {
+      chain::gather_tagged(p.vbuf + (size_t)(s & 1) * bs, vec, bs,
+                           (unsigned)s);
+    }
+    // ---- the block's rows of Dinv_k against it ----
+    for (int t = 0; t < ring.ntile; ++t, ++i) {
+      int row0, nr;
+      const T* A = ring.acquire(i, &row0, &nr);
+      for (int r = warp; r < nr; r += chain::kWarps) {
+        const float v = chain::dot_shared(A + (size_t)r * bs, vec, bs, lane,
+                                          ring.aligned);
+        if (lane == 0) tv[row0 + r] = v;
+      }
+      ring.release(i);
+    }
+    // ---- each owned row: its result, and its entry of the next vector ----
+    const float* H = nullptr;  // the coupling of the next stage's vector
+    if (s < Mi - 1) H = p.ho + (size_t)k * phi * phi;   // Ho_k^T T_k
+    else if (k > 0) H = p.ho + (size_t)(k - 1) * phi * phi;  // Ho_{k-1} x_k
+    for (int e = tid; e < nrows; e += kThreads) {
+      const int a = e % phi;
+      const float* tg = tv + (e - a);  // the row group's results
+      float next = 0.f;
+      if (s < Mi - 1) {  // forward: y_{k+1} = b_{k+1} - (I (x) Ho_k)^T T_k
+        if (k == 0) ysh[e] = vec[r0 + e];  // y_0 = b_0
+        float c = 0.f;
+        for (int q = 0; q < phi; ++q) c = fmaf(H[q * phi + a], tg[q], c);
+        next = __ldg(p.b + (size_t)(k + 1) * bs + r0 + e) - c;
+        ysh[(size_t)(k + 1) * rows + e] = next;
+      } else {  // x_k; then y_{k-1} - (I (x) Ho_{k-1}) x_k
+        p.x[(size_t)k * bs + r0 + e] = tg[a];
+        if (k > 0) {
+          float c = 0.f;
+          for (int q = 0; q < phi; ++q) c = fmaf(H[a * phi + q], tg[q], c);
+          next = ysh[(size_t)(k - 1) * rows + e] - c;
         }
       }
+      if (s + 1 < nstage)
+        chain::put_tagged(p.vbuf + (size_t)((s + 1) & 1) * bs + r0 + e, next,
+                          (unsigned)(s + 1));
     }
-    grid.sync();
-  }
-
-  // ---- back substitution ----
-  for (int k = Mi - 2; k >= 0; --k) {
-    const float* H = p.ho + (size_t)k * phi * phi;
-    const float* xn = p.x + (size_t)(k + 1) * bs;
-    const float* yk = p.y + (size_t)k * bs;
-    for (int i = threadIdx.x; i < bs; i += blockDim.x) {
-      const int grp = i / phi, a = i - grp * phi;
-      float s = __ldcg(yk + i);
-      for (int c = 0; c < phi; ++c)
-        s = fmaf(-H[a * phi + c], __ldcg(xn + grp * phi + c), s);
-      sh[i] = s;
-    }
-    __syncthreads();
-    const T* Dk = p.dinv + (size_t)k * blk;
-    for (int grp = gwarp; grp < B3; grp += nwarps) {
-      float tv[kMaxPhi];
-      for (int a = 0; a < phi; ++a)
-        tv[a] = row_dot(Dk + (size_t)(grp * phi + a) * bs, sh, bs, lane,
-                        vec);
-      if (lane == 0)
-        for (int a = 0; a < phi; ++a)
-          p.x[(size_t)k * bs + grp * phi + a] = tv[a];
-    }
-    if (k > 0) grid.sync();
+    __syncthreads();  // vec and tv are rewritten by the next stage
   }
 }
 
@@ -325,51 +296,60 @@ __global__ void __launch_bounds__(kThreads) chunk_bwd_kernel(
 template <typename P>
 int launch_coop(void (*kernel)(const P), P p, int B3, int phi,
                 void* stream) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  int coop = 0, sms = 0;
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (!coop) return (int)cudaErrorNotSupported;
-  const size_t smem = (size_t)B3 * phi * sizeof(float);
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute((const void*)kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, (const void*)kernel, kThreads, smem);
-  if (e != cudaSuccess) return (int)e;
-  // a cooperative grid larger than what can co-reside would deadlock
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int want = (B3 + kThreads / 32 - 1) / (kThreads / 32);
-  const int grid = want < sms * per_sm ? want : sms * per_sm;
+  int grid = 0;
+  int e = probe::coop_grid((const void*)kernel, kThreads,
+                           (size_t)B3 * phi * sizeof(float),
+                           (B3 + kThreads / 32 - 1) / (kThreads / 32), &grid);
+  if (e != 0) return e;
   void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
-                                  dim3(kThreads), args, smem,
-                                  (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
+  cudaError_t c = cudaLaunchCooperativeKernel(
+      (const void*)kernel, dim3(grid), dim3(kThreads), args,
+      (size_t)B3 * phi * sizeof(float), (cudaStream_t)stream);
+  if (c != cudaSuccess) return (int)c;
   return (int)cudaGetLastError();
 }
 
+// K2 on pivots of type T: the ring plan (gpb, tile_rows, nslots, smem) of
+// ops/thomas.ring_plan, one block per gpb row groups; refused if the plan
+// does not fit the layout the kernel carves or the grid cannot co-reside
 template <typename T>
-int solve_as(void* dinv, void* ho, void* b, void* y, void* x, int B3, int Mi,
-             int phi, void* stream) {
-  if (phi < 1 || phi > kMaxPhi || Mi < 1 || B3 < 1)
+int solve_as(void* dinv, void* ho, void* b, void* vbuf, void* x, int B3,
+             int Mi, int phi, int gpb, int tile_rows, int nslots, int smem,
+             void* stream) {
+  if (phi < 1 || phi > kMaxPhi || Mi < 1 || B3 < 1 || gpb < 1 ||
+      tile_rows < 1 || tile_rows > gpb * phi || nslots < 1 ||
+      nslots > chain::kMaxSlots)
     return (int)cudaErrorInvalidValue;
+  const int bs = B3 * phi, rows = gpb * phi;
+  const size_t need = chain::kBarBytes +
+                      nslots * chain::slot_bytes(tile_rows, bs, sizeof(T)) +
+                      sizeof(float) * ((size_t)bs + rows + (size_t)Mi * rows);
+  if ((size_t)smem < need) return (int)cudaErrorInvalidValue;
+  const int want = (B3 + gpb - 1) / gpb;
+  int grid = 0;
+  int e = probe::coop_grid((const void*)thomas_kernel<T>, kThreads, smem,
+                           want, &grid);
+  if (e != 0) return e;
+  // the chain needs every block of the plan resident at once
+  if (grid < want) return (int)cudaErrorCooperativeLaunchTooLarge;
   Params<T> p;
   p.dinv = (const T*)dinv;
   p.ho = (const float*)ho;
   p.b = (const float*)b;
-  p.y = (float*)y;
+  p.vbuf = (unsigned long long*)vbuf;
   p.x = (float*)x;
   p.B3 = B3;
   p.Mi = Mi;
   p.phi = phi;
-  return launch_coop(thomas_kernel<T>, p, B3, phi, stream);
+  p.gpb = gpb;
+  p.tile_rows = tile_rows;
+  p.nslots = nslots;
+  void* args[] = {&p};
+  cudaError_t c = cudaLaunchCooperativeKernel(
+      (const void*)thomas_kernel<T>, dim3(want), dim3(kThreads), args, smem,
+      (cudaStream_t)stream);
+  if (c != cudaSuccess) return (int)c;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -380,16 +360,21 @@ extern "C" {
 // (0 = launched): the cooperative-launch error, or cudaGetLastError()
 // after it.  `dinv` points at the rung's pivots.
 
-// K2: x [Mi, bs] = K^-1 b; `y` is [Mi, bs] scratch.
-int thomas_solve(void* dinv, void* ho, void* b, void* y, void* x, int B3,
-                 int Mi, int phi, void* stream) {
-  return solve_as<float>(dinv, ho, b, y, x, B3, Mi, phi, stream);
+// K2: x [Mi, bs] = K^-1 b; `vbuf` is [2, bs] 64-bit scratch; gpb,
+// tile_rows, nslots and smem are the ring plan of ops/thomas.ring_plan.
+int thomas_solve(void* dinv, void* ho, void* b, void* vbuf, void* x, int B3,
+                 int Mi, int phi, int gpb, int tile_rows, int nslots,
+                 int smem, void* stream) {
+  return solve_as<float>(dinv, ho, b, vbuf, x, B3, Mi, phi, gpb, tile_rows,
+                         nslots, smem, stream);
 }
 
-// K2 on bf16 pivots (`dinv` [Mi, bs, bs] bf16; ho, b, y, x float32).
-int thomas_solve_bf16(void* dinv, void* ho, void* b, void* y, void* x,
-                      int B3, int Mi, int phi, void* stream) {
-  return solve_as<__nv_bfloat16>(dinv, ho, b, y, x, B3, Mi, phi, stream);
+// K2 on bf16 pivots (`dinv` [Mi, bs, bs] bf16; ho, b, x float32).
+int thomas_solve_bf16(void* dinv, void* ho, void* b, void* vbuf, void* x,
+                      int B3, int Mi, int phi, int gpb, int tile_rows,
+                      int nslots, int smem, void* stream) {
+  return solve_as<__nv_bfloat16>(dinv, ho, b, vbuf, x, B3, Mi, phi, gpb,
+                                 tile_rows, nslots, smem, stream);
 }
 
 // K3a on `stream`: T [L, bs] of one chunk from b [L, bs], the couplings

@@ -26,11 +26,12 @@
 // its rows in tiles of whole rows through a ring of `nslots` slots filled by
 // 1-D TMA bulk copies on mbarriers (one thread issues them, up to nslots
 // tiles ahead, across step boundaries).  The same code runs on one block
-// (the TPU probe's single core) and on K2's grid (ceil(bs / 24) cooperative
-// blocks); every step ends in a grid sync on both, so the two differ in the
-// sync's width and the rows per SM.  Sums over rows that cross blocks go
-// through per-block partial rows, double-buffered by step parity, and are
-// added in block order by every block that needs them after the sync.
+// (the TPU probe's single core) and on K2's first grid (ceil(bs / 24)
+// cooperative blocks); every step ends in a grid sync on both, so the two
+// differ in the sync's width and the rows per SM.  Sums over rows that
+// cross blocks go through per-block partial rows, double-buffered by step
+// parity, and are added in block order by every block that needs them
+// after the sync.
 #include "probe_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -281,7 +282,7 @@ size_t smem_bytes(int mode, int nbuf, int bs, int tile_rows) {
 
 extern "C" {
 
-// The blocks thomas_prim launches for `want` (1, or K2's ceil(bs / 24)),
+// The blocks thomas_prim launches for `want` (1, or K2's first ceil(bs / 24)),
 // capped at what can co-reside, through `grid`; returns a cudaError_t.
 int thomas_prim_grid(int mode, int nbuf, int bs, int tile_rows, int want,
                      int* grid) {

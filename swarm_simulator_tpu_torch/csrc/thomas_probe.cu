@@ -15,7 +15,7 @@
 // and full also reads a second [bs, bs] matrix (1.3 MB at bs 576, 21 MB at
 // bs 2304, from L2 when it fits).
 //
-// What the design does about it: K2's grid and loop (one cooperative
+// What the design does about it: K2's first grid and loop (one cooperative
 // launch, ceil(bs / 24) blocks of 256 threads, a grid sync per stage, one
 // warp per row with float4 row reads against a vector staged in shared
 // memory).  A dense coupling needs every element of t = D y before any row
@@ -177,7 +177,7 @@ size_t smem_bytes(int bs) { return (size_t)(bs + kWarps * 32) * sizeof(float); }
 
 extern "C" {
 
-// The blocks thomas_probe launches for bs (K2's ceil(bs / 24), capped at
+// The blocks thomas_probe launches for bs (K2's first ceil(bs / 24), capped at
 // what can co-reside), through `grid`; returns a cudaError_t.
 int thomas_probe_grid(int bs, int* grid) {
   return probe::coop_grid((const void*)probe_kernel, kThreads, smem_bytes(bs),

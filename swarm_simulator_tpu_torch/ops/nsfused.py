@@ -144,12 +144,9 @@ def build_operands(data, op, pop, l, u) -> FusedOperands:
         g=t32(rows_from_state(op.g, Mi, phi)),
         lb=t32(l.box.reshape(B * K3, D)), ub=t32(u.box.reshape(B * K3, D)),
         pl=t32(l.pair), pnm=t32(data.pair_n * mask[:, None, None]),
-        pi=data.pair_bi.clamp(min=0).to(device=dev,
-                                        dtype=torch.int32).contiguous(),
-        pj=data.pair_bj.clamp(min=0).to(device=dev,
-                                        dtype=torch.int32).contiguous(),
-        ci=t32((data.pair_bi >= 0).to(mask.dtype) * mask),
-        cj=t32((data.pair_bj >= 0).to(mask.dtype) * mask),
+        pi=pop.bi.to(device=dev, dtype=torch.int32).contiguous(),
+        pj=pop.bj.to(device=dev, dtype=torch.int32).contiguous(),
+        ci=t32(pop.ci), cj=t32(pop.cj),
         aptr=torch.as_tensor(aptr, device=dev),
         apair=torch.as_tensor(apair, device=dev),
         acoef=torch.as_tensor(acoef, device=dev),
@@ -202,7 +199,7 @@ def twin_gap_use(kernel_vs_f64, f32_vs_f64) -> dict[str, float]:
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nsfused_chunk.restype = ci
-    lib.nsfused_chunk.argtypes = [vp] * 31 + [ci] * 5 + [cf] * 3 + [vp]
+    lib.nsfused_chunk.argtypes = [vp] * 32 + [ci] * 9 + [cf] * 3 + [vp]
     lib.nsfused_error_string.restype = ctypes.c_char_p
     lib.nsfused_error_string.argtypes = [ci]
 
@@ -273,6 +270,9 @@ def nsfused_chunk(ops: FusedOperands, rho_idx: int, sigma: float,
     t_rows = torch.empty_like(w_rows)
     at = torch.empty_like(zb)
     xt = torch.empty_like(zb)
+    plan = thomas.ring_plan(bs, phi, 4, sms=thomas.sm_count(w.device))
+    # the chain's vector entries, 64 bits each (csrc/chain_ring.cuh)
+    vbuf = torch.empty((2, bs), dtype=torch.int64, device=w.device)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     stream = torch.cuda.current_stream(w.device).cuda_stream
     err = lib.nsfused_chunk(
@@ -282,8 +282,9 @@ def nsfused_chunk(ops: FusedOperands, rho_idx: int, sigma: float,
         ptr(ops.aptr), ptr(ops.apair), ptr(ops.acoef),
         ptr(w_rows), ptr(zb), ptr(zp), ptr(yb), ptr(yp),
         ptr(w_o), ptr(zb_o), ptr(zp_o), ptr(yb_o), ptr(yp_o),
-        ptr(rhs), ptr(t_rows), ptr(at), ptr(xt),
-        B, M, phi, P, int(n_inner),
+        ptr(rhs), ptr(t_rows), ptr(at), ptr(xt), ptr(vbuf),
+        B, M, phi, P, int(n_inner), plan.groups, plan.tile_rows,
+        plan.slots, plan.smem,
         float(ops.ladder[rho_idx]), float(sigma), float(alpha),
         ctypes.c_void_p(stream))
     if err != 0:

@@ -37,6 +37,7 @@ bs = B3 * phi), contiguous:
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -150,11 +151,79 @@ def twin_gap_use(kernel_vs_f64, f32_vs_f64) -> float:
                                  + TWIN_GAP_FLOOR)
 
 
+#: shared memory one block may use on an H100 (227 KB)
+SMEM_PER_BLOCK = 232448
+#: the largest ring tile (bytes) when a block's rows of a stage do not
+#: fit two whole slots
+TILE_BYTES = 48 * 1024
+#: ring slots at most, and the bytes their mbarriers take
+#: (csrc/chain_ring.cuh: kMaxSlots, kBarBytes)
+MAX_SLOTS = 8
+BAR_BYTES = 128
+
+
+class RingPlan(NamedTuple):
+    """How the chain kernels K1 and K2 stream their pivot rows
+    (csrc/chain_ring.cuh): each chain block owns ``groups`` row groups of
+    every knot, read through a ring of ``slots`` shared-memory slots of
+    ``slot_bytes``, tiles of ``tile_rows`` rows."""
+    groups: int
+    tile_rows: int
+    slots: int
+    slot_bytes: int
+    smem: int       # dynamic shared memory of a block, bytes
+
+
+def slot_bytes(tile_rows: int, bs: int, itemsize: int) -> int:
+    """One ring slot: the tile rounded up to 16 bytes, plus 16 for a span
+    that starts inside a 16-byte line (chain_ring.cuh's slot_bytes)."""
+    return -(-tile_rows * bs * itemsize // 16) * 16 + 16
+
+
+def ring_plan(bs: int, phi: int, itemsize: int, hist_knots: int = 0,
+              sms: int = 132) -> RingPlan:
+    """The ring plan of a chain over [bs, bs] pivot blocks of ``itemsize``
+    bytes (4 float32, 2 bf16), row groups of ``phi`` rows, on a card of
+    ``sms`` multiprocessors.  The row groups spread over as many chain
+    blocks as the card has SMs (one block each): fewer rows a block make
+    a shorter dot in each stage (at 64 agents) and more SMs pull the
+    stream (at 256), which outweighs the wider vector exchange
+    (PERF.md).
+    A block keeps its rows of ``hist_knots`` knots in shared memory
+    beside the ring (K2's forward rows y_k; K1 keeps none).  Whole stages
+    go in a slot when two of them fit, else tiles of at most TILE_BYTES;
+    as many slots as the rest of the block's shared memory holds, up to
+    MAX_SLOTS."""
+    if phi < 1 or bs % phi:
+        raise ValueError(f"rows of {bs} do not split into groups of {phi}")
+    B3 = bs // phi
+    groups = -(-B3 // sms)
+    rows = groups * phi
+    fixed = BAR_BYTES + 4 * (bs + rows + hist_knots * rows)
+    room = SMEM_PER_BLOCK - fixed
+    if room >= 2 * slot_bytes(rows, bs, itemsize):
+        tile_rows = rows
+    else:
+        tile_rows = max(1, min(rows, TILE_BYTES // (bs * itemsize)))
+    slot = slot_bytes(tile_rows, bs, itemsize)
+    slots = min(MAX_SLOTS, room // slot)
+    if slots < 2:
+        raise ValueError(f"pivot rows of {bs} x {itemsize} bytes leave no "
+                         f"room for a two-slot ring in {SMEM_PER_BLOCK} "
+                         "bytes of shared memory")
+    return RingPlan(groups=groups, tile_rows=tile_rows, slots=slots,
+                    slot_bytes=slot, smem=fixed + slots * slot)
+
+
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.thomas_solve, lib.thomas_solve_bf16):
         fn.restype = ci
-        fn.argtypes = [vp] * 5 + [ci] * 3 + [vp]
+        fn.argtypes = [vp] * 5 + [ci] * 7 + [vp]
     lib.thomas_chunk_fwd.restype = ci
     lib.thomas_chunk_fwd.argtypes = [vp] * 6 + [ci] * 3 + [vp]
     lib.thomas_chunk_bwd.restype = ci
@@ -224,17 +293,21 @@ def thomas_solve(dinv: torch.Tensor, ho: torch.Tensor, b: torch.Tensor,
     piv = _cuda_operands("thomas_solve", rho_idx, dinv, phi, (
         ("dinv", dinv, (R, Mi, bs, bs)), ("ho", ho, (Mi - 1, phi, phi)),
         ("b", b, (Mi, bs))), pivot_dtypes=(torch.float32, torch.bfloat16))
+    plan = ring_plan(bs, phi, dinv.element_size(), hist_knots=Mi,
+                     sms=sm_count(b.device))
     x = torch.empty_like(b)
-    y = torch.empty_like(b)
+    # the chain's vector entries, 64 bits each (csrc/chain_ring.cuh)
+    vbuf = torch.empty((2, bs), dtype=torch.int64, device=b.device)
     bf16 = dinv.dtype == torch.bfloat16
-    _launch("thomas_solve_bf16" if bf16 else "thomas_solve", piv, ho, b, y,
-            x, bs // phi, Mi, phi)
+    _launch("thomas_solve_bf16" if bf16 else "thomas_solve", piv, ho, b,
+            vbuf, x, bs // phi, Mi, phi, plan.groups, plan.tile_rows,
+            plan.slots, plan.smem)
     if bf16:
         thomas_solve.launches_bf16 += 1
     else:
         thomas_solve.launches += 1
-    # the scratch y may be released while the launch is in flight: the
-    # caching allocator reuses its block only in stream order
+    # the scratch may be released while the launch is in flight: the
+    # caching allocator reuses its blocks only in stream order
     return x
 
 

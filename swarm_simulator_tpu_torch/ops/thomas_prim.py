@@ -22,7 +22,7 @@ parts a copy).  The output [Mi, bs] is zero but for row 0, acc's row 0
 at the end.  acc starts at zeros or at ``acc0``: the TPU kernel reads its
 accumulator uninitialised, so its result is defined only once the start
 is.  For CUDA tensors the wrapper launches the kernel on one block
-(``grid="one"``, the TPU probe's single core) or on K2's grid
+(``grid="one"``, the TPU probe's single core) or on K2's first grid
 (``grid="k2"``, ceil(bs / 24) cooperative blocks, a grid sync per step),
 or raises; for CPU tensors it runs the plain version
 ``thomas_prim_reference``.
@@ -112,7 +112,7 @@ def tile_rows(bs: int, nslots: int) -> int:
 
 
 def blocks_wanted(grid: str, bs: int) -> int:
-    """1, or K2's grid at this width: one warp per row group of 3, eight
+    """1, or K2's first grid at this width: one warp per row group of 3, eight
     warps a block."""
     return 1 if grid == "one" else -(-bs // 24)
 

@@ -15,8 +15,8 @@ blocks D_k = dinv[rho_idx, k] [bs, bs], with koM [bs, bs] and b [Mi, bs]:
 
 (``full`` equals the TPU kernel's solve on symmetric pivots, which the
 probe gives it.)  For CUDA tensors the wrapper launches the kernel once on
-K2's grid (ceil(bs / 24) cooperative blocks) or raises; for CPU tensors it
-runs the plain version ``thomas_probe_reference``.
+K2's first grid (ceil(bs / 24) cooperative blocks) or raises; for CPU
+tensors it runs the plain version ``thomas_probe_reference``.
 """
 from __future__ import annotations
 

@@ -20,11 +20,28 @@ class SolveInfo(NamedTuple):
 
 
 class PairOp(NamedTuple):
-    """Pair-constraint operator: signed agent selection S = C_j - C_i
-    [P, B] (one-hot rows, weighted by the pair mask) plus the
-    per-control-point normals [P, 3, D] (masked)."""
+    """Pair-constraint operator: the per-control-point normals [P, 3, D]
+    (masked), each pair's two agents with their signed weights, and the
+    signed agent selection S = C_j - C_i [P, B] (one-hot rows weighted by
+    the pair mask) that A^T's pair part contracts with.  A x gathers by
+    the agent indices instead of multiplying S."""
     n_d: torch.Tensor  # [P, 3, D]
     S: torch.Tensor  # [P, B]
+    bi: torch.Tensor  # [P] int64 agent of the pair's i side (-1 -> 0)
+    bj: torch.Tensor  # [P] int64 agent of the pair's j side (-1 -> 0)
+    ci: torch.Tensor  # [P] weight of the i side (0 where bi = -1)
+    cj: torch.Tensor  # [P] weight of the j side (0 where bj = -1)
+
+
+def _pair_sides(data):
+    """(bi, bj, ci, cj): each pair's agent indices clamped to >= 0 and
+    their weights, the pair mask folded in; a one-sided pair (index -1)
+    keeps weight 0 on its absent side."""
+    dt = data.lb.dtype
+    ci = (data.pair_bi >= 0).to(dt) * data.pair_mask
+    cj = (data.pair_bj >= 0).to(dt) * data.pair_mask
+    return (data.pair_bi.long().clamp(min=0), data.pair_bj.long().clamp(min=0),
+            ci, cj)
 
 
 def _selection(data) -> torch.Tensor:
@@ -32,15 +49,11 @@ def _selection(data) -> torch.Tensor:
     the pair mask folded in (one-sided pairs keep one entry)."""
     P = data.pair_n.shape[0]
     B = data.lb.shape[0]
-    dt = data.lb.dtype
-    cj = (data.pair_bj >= 0).to(dt) * data.pair_mask
-    ci = (data.pair_bi >= 0).to(dt) * data.pair_mask
+    bi, bj, ci, cj = _pair_sides(data)
     rows = torch.arange(P, device=data.lb.device)
-    S = torch.zeros((P, B), dtype=dt, device=data.lb.device)
-    S.index_put_((rows, data.pair_bj.long().clamp(min=0)), cj,
-                 accumulate=True)
-    S.index_put_((rows, data.pair_bi.long().clamp(min=0)), -ci,
-                 accumulate=True)
+    S = torch.zeros((P, B), dtype=data.lb.dtype, device=data.lb.device)
+    S.index_put_((rows, bj), cj, accumulate=True)
+    S.index_put_((rows, bi), -ci, accumulate=True)
     return S
 
 
@@ -49,7 +62,9 @@ def _pair_op(data) -> PairOp:
     npp = data.lb.shape[-1] // M
     n_d = torch.repeat_interleave(data.pair_n, npp, dim=1)  # [P, D, 3]
     n_d = n_d.permute(0, 2, 1) * data.pair_mask[:, None, None]
-    return PairOp(n_d=n_d.contiguous(), S=_selection(data))
+    bi, bj, ci, cj = _pair_sides(data)
+    return PairOp(n_d=n_d.contiguous(), S=_selection(data), bi=bi, bj=bj,
+                  ci=ci, cj=cj)
 
 
 def _build_coupling(data) -> torch.Tensor:

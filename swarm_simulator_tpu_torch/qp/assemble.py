@@ -233,3 +233,17 @@ def assemble_batch(
         pair_qi=pair_qi, pair_qj=pair_qj,
         pair_rsum=f(pair_rsum), dt=f(dt),
     )
+
+
+def export_qp_npz(path: str, data: QPData) -> None:
+    """Persist one joint QP to .npz, as the reference's LP-model export
+    when logging (exportModel to log/, rbp_planner.hpp:150-153): every
+    QPData leaf under its field name (tensors as CPU numpy arrays), so
+    np.load(path) gives the whole program back for offline inspection or
+    replay through any solver."""
+    arrays = {}
+    for f in dataclasses.fields(data):
+        v = getattr(data, f.name)
+        arrays[f.name] = (v.detach().cpu().numpy()
+                          if isinstance(v, torch.Tensor) else np.asarray(v))
+    np.savez_compressed(path, **arrays)

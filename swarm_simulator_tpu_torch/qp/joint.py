@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -282,6 +283,13 @@ def solve_trajectories(plan: PlanResult, mission: Mission, param: Param,
     plan.coef = convert.ctrl_to_coef(ctrl, plan.T, n)
     D = M * (n + 1)
     n_pairs = len(np.asarray(plan.pair_idx))
+    problem_size = (f"x size={3 * N * D}, eq const size="
+                    f"{3 * N * (M + 1) * param.phi}, ineq const size="
+                    f"{2 * 3 * N * D + n_pairs * D}")
+    if param.log:
+        print(problem_size)
+        Path("log").mkdir(exist_ok=True)
+        assemble.export_qp_npz("log/qp_joint.npz", data)
     plan.solver_info = {
         "iters": [int(info.iters)],
         "r_prim": [float(info.r_prim)],
@@ -300,8 +308,6 @@ def solve_trajectories(plan: PlanResult, mission: Mission, param: Param,
         "replan_prep_s": replan_prep_s,
         "replan_solve_s": replan_solve_s,
         "replan_iters": replan_iters,
-        "problem_size": (f"x size={3 * N * D}, eq const size="
-                         f"{3 * N * (M + 1) * param.phi}, ineq const size="
-                         f"{2 * 3 * N * D + n_pairs * D}"),
+        "problem_size": problem_size,
     }
     return plan

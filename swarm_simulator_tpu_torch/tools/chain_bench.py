@@ -1,0 +1,179 @@
+"""Time the chain kernels K2 and K1 of this checkout against other
+checkouts of the port, in one process on one CUDA card.
+
+    python3 -m swarm_simulator_tpu_torch.tools.chain_bench
+        [--against ROOT ...] [--reps 20] [--no-256]
+
+Run from the repository root (it takes the 64-agent problem from
+chip_smoke.py).  Each ROOT is a directory holding a
+``swarm_simulator_tpu_torch/`` package (for example the parent commit,
+unpacked with ``git archive``); it is loaded under its own module name,
+builds its kernels into its own ``build/``, and is called through the
+same wrappers (``ops/thomas.thomas_solve``, ``ops/nsfused.nsfused_chunk``)
+on the same tensors.  Cases, each on the pivots the planning paths give
+the kernel:
+  K2 at 64 agents (the forest of seed 0): host-prep float32, device-prep
+  float32 and device-prep rounded to bf16;
+  K2 at 256 agents (tools/budget256_study's scatter problem, device prep,
+  rung 0): float32 and rounded to bf16 (skipped with --no-256);
+  K1: one 50-iteration chunk of the 64-agent cold problem from its cold
+  state, rung 0.
+Each variant's result is held against this checkout's float32 twin (the
+largest error relative to the result's scale is printed; K1's is the
+worst over the parts of the state).  Times are CUDA events after the
+stream spin (tools/_timing), the variants in turns: this order, then
+reversed, ``--reps`` calls a turn, the median over all of a variant's
+calls.  The JSON is the last line of stdout, with the card's name and
+power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib
+import importlib.util
+import json
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def load_checkout(root: str, alias: str):
+    """The ``swarm_simulator_tpu_torch`` package under ``root``, imported
+    as ``alias``: (ops.thomas, ops.nsfused) of that checkout."""
+    pkg = Path(root).resolve() / "swarm_simulator_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return (importlib.import_module(alias + ".ops.thomas"),
+            importlib.import_module(alias + ".ops.nsfused"))
+
+
+def inputs(dev, big: bool):
+    """({name: (dinv, ho)}: the pivot inventories K2 is timed on, rung 0
+    of each; (data, host-prep operator) of the 64-agent problem for K1)."""
+    import chip_smoke
+    from swarm_simulator_tpu_torch.qp import joint, nullspace as ns
+
+    plan, mission, param, _ = chip_smoke.build_problem(0)
+    data, _ = joint.assemble_joint(plan, mission, param)
+    host = ns.prepare_ns_np(data, joint.production_phases()[0])
+    hd = host.to(dev)
+    devp = ns.prepare_ns(data.to(dev),
+                         joint.production_phases(kkt_refine=1)[0])
+    cases = {
+        "64 host-prep f32": (hd.Dinvs, hd.Kos),
+        "64 device-prep f32": (devp.Dinvs, devp.Kos),
+        "64 device-prep bf16": (devp.Dinvs[:1].to(torch.bfloat16), devp.Kos),
+    }
+    if big:
+        from swarm_simulator_tpu_torch.tools import budget256_study as bud
+
+        _, _, _, d256 = bud.build_problem(256)
+        o = bud.prepare(d256.to(dev), bud.base_settings(1, False))
+        cases["256 device-prep f32"] = (o.Dinvs, o.Kos)
+        cases["256 device-prep bf16"] = (o.Dinvs[:1].to(torch.bfloat16),
+                                         o.Kos)
+    return cases, (data, host)
+
+
+def in_turns(variants: dict, reps: int, call, check) -> dict:
+    """{variant: {ms, ms_all, err}}: ``call(variant)`` timed ``reps``
+    times a turn over the variants in order and then reversed, after
+    ``check(output) -> error`` of its first call."""
+    from swarm_simulator_tpu_torch.tools._timing import event_ms
+
+    res = {}
+    order = list(variants)
+    for v in order + order[::-1]:
+        e = res.setdefault(v, {"ms_all": [], "err": 0.0})
+        if "failed" in e:
+            continue
+        try:
+            got = call(v)
+            torch.cuda.synchronize()
+        except (RuntimeError, ValueError) as exc:  # a refused launch
+            e["failed"] = str(exc)
+            continue
+        e["err"] = max(e["err"], check(got))
+        e["ms_all"] += event_ms(lambda: call(v), reps, warmup=0)
+    for e in res.values():
+        e["ms"] = float(np.median(e["ms_all"])) if e["ms_all"] else None
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", nargs="*", default=[], metavar="ROOT")
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--no-256", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chain_bench: needs a CUDA card", file=sys.stderr)
+        return 2
+    from swarm_simulator_tpu_torch.ops import nsfused, thomas
+    from swarm_simulator_tpu_torch.qp import joint, nullspace as ns
+    from swarm_simulator_tpu_torch.tools._timing import card
+
+    dev = torch.device("cuda", 0)
+    variants = {"this": (thomas, nsfused)}
+    for n, root in enumerate(args.against):
+        variants[root] = load_checkout(root, f"chain_bench_v{n}")
+    t0 = time.perf_counter()
+
+    def build(th):
+        # each checkout's own build helper, beside its ops/thomas
+        importlib.import_module(th.__name__.rsplit(".", 1)[0] + "._build"
+                                ).build("thomas", "nsfused")
+
+    with ThreadPoolExecutor(len(variants)) as ex:
+        futs = {name: ex.submit(build, th)
+                for name, (th, _) in variants.items()}
+    for name, f in futs.items():
+        if f.exception() is not None:
+            log(f"{name}: build failed, left out: {f.exception()}")
+            del variants[name]
+    log(f"builds: {time.perf_counter() - t0:.1f} s")
+    cases, (data, host) = inputs(dev, not args.no_256)
+
+    out = {"card": card(), "torch": torch.__version__, "k2": {}, "k1": {}}
+    gen = torch.Generator().manual_seed(0)
+    for case, (dinv, ho) in cases.items():
+        Mi, bs = dinv.shape[1], dinv.shape[-1]
+        b = torch.randn((Mi, bs), generator=gen).to(dev)
+        want = thomas.thomas_solve_reference(dinv, ho, b, 0)
+        out["k2"][case] = res = in_turns(
+            variants, args.reps,
+            lambda v: variants[v][0].thomas_solve(dinv, ho, b, 0),
+            lambda got: thomas.rel_error(got, want))
+        log(f"K2 {case}: " + ", ".join(
+            f"{v} {e['ms']} ms (err {e['err']:.1e})" for v, e in res.items()))
+    del cases
+    torch.cuda.empty_cache()
+
+    s = joint.production_phases()[0]
+    ops, (w, z, y) = ns.cold_chunk_inputs(data.to(dev), host.to(dev), s)
+    want = nsfused.nsfused_chunk_reference(ops, 0, s.sigma, s.alpha, w, z,
+                                           y, 50)
+    out["k1"]["64 host-prep chunk"] = res = in_turns(
+        variants, max(1, args.reps // 4),
+        lambda v: variants[v][1].nsfused_chunk(ops, 0, s.sigma, s.alpha, w,
+                                               z, y, 50),
+        lambda got: max(nsfused.state_errors(got, want)))
+    log("K1 64-agent chunk: " + ", ".join(
+        f"{v} {e['ms']} ms (err {e['err']:.1e})" for v, e in res.items()))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -14,7 +14,7 @@ warm-up) beside the plain version and, where one PyTorch call computes the
 same function, that call (``LIBRARY``: P1 one ``torch.add`` on views of
 x, P2 ``torch.einsum``, P3 ``torch.matmul`` at "highest" precision);
 P4's 50 iterations against the plain version and timed, milliseconds per
-launch and per iteration, beside K1's 0.45 ms per ADMM iteration at 64
+launch and per iteration, beside K1's 0.24 ms per ADMM iteration at 64
 agents on an H100 (PERF.md).  ``--cpu`` runs the
 plain versions on the CPU and reports their errors, no time.  Lines go to
 stderr, one JSON line to stdout; no file is written.  Without a card and
@@ -29,9 +29,9 @@ import sys
 import numpy as np
 import torch
 
-#: K1's milliseconds per ADMM iteration at 64 agents (22.5 ms per
+#: K1's milliseconds per ADMM iteration at 64 agents (12.0 ms per
 #: 50-iteration chunk on an H100 80GB HBM3 at 700 W, chip_smoke phase 2)
-K1_MS_PER_ITER = 0.45
+K1_MS_PER_ITER = 0.24
 
 
 def _p1_library(x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """T2, the chain-primitive bench: microseconds per step of each primitive
-of the Thomas chain, on one block and on K2's grid.
+of the Thomas chain, on one block and on K2's first grid.
 
     python3 -m swarm_simulator_tpu_torch.tools.thomas_prim_bench
         [--bs 640] [--mi 35] [--reps 20]

@@ -23,7 +23,8 @@ import torch
 
 import swarm_simulator_tpu_torch as st
 from swarm_simulator_tpu_torch.corridor.times import build_corridors
-from swarm_simulator_tpu_torch.io.mission_json import perimeter_swap_mission
+from swarm_simulator_tpu_torch.io.mission_json import (
+    perimeter_swap_mission, scatter_mission)
 from swarm_simulator_tpu_torch.eval.gate import gate_quality
 from swarm_simulator_tpu_torch.ops import nsfused, thomas
 from swarm_simulator_tpu_torch.ops import nsfused_probe as npb
@@ -54,7 +55,10 @@ N_INNER = 50
 def _forest(n_agents=8, seed=1):
     param = st.Param(world_z_min=0.3, grid_xy_res=0.5, grid_z_res=1.0,
                      solver="nullspace", solver_dtype="float32")
-    mission = perimeter_swap_mission(n_agents, half=4.0, z=1.0, radius=0.15)
+    # the perimeter swap takes multiples of 4 agents; other counts scatter
+    mission = (perimeter_swap_mission(n_agents, half=4.0, z=1.0, radius=0.15)
+               if n_agents % 4 == 0 else
+               scatter_mission(n_agents, half=3.5, z=1.0, seed=seed))
     world = generate_forest(mission, world_min=param.world_min,
                             world_max=param.world_max, obs_num=6, r_min=0.3,
                             r_max=0.3, h_min=0.0, h_max=2.5, margin=0.5,
@@ -62,23 +66,23 @@ def _forest(n_agents=8, seed=1):
     return mission, param, world
 
 
-def _corridors():
-    mission, param, world = _forest()
+def _corridors(n_agents=8):
+    mission, param, world = _forest(n_agents)
     esdf = ESDF(world, max_dist=param.esdf_max_dist)
     plan = plan_initial_trajectories(esdf, mission, param)
     build_corridors(esdf, plan, mission.radius, param)
     return plan, mission, param
 
 
-def _host_prep():
-    plan, mission, param = _corridors()
+def _host_prep(n_agents=8):
+    plan, mission, param = _corridors(n_agents)
     s = joint.production_phases()[0]
     data, _ = joint.assemble_joint(plan, mission, param)
     return s, data, ns.prepare_ns_np(data, s)
 
 
-def _chunk_setups():
-    s, data, op = _host_prep()
+def _chunk_setups(n_agents=8):
+    s, data, op = _host_prep(n_agents)
     dev = torch.device("cuda")
     out = {}
     for dtype in (torch.float32, torch.float64):
@@ -171,6 +175,62 @@ def test_thomas_kernel_matches_twin_on_cuda(prep):
         k64.append(thomas.rel_error(kern, twin64))
         t64.append(thomas.rel_error(twin32, twin64))
     assert thomas.twin_gap_use(k64, t64) <= 1.0, (k64, t64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("agents, Mi", [(5, 4), (6, 4), (8, 2), (64, 2),
+                                        (64, 5), (256, 3)])
+def test_thomas_kernel_ring_shapes_match_twin_on_cuda(agents, Mi, dtype):
+    """K2's TMA ring at the widths it has to handle (bs = 9 * agents):
+    rows that are not 16-byte multiples (5 and 6 agents, float32 and bf16:
+    the copies' ragged edges, on knots at any offset when bs is odd), the
+    8-, 64- and 256-agent widths (whole stages in a slot; 48 KB tiles at
+    256), and Mi = 2, the shortest chain.  Seeded well-conditioned pivots
+    (I/2 + N(0, 1/4bs)) and couplings; the kernel is as accurate as the
+    float32 twin on the same pivots, both against a float64 twin
+    (thomas.twin_gap_use), and one rung past the first is solved so the
+    rung's offset is exercised."""
+    dev = torch.device("cuda")
+    bs, phi = 9 * agents, 3
+    rng = np.random.default_rng(agents * 10 + Mi)
+    eye = np.eye(bs)
+    dinv = np.stack([[0.5 * eye + rng.normal(size=(bs, bs)) / (2 * bs ** 0.5)
+                      for _ in range(Mi)] for _ in range(2)])
+    ho = rng.normal(size=(Mi - 1, phi, phi)) * 0.3
+    b = rng.normal(size=(Mi, bs))
+    d = torch.as_tensor(dinv, device=dev).to(dtype).contiguous()
+    ho32 = torch.as_tensor(ho, device=dev).float().contiguous()
+    b32 = torch.as_tensor(b, device=dev).float()
+    kern = thomas.thomas_solve(d, ho32, b32, 1)
+    twin32 = thomas.thomas_solve_reference(d, ho32, b32, 1)
+    twin64 = thomas.thomas_solve_reference(d, ho32.double(), b32.double(), 1)
+    assert torch.isfinite(kern).all()
+    use = thomas.twin_gap_use([thomas.rel_error(kern, twin64)],
+                              [thomas.rel_error(twin32, twin64)])
+    assert use <= 1.0, use
+
+
+def test_kernel_matches_twin_on_cuda_unaligned_rows():
+    """K1 on one chunk of a 5-agent forest (bs = 45: rows of 180 bytes,
+    knots at every offset within a 16-byte line, so every ring tile has
+    ragged edges), as accurate as the float32 twin on every part of the
+    state, on every rung."""
+    s, setups = _chunk_setups(n_agents=5)
+    ops32, st32 = setups[torch.float32]
+    ops64, st64 = setups[torch.float64]
+    assert ops32.dims["bs"] % 4
+    k64, t64 = [], []
+    for r in range(ops32.dinv.shape[0]):
+        kern = nsfused.nsfused_chunk(ops32, r, s.sigma, s.alpha, *st32,
+                                     n_inner=N_INNER)
+        twin32 = nsfused.nsfused_chunk_reference(ops32, r, s.sigma, s.alpha,
+                                                 *st32, n_inner=N_INNER)
+        twin64 = nsfused.nsfused_chunk_reference(ops64, r, s.sigma, s.alpha,
+                                                 *st64, n_inner=N_INNER)
+        k64.append(nsfused.state_errors(kern, twin64))
+        t64.append(nsfused.state_errors(twin32, twin64))
+    use = nsfused.twin_gap_use(k64, t64)
+    assert max(use.values()) <= 1.0, use
 
 
 @pytest.mark.parametrize("change", [{"iteration": 2},

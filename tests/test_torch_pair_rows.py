@@ -1,0 +1,212 @@
+"""PyTorch port, the constraint rows' pair part and the QP export.
+
+``qp/nullspace._A_x`` gathers each pair's two agents by index instead of
+multiplying the dense signed selection S (whose einsum torch lowered to
+one GEMV per pair on the card).  It is held against the JAX package's
+``_A_x``/``_AT_x`` in float64 (1e-12 of the result's scale: the two
+differ only in the order of a few roundings), against the old einsum
+form in float32 (1e-6), and on a rank's slice of the pair rows as
+qp/nullspace_shard places it.  ``Param.log`` makes
+``joint.solve_trajectories`` print the problem size and write
+``log/qp_joint.npz`` as the JAX package does.
+"""
+import dataclasses
+from types import SimpleNamespace
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from swarm_simulator_tpu.core import types as types_j
+from swarm_simulator_tpu.qp import admm as admm_j
+from swarm_simulator_tpu.qp import assemble as asm_j
+from swarm_simulator_tpu.qp import joint as joint_j
+from swarm_simulator_tpu.qp import nullspace as ns_j
+from swarm_simulator_tpu.utils.timing import ProblemSize
+from swarm_simulator_tpu_torch.core import types as types_t
+from swarm_simulator_tpu_torch.qp import admm as admm_t
+from swarm_simulator_tpu_torch.qp import assemble as asm_t
+from swarm_simulator_tpu_torch.qp import joint as joint_t
+from swarm_simulator_tpu_torch.qp import nullspace as ns_t
+from swarm_simulator_tpu_torch.qp import nullspace_shard as shard_t
+
+# (agents, pairs, segments, control points per segment, seed)
+CASES = [(5, 9, 3, 6, 0), (8, 28, 4, 6, 1), (12, 40, 6, 6, 2)]
+
+
+def _pair_leaves(B, P, M, npp, seed):
+    """Seeded pair leaves: random agent pairs, a fifth of them masked
+    out, a quarter one-sided (pair_bi = -1), some one-sided on the j side
+    too; x [B, 3, D] and y [P, D] to apply A and A^T to."""
+    rng = np.random.default_rng(seed)
+    bi = rng.integers(0, B, P).astype(np.int32)
+    bj = ((bi + rng.integers(1, B, P)) % B).astype(np.int32)
+    bi[rng.random(P) < 0.25] = -1
+    bj[(rng.random(P) < 0.1) & (bi >= 0)] = -1
+    mask = (rng.random(P) > 0.2).astype(np.float64)
+    D = M * npp
+    return dict(pair_bi=bi, pair_bj=bj, pair_mask=mask,
+                pair_n=rng.normal(size=(P, M, 3)),
+                lb=np.zeros((B, 3, D))), (rng.normal(size=(B, 3, D)),
+                                          rng.normal(size=(B, 3, D)),
+                                          rng.normal(size=(P, D)))
+
+
+def _both(leaves, dtype):
+    """The pair leaves _pair_op reads, as attributes, for either package."""
+    def cast(v):
+        return v.astype(dtype) if v.dtype.kind == "f" else v
+
+    return (SimpleNamespace(**{k: jnp.asarray(cast(v))
+                               for k, v in leaves.items()}),
+            SimpleNamespace(**{k: torch.as_tensor(cast(v))
+                               for k, v in leaves.items()}))
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
+
+
+@pytest.mark.parametrize("B, P, M, npp, seed", CASES)
+def test_pair_rows_match_jax_float64(B, P, M, npp, seed):
+    leaves, (x, ybox, ypair) = _pair_leaves(B, P, M, npp, seed)
+    dj, dt = _both(leaves, np.float64)
+    pop_j, pop_t = admm_j._pair_op(dj), admm_t._pair_op(dt)
+    ax_j = ns_j._A_x(dj, jnp.asarray(x), pop_j)
+    ax_t = ns_t._A_x(torch.as_tensor(x), pop_t)
+    assert np.array_equal(ax_t.box.numpy(), x)
+    assert _rel(ax_t.pair.numpy(), ax_j.pair) <= 1e-12
+    y_j = ns_j.NSConstr(box=jnp.asarray(ybox), pair=jnp.asarray(ypair))
+    y_t = ns_t.NSConstr(box=torch.as_tensor(ybox),
+                        pair=torch.as_tensor(ypair))
+    assert _rel(ns_t._AT_x(y_t, pop_t).numpy(),
+                ns_j._AT_x(dj, y_j, pop_j)) <= 1e-12
+
+
+@pytest.mark.parametrize("B, P, M, npp, seed", CASES)
+def test_pair_rows_match_the_einsum_form_float32(B, P, M, npp, seed):
+    """The gather against the dense-selection einsum it replaces, both in
+    float32 on the same inputs."""
+    leaves, (x, _, _) = _pair_leaves(B, P, M, npp, seed)
+    _, dt = _both(leaves, np.float32)
+    pop = admm_t._pair_op(dt)
+    x32 = torch.as_tensor(x, dtype=torch.float32)
+    old = torch.einsum("pkd,pkd->pd", pop.n_d,
+                       torch.einsum("pb,bkd->pkd", pop.S, x32))
+    got = ns_t._A_x(x32, pop).pair
+    assert got.dtype == torch.float32
+    assert _rel(got.numpy(), old.numpy()) <= 1e-6
+
+
+def _qpdata(B, P, M, npp, seed):
+    """A port QPData with the seeded pair leaves (other leaves random)."""
+    leaves, (x, _, _) = _pair_leaves(B, P, M, npp, seed)
+    rng = np.random.default_rng(seed + 100)
+    D = M * npp
+    return asm_t.QPData(
+        Qseg=rng.normal(size=(M, npp, npp)), Aeq=rng.normal(size=(4, D)),
+        deq=rng.normal(size=(B, 3, 4)), lb=leaves["lb"] - 1.0,
+        ub=leaves["lb"] + 1.0, pair_bi=leaves["pair_bi"],
+        pair_bj=leaves["pair_bj"], pair_n=leaves["pair_n"],
+        pair_rhs=rng.normal(size=(P, D)), pair_mask=leaves["pair_mask"],
+        x0=rng.normal(size=(B, 3, D)), agents=np.arange(B, dtype=np.int32),
+        pair_qi=leaves["pair_bi"], pair_qj=leaves["pair_bj"],
+        pair_rsum=np.full(P, 0.3)), x
+
+
+@pytest.mark.parametrize("ranks", [2, 3])
+def test_rank_slice_pair_rows_match_the_whole(ranks):
+    """Each rank's PairOp, built from its slice of the (padded) pair rows
+    as nullspace_shard.place slices them, gives the matching rows of the
+    whole operator's A x, and padded rows give 0."""
+    data, x = _qpdata(*CASES[2])
+    P = data.pair_n.shape[0]
+    padded = shard_t.pad_pairs(data, ranks)
+    Pl = padded.pair_n.shape[0] // ranks
+    x = torch.as_tensor(x)
+    whole = ns_t._A_x(x, admm_t._pair_op(data.to("cpu"))).pair
+    rows = []
+    for rank in range(ranks):
+        local = dataclasses.replace(padded, **{
+            k: np.asarray(getattr(padded, k))[rank * Pl:(rank + 1) * Pl]
+            for k in shard_t.PAIR_LEAVES}).to("cpu")
+        rows.append(ns_t._A_x(x, admm_t._pair_op(local)).pair)
+    rows = torch.cat(rows)
+    assert torch.equal(rows[:P], whole)
+    assert torch.equal(rows[P:], torch.zeros_like(rows[P:]))
+
+
+def _tiny(types, n_agents=8, M=3):
+    """tests/test_qp.py's straight-line problem in either package's types:
+    8 agents stacked in y, whole-world boxes, +y separating planes."""
+    param = types.Param(solver="nullspace", solver_dtype="float64",
+                        time_scale=False, log=True)
+    ys = np.linspace(-0.5, 0.5, n_agents)
+    start, goal = np.zeros((n_agents, 9)), np.zeros((n_agents, 9))
+    start[:, 0], start[:, 1], start[:, 2] = -1.0, ys, 0.5
+    goal[:, 0], goal[:, 1], goal[:, 2] = 1.0, ys, 0.5
+    mission = types.Mission(
+        start=start, goal=goal, radius=np.full(n_agents, 0.15),
+        speed=np.ones(n_agents), max_vel=np.full((n_agents, 3), 1.7),
+        max_acc=np.full((n_agents, 3), 6.2), names=["d"] * n_agents)
+    L = M + 1
+    init = np.stack([np.linspace(start[:, k], goal[:, k], L).T
+                     for k in range(3)], axis=-1)
+    plan = types.PlanResult(init_traj=init, T=np.arange(L, dtype=float))
+    plan.seg_boxes = np.tile(np.array([-5.0, -5.0, 0.0, 5.0, 5.0, 2.5]),
+                             (n_agents, M, 1))
+    iu, ju = np.triu_indices(n_agents, k=1)
+    plan.pair_idx = np.stack([iu, ju], axis=1).astype(np.int32)
+    normals = np.zeros((len(iu), M, 3))
+    normals[:, :, 1] = 1.0
+    plan.pair_normals = normals
+    return plan, mission, param
+
+
+def _npz(path):
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
+def test_export_matches_jax(tmp_path):
+    """The port's export of its assembled 8-agent problem (host numpy
+    leaves, and the same leaves as tensors) equals the JAX package's
+    export of its own assembly: same keys, equal arrays."""
+    data_j, _ = joint_j.assemble_joint(*_tiny(types_j))
+    data_t, _ = joint_t.assemble_joint(*_tiny(types_t))
+    asm_j.export_qp_npz(str(tmp_path / "jax.npz"), data_j)
+    asm_t.export_qp_npz(str(tmp_path / "port.npz"), data_t)
+    asm_t.export_qp_npz(str(tmp_path / "tensors.npz"), data_t.to("cpu"))
+    want = _npz(tmp_path / "jax.npz")
+    for name in ("port.npz", "tensors.npz"):
+        got = _npz(tmp_path / name)
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype, k
+            assert np.array_equal(got[k], v), k
+
+
+def test_log_prints_size_and_writes_the_export(tmp_path, monkeypatch,
+                                               capsys):
+    """solve_trajectories with Param.log, run in an empty working
+    directory: it prints the problem-size line (the one solver_info
+    carries, as the JAX package's ProblemSize prints it) and writes
+    log/qp_joint.npz equal to the JAX package's export of the same
+    problem."""
+    plan, mission, param = _tiny(types_t)
+    monkeypatch.chdir(tmp_path)
+    out = joint_t.solve_trajectories(
+        plan, mission, param, device="cpu", polish_rounds=0,
+        phases=joint_t.production_phases((50, 0, 0)))
+    line = out.solver_info["problem_size"]
+    assert line == str(ProblemSize.of_batch(8, 3, param.n, param.phi,
+                                            len(plan.pair_idx)))
+    assert line in capsys.readouterr().out.splitlines()
+    data_j, _ = joint_j.assemble_joint(*_tiny(types_j))
+    asm_j.export_qp_npz(str(tmp_path / "jax.npz"), data_j)
+    got, want = _npz(tmp_path / "log" / "qp_joint.npz"), _npz(
+        tmp_path / "jax.npz")
+    assert sorted(got) == sorted(want)
+    assert all(np.array_equal(got[k], v) for k, v in want.items())
