@@ -96,16 +96,18 @@ Phases (any failure raises and exits non-zero):
      grid at REPS 20), each timed launch held against the plain version at
      its own REPS;
  15. the staged Thomas probe T3 (tools/thomas_probe.py): its four stages
-     held against the plain version at its own shape (bs 256, Mi 4), then
-     us per stage of each at the 64-agent and 256-agent shapes beside K2's
-     on the same pivots;
+     (dma and mv also on the chain's spans) held against the plain version
+     at its own shape (bs 256, Mi 4), then us per stage of each at the
+     64-agent and 256-agent shapes beside K2's on the same pivots and mv
+     beside torch.einsum, each held against the plain version, one line a
+     shape splitting the chain stage (stream, dot, K2's exchange, fwd);
  16. the fused-chunk probes T1 (tools/nsfused_probe.py): P1-P4 against
      their plain versions (P3 also against float64, 3e-6) and timed, P4 in
      ms per iteration beside K1's;
  17. the row-assembly patterns T5 (tools/row_patterns.py): all fourteen
      against their plain versions (bit-equal; P8's sum within 1e-6), and
      timed beside the one PyTorch call that computes each, where there is
-     one (held to the plain version too).
+     one (held to the plain version too), one line a pattern.
 The line before the last is the kernels' JSON record (each kernel's
 launches on its own path, errors, times of kernel and plain twin, and its
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
@@ -1167,51 +1169,76 @@ def prim_bench(dev):
                             20 * Mi * 6 * bs * bs))
 
 
+def t3_bound(stage: str, bs: int, Mi: int) -> tuple[float, str]:
+    """The bound of T3's ``stage`` (ops/thomas_probe): the pivot blocks it
+    needs (fwd Mi - 1, full all Mi) and koM (fwd, full) read once, b read
+    and out written once, its FMAs at the float32 rate."""
+    blocks = {"dma": Mi, "mv": Mi, "fwd": Mi, "full": Mi + 1}[stage]
+    vecs = 1 if stage == "dma" else 2
+    flops = {"dma": 0, "mv": 2 * Mi, "fwd": 4 * (Mi - 1),
+             "full": 8 * Mi - 6}[stage] * bs * bs
+    return bound(4 * (blocks * bs * bs + vecs * Mi * bs), flops)
+
+
 def probe_stages(dev):
-    """Phase 15: T3's stages against the plain version at its own shape,
-    then through the tool at the 64-agent and 256-agent shapes (each stage
-    and K2 timed, each held against the plain version), with the launch
-    counts read around the tool's runs; the library time of the mv stage
-    (torch.einsum) at the 64-agent shape."""
+    """Phase 15: T3's stages against the plain version at its own shape
+    (bs 256, Mi 4, within 1e-5), then through the tool at the 64-agent and
+    256-agent shapes (each stage and K2 timed, each stage held against the
+    plain version within 1e-4, mv beside torch.einsum in the same run),
+    with the launch counts read around the tool's runs; one line a shape
+    splits the chain stage: dma on the chain's spans (the stream), mv on
+    them (+ the dot), K2 (+ one tagged exchange), fwd (+ a second exchange
+    and the dense coupling); dma and mv on flat spans are the stages' own
+    times."""
     from swarm_simulator_tpu_torch.ops import thomas_probe as tq
     from swarm_simulator_tpu_torch.tools import thomas_probe as t3
     from swarm_simulator_tpu_torch.tools._timing import median_ms
 
     dinvs, koM, b, dsym = t3.inputs(256, 4, 2, dev)
     max_abs = 0.0
-    for st in tq.STAGES:
+    for name in t3.PROBES:
+        st, knot = name.split("@")[0], name.endswith("@knot")
         piv = dsym if st == "full" else dinvs
-        got = tq.thomas_probe(piv, koM, b, st, 1)
+        got = tq.thomas_probe(piv, koM, b, st, 1, knot)
         want = tq.thomas_probe_reference(piv, koM, b, st, 1)
         err = rel_err(got, want)
         max_abs = max(max_abs, float((got - want).abs().max()))
-        log(f"T3 {st} vs plain (bs 256, Mi 4): rel err {err:.2e}")
-        check(err <= 1e-5, f"T3 {st} disagrees with the plain version "
+        log(f"T3 {name} vs plain (bs 256, Mi 4): rel err {err:.2e}")
+        check(err <= 1e-5, f"T3 {name} disagrees with the plain version "
               f"({err:.2e})")
     out = {}
     reset_counts()
     for bs, Mi in ((576, 35), (2304, 71)):
         ins = t3.inputs(bs, Mi, 2, dev)
-        res = t3.run_stages(*ins, tq.STAGES)
-        for st in tq.STAGES:
+        res = t3.run_stages(*ins, t3.PROBES)
+        for st in t3.PROBES:
             check(res[st]["finite"] and res[st]["rel_err"] <= 1e-4,
                   f"T3 {st} at bs {bs}: rel err {res[st]['rel_err']:.2e}")
+        us = {k: res[k]["us_per_stage"] for k in res}
+        for st in tq.STAGES:
+            res[st]["bound"] = t3_bound(st, bs, Mi)
+        log(f"T3 bounds bs {bs} Mi {Mi} (ms): " + ", ".join(
+            f"{st} {res[st]['bound'][0]:.5f} ({res[st]['bound'][1]})"
+            for st in tq.STAGES))
+        log(f"T3 split bs {bs} Mi {Mi}, us a chain stage: stream (dma on "
+            f"the chain's spans) {us['dma@knot']:.3f}, + dot (mv on them) "
+            f"{us['mv@knot']:.3f}, K2 (+ one exchange) {us['k2']:.3f}, fwd "
+            f"(+ a second, dense coupling) {us['fwd']:.3f}, full "
+            f"{us['full']:.3f}; flat spans: dma {res['dma']['ms']:.4f} ms, "
+            f"mv {res['mv']['ms']:.4f} ms beside torch.einsum "
+            f"{res['mv']['library_ms']:.4f} ms")
         out[bs] = res
         if bs == 576:
             d, k, bb = ins[0], ins[1], ins[2]
             mv = dict(res["mv"], plain_ms=median_ms(
-                lambda: tq.thomas_probe_reference(d, k, bb, "mv", 1), 3),
-                library_ms=median_ms(lambda: torch.einsum(
-                    "kbc,kc->kb", d[1], bb), 10))
+                lambda: tq.thomas_probe_reference(d, k, bb, "mv", 1), 3))
         del ins
         torch.cuda.empty_cache()
     counts = read_counts()
     check(counts["t3"] > 0, "the T3 probe launched T3 0 times")
-    Mi, bs = 35, 576
     return dict(counts=counts, max_abs_err=max_abs, ms=mv["ms"],
                 plain_ms=mv["plain_ms"], library_ms=mv["library_ms"],
-                bound=bound(4 * (Mi * bs * bs + 2 * Mi * bs),
-                            2 * Mi * bs * bs), stages=out)
+                bound=mv["bound"], stages=out)
 
 
 def nsfused_probes(dev):
@@ -1265,9 +1292,10 @@ def row_pattern_probes(dev):
     for name, ins in rp.pattern_inputs(dev).items():
         nbytes += 4 * (sum(t.numel() for t in ins)
                        + int(np.prod(rp.PATTERNS[name].out)))
-    lib = {k: v["library_ms"] for k, v in res.items() if v["library_ms"]}
-    log("T5 library calls (ms): " + ", ".join(f"{k.split()[0]} {v:.4f}"
-                                              for k, v in lib.items()))
+    for name, v in res.items():
+        lib = v["library_ms"]
+        log(f"T5 {name.split()[0]}: kernel {v['ms']:.4f} ms, library call "
+            + (f"{lib:.4f} ms" if lib else "none"))
     return dict(counts=counts, patterns=res,
                 max_abs_err=max(v["max_abs_err"] for v in res.values()),
                 ms=sum(v["ms"] for v in res.values()),

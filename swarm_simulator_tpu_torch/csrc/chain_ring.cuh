@@ -1,5 +1,6 @@
 // The Thomas chain's row stream and vector exchange, shared by K1
-// (csrc/nsfused.cu) and K2 (csrc/thomas.cu) on Hopper (sm_90a).
+// (csrc/nsfused.cu), K2 (csrc/thomas.cu) and the staged probe T3
+// (csrc/thomas_probe.cu) on Hopper (sm_90a).
 //
 // A chain of 2*Mi - 1 dependent stages (forward sweep over knots
 // 0..Mi-1, back substitution over Mi-2..0) runs on `ncb` chain blocks.
@@ -107,6 +108,39 @@ __device__ __forceinline__ void gather_tagged(const unsigned long long* src,
     for (int u = 0; u < kGatherBatch; ++u) {
       const int j = j0 + u * kThreads;
       if (j < n) vec[j] = __uint_as_float((unsigned)w[u]);
+    }
+  }
+  __syncthreads();
+}
+
+// gather_tagged over a strided set: dst[r * ncol + c] = the float of
+// src[r * ld + c] for r < nrow, c < ncol, once all carry `tag` (T3 reads
+// its rows' columns of every block's partial sums this way); ends in a
+// block barrier
+__device__ __forceinline__ void gather_tagged_rows(
+    const unsigned long long* src, int ld, int nrow, int ncol, float* dst,
+    unsigned tag) {
+  const unsigned long long ready = (unsigned long long)tag << 32;
+  const int n = nrow * ncol;
+  for (int j0 = threadIdx.x; j0 < n; j0 += kGatherBatch * kThreads) {
+    unsigned long long w[kGatherBatch];
+    bool done;
+    do {
+#pragma unroll
+      for (int u = 0; u < kGatherBatch; ++u) {
+        const int j = j0 + u * kThreads;
+        w[u] = j < n ? ld_tagged(src + (size_t)(j / ncol) * ld + j % ncol)
+                     : ready;
+      }
+      done = true;
+#pragma unroll
+      for (int u = 0; u < kGatherBatch; ++u)
+        done &= (unsigned)(w[u] >> 32) == tag;
+    } while (!done);
+#pragma unroll
+    for (int u = 0; u < kGatherBatch; ++u) {
+      const int j = j0 + u * kThreads;
+      if (j < n) dst[j] = __uint_as_float((unsigned)w[u]);
     }
   }
   __syncthreads();

@@ -2,7 +2,8 @@
 // csrc/thomas_prim.cu (T2), csrc/thomas_probe.cu (T3) and
 // csrc/nsfused_probe.cu (T1), and through csrc/chain_ring.cuh by the chain
 // kernels K1 and K2: warp reductions, mbarriers with 1-D TMA bulk copies
-// (as in csrc/thomas_stream.cu), and one bf16 tensor-core product.
+// (as in csrc/thomas_stream.cu), L2 eviction policies for a stream and
+// the data kept beside it (T3), and one bf16 tensor-core product.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -68,6 +69,42 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// L2 eviction policies over a whole access: evict_first for a stream read
+// once, evict_last for data read again while a stream passes through L2
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(pol));
+  return pol;
+}
+
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+               : "=l"(pol));
+  return pol;
+}
+
+// bulk_copy under the L2 policy `pol`
+__device__ __forceinline__ void bulk_copy_hint(void* dst, const void* src,
+                                               uint32_t bytes, uint64_t* bar,
+                                               uint64_t pol) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(pol)
+      : "memory");
+}
+
+// a read-only 16-byte load under the L2 policy `pol`
+__device__ __forceinline__ float4 ldg_hint(const float4* p, uint64_t pol) {
+  float4 v;
+  asm("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p), "l"(pol));
+  return v;
 }
 
 // shared memory last read through the generic proxy, about to be written

@@ -8,7 +8,14 @@
 // kernel computes all of them, one thread per output element, the pattern
 // chosen by its number (ops/row_patterns.PATTERNS gives names, shapes and
 // the plain versions).  P11, the update the TPU's compiler refused, is
-// computed like the others.
+// computed like the others.  P8, the one pattern that sums (576 outputs,
+// each over 192 products), has a launch of its own: one thread an output
+// chained 192 dependent loads and FMAs on 3 blocks, so it splits each sum
+// over the 8 warps of a block.  A block owns 32 outputs, one a lane, so
+// that the loads of a b-row stay coalesced along c; each warp takes 24 of
+// the 192 b-rows, its loads unrolled to be in flight together; the
+// partial sums meet in shared memory in warp order (deterministic): 18
+// blocks.
 //
 // What bounds them on an H100: nothing but the launch; the largest moves
 // 0.3 MB (P4) or sums 110,592 products (P8).
@@ -17,6 +24,39 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// P8: g [192, 3, 192] summed over its 192 b-rows, 24 a warp
+constexpr int kP8Rows = 192;
+constexpr int kP8PerWarp = kP8Rows / kWarps;
+constexpr int kP8Id = 9;
+
+// P8: out[e] = sum_b g[b * n + e] col[b] for the n = 576 outputs e
+__global__ void __launch_bounds__(kThreads)
+    p8_kernel(const float* __restrict__ g, const float* __restrict__ col,
+              float* __restrict__ out, int n) {
+  __shared__ float part[kWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int e = blockIdx.x * 32 + lane;
+  const int b0 = warp * kP8PerWarp;
+  float s = 0.f;
+  if (e < n) {
+    float v[kP8PerWarp];
+#pragma unroll
+    for (int u = 0; u < kP8PerWarp; ++u)
+      v[u] = __ldg(g + (size_t)(b0 + u) * n + e);
+#pragma unroll
+    for (int u = 0; u < kP8PerWarp; ++u)
+      s = fmaf(v[u], __ldg(col + b0 + u), s);
+  }
+  part[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && e < n) {
+    float t = part[0][lane];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) t += part[w][lane];
+    out[e] = t;
+  }
+}
 
 __global__ void __launch_bounds__(kThreads)
     pattern_kernel(int id, const float* __restrict__ a,
@@ -71,12 +111,7 @@ __global__ void __launch_bounds__(kThreads)
       v = a[r * 256 + col] * (1.0f + (float)f);
       break;
     }
-    case 9: {  // P8: [3, 192] = sum_b g[b, f, c] col[b], g [192, 3, 192]
-      float s = 0.f;
-      for (int bb = 0; bb < 192; ++bb) s = fmaf(a[bb * 576 + e], b[bb], s);
-      v = s;
-      break;
-    }
+    // case 9 (P8) runs in p8_kernel
     case 10: {  // P9: [8, 3, 192] = x[:, None, :] * [0, 1, 2][None, :, None]
       const int r = e / 576, f = (e / 192) % 3, col = e % 192;
       v = a[r * 192 + col] * (float)f;
@@ -106,15 +141,20 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" {
 
 // Pattern `id` (0-13, the order of ops/row_patterns.PATTERNS) into out
-// [n] from up to three inputs, on `stream`.  Returns a cudaError_t
-// (0 = launched).
+// [n] from up to three inputs, on `stream`: P8 on its warp-split grid of
+// ceil(n / 32) blocks, the others one thread an element.  Returns a
+// cudaError_t (0 = launched).
 int row_pattern(int id, void* a, void* b, void* c, void* out, int n,
                 void* stream) {
   if (id < 0 || id > 13 || n < 1) return (int)cudaErrorInvalidValue;
-  pattern_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                   (cudaStream_t)stream>>>(id, (const float*)a,
-                                           (const float*)b, (const float*)c,
-                                           (float*)out, n);
+  if (id == kP8Id)
+    p8_kernel<<<(n + 31) / 32, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)a, (const float*)b, (float*)out, n);
+  else
+    pattern_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                     (cudaStream_t)stream>>>(id, (const float*)a,
+                                             (const float*)b,
+                                             (const float*)c, (float*)out, n);
   return (int)cudaGetLastError();
 }
 

@@ -1,23 +1,26 @@
-"""Time the chain kernels K2 and K1 of this checkout against other
-checkouts of the port, in one process on one CUDA card.
+"""Time the chain kernels K2 and K1 (and with --t3 the staged probe T3)
+of this checkout against other checkouts of the port, in one process on
+one CUDA card.
 
     python3 -m swarm_simulator_tpu_torch.tools.chain_bench
-        [--against ROOT ...] [--reps 20] [--no-256]
+        [--against ROOT ...] [--reps 20] [--no-256] [--t3]
 
 Run from the repository root (it takes the 64-agent problem from
 chip_smoke.py).  Each ROOT is a directory holding a
 ``swarm_simulator_tpu_torch/`` package (for example the parent commit,
 unpacked with ``git archive``); it is loaded under its own module name,
 builds its kernels into its own ``build/``, and is called through the
-same wrappers (``ops/thomas.thomas_solve``, ``ops/nsfused.nsfused_chunk``)
-on the same tensors.  Cases, each on the pivots the planning paths give
-the kernel:
+same wrappers (``ops/thomas.thomas_solve``, ``ops/nsfused.nsfused_chunk``,
+``ops/thomas_probe.thomas_probe``) on the same tensors.  Cases, each on
+the pivots the planning paths give the kernel:
   K2 at 64 agents (the forest of seed 0): host-prep float32, device-prep
   float32 and device-prep rounded to bf16;
   K2 at 256 agents (tools/budget256_study's scatter problem, device prep,
   rung 0): float32 and rounded to bf16 (skipped with --no-256);
   K1: one 50-iteration chunk of the 64-agent cold problem from its cold
-  state, rung 0.
+  state, rung 0;
+  T3 (--t3): each stage at the 64-agent (bs 576, Mi 35) and 256-agent
+  (bs 2304, Mi 71) shapes on tools/thomas_probe's inputs, rung 1.
 Each variant's result is held against this checkout's float32 twin (the
 largest error relative to the result's scale is printed; K1's is the
 worst over the parts of the state).  Times are CUDA events after the
@@ -47,15 +50,16 @@ def log(*a):
 
 def load_checkout(root: str, alias: str):
     """The ``swarm_simulator_tpu_torch`` package under ``root``, imported
-    as ``alias``: (ops.thomas, ops.nsfused) of that checkout."""
+    as ``alias``: (ops.thomas, ops.nsfused, ops.thomas_probe) of that
+    checkout."""
     pkg = Path(root).resolve() / "swarm_simulator_tpu_torch"
     spec = importlib.util.spec_from_file_location(
         alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
     mod = importlib.util.module_from_spec(spec)
     sys.modules[alias] = mod
     spec.loader.exec_module(mod)
-    return (importlib.import_module(alias + ".ops.thomas"),
-            importlib.import_module(alias + ".ops.nsfused"))
+    return tuple(importlib.import_module(f"{alias}.ops.{m}")
+                 for m in ("thomas", "nsfused", "thomas_probe"))
 
 
 def inputs(dev, big: bool):
@@ -111,21 +115,48 @@ def in_turns(variants: dict, reps: int, call, check) -> dict:
     return res
 
 
+def t3_in_turns(variants: dict, reps: int, dev, out: dict) -> None:
+    """T3's stages of every variant in turns, at 64 and 256 agents, into
+    ``out`` ({"bs stage": in_turns' result}); each output held against
+    this checkout's plain version."""
+    from swarm_simulator_tpu_torch.ops import thomas_probe as tq
+    from swarm_simulator_tpu_torch.tools import thomas_probe as t3
+
+    for bs, Mi in ((576, 35), (2304, 71)):
+        dinvs, koM, b, dsym = t3.inputs(bs, Mi, 2, dev)
+        for st in tq.STAGES:
+            piv = dsym if st == "full" else dinvs
+            want = tq.thomas_probe_reference(piv, koM, b, st, 1)
+            out[f"{bs} {st}"] = res = in_turns(
+                variants, max(1, reps // 4),
+                lambda v: variants[v][2].thomas_probe(piv, koM, b, st, 1),
+                lambda got: float((got - want).abs().max())
+                / max(float(want.abs().max()), 1e-30))
+            log(f"T3 {st} bs {bs} Mi {Mi}: " + ", ".join(
+                f"{v} {e['ms']} ms (err {e['err']:.1e})"
+                for v, e in res.items()))
+        del dinvs, koM, b, dsym, piv, want
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", nargs="*", default=[], metavar="ROOT")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--no-256", action="store_true")
+    ap.add_argument("--t3", action="store_true",
+                    help="also time T3's stages at 64 and 256 agents")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chain_bench: needs a CUDA card", file=sys.stderr)
         return 2
     from swarm_simulator_tpu_torch.ops import nsfused, thomas
+    from swarm_simulator_tpu_torch.ops import thomas_probe
     from swarm_simulator_tpu_torch.qp import joint, nullspace as ns
     from swarm_simulator_tpu_torch.tools._timing import card
 
     dev = torch.device("cuda", 0)
-    variants = {"this": (thomas, nsfused)}
+    variants = {"this": (thomas, nsfused, thomas_probe)}
     for n, root in enumerate(args.against):
         variants[root] = load_checkout(root, f"chain_bench_v{n}")
     t0 = time.perf_counter()
@@ -133,11 +164,13 @@ def main() -> int:
     def build(th):
         # each checkout's own build helper, beside its ops/thomas
         importlib.import_module(th.__name__.rsplit(".", 1)[0] + "._build"
-                                ).build("thomas", "nsfused")
+                                ).build("thomas", "nsfused",
+                                        *(("thomas_probe",) if args.t3
+                                          else ()))
 
     with ThreadPoolExecutor(len(variants)) as ex:
-        futs = {name: ex.submit(build, th)
-                for name, (th, _) in variants.items()}
+        futs = {name: ex.submit(build, v[0])
+                for name, v in variants.items()}
     for name, f in futs.items():
         if f.exception() is not None:
             log(f"{name}: build failed, left out: {f.exception()}")
@@ -145,7 +178,8 @@ def main() -> int:
     log(f"builds: {time.perf_counter() - t0:.1f} s")
     cases, (data, host) = inputs(dev, not args.no_256)
 
-    out = {"card": card(), "torch": torch.__version__, "k2": {}, "k1": {}}
+    out = {"card": card(), "torch": torch.__version__, "k2": {}, "k1": {},
+           "t3": {}}
     gen = torch.Generator().manual_seed(0)
     for case, (dinv, ho) in cases.items():
         Mi, bs = dinv.shape[1], dinv.shape[-1]
@@ -171,6 +205,8 @@ def main() -> int:
         lambda got: max(nsfused.state_errors(got, want)))
     log("K1 64-agent chunk: " + ", ".join(
         f"{v} {e['ms']} ms (err {e['err']:.1e})" for v, e in res.items()))
+    if args.t3:
+        t3_in_turns(variants, args.reps, dev, out["t3"])
     print(json.dumps(out), flush=True)
     return 0
 

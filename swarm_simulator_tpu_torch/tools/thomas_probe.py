@@ -3,21 +3,26 @@
 beside K2's on the same pivots.
 
     python3 -m swarm_simulator_tpu_torch.tools.thomas_probe
-        [--bs 256] [--mi 4] [--rungs 2] [--probes dma,mv,fwd,full] [--cpu]
+        [--bs 256] [--mi 4] [--rungs 2]
+        [--probes dma,mv,fwd,full,dma@knot,mv@knot] [--cpu]
 
 The counterpart of the JAX package's tools/pallas_debug/thomas_probe.py
-(ops/thomas_probe has the stages).  The inputs are the JAX tool's draws
-(numpy default_rng(0): pivots (1 + 0.1 r) I + 0.01 N(0, 1), koM 0.1
+(ops/thomas_probe has the stages; ``dma@knot`` and ``mv@knot`` run dma
+and mv on the chain's spans, a block's rows of every knot, whose stream
+is that of a chain stage of fwd, full and K2).  The inputs are the JAX
+tool's draws (numpy default_rng(0): pivots (1 + 0.1 r) I + 0.01 N(0, 1), koM 0.1
 N(0, 1), b N(0, 1); rung 1 % R; ``full`` on the pivots symmetrised) up to
 2^26 pivot elements, and above that the same pivots made on the card from
 a seeded torch.Generator, with koM of 0.5 / sqrt(bs) N(0, 1) so that the
 sweeps stay bounded at production widths (the probe's 0.1 grows them by
 ~1.9 a stage at bs 2304, past float32's range over both sweeps).  On
 the card every stage is timed (median of five CUDA-event launches after a
-warm-up) and held
-against the plain version; K2 (ops/thomas, per-knot Ho [phi, phi] of 0.1
-N(0, 1), phi = 3 where bs allows) runs on the same pivots.  Per stage:
-dma and mv over Mi stages, fwd over Mi, full and K2 over 2 Mi - 1.
+warm-up), held against the plain version and reported with its ring plan
+(ops/thomas_probe.probe_plan); mv beside ``torch.einsum("kbc,kc->kb")``,
+the one PyTorch call that computes it; K2 (ops/thomas, per-knot Ho [phi,
+phi] of 0.1 N(0, 1), phi = 3 where bs allows) runs on the same pivots.
+Per stage: dma and mv over Mi stages, fwd over Mi, full and K2 over
+2 Mi - 1.
 ``--cpu`` runs the plain version on the CPU and reports checksums, no
 time.  Lines go to stderr, one JSON line to stdout; no file is written.
 Without a card and without ``--cpu`` it exits non-zero.
@@ -78,29 +83,47 @@ def k2_phi(bs: int) -> int:
     return next(p for p in (3, 4, 2, 1) if bs % p == 0)
 
 
+#: every probe the tool runs: the four stages, then dma and mv on the
+#: chain's spans
+PROBES = ("dma", "mv", "fwd", "full", "dma@knot", "mv@knot")
+
+
 def run_stages(dinvs, koM, b, dsym, stages, reps: int = 5) -> dict:
     """Each stage through the kernel (rung 1 % R): median ms and us per
     stage, its error against the plain version relative to the plain
-    output's scale; then K2 on dsym."""
+    output's scale, its plan; mv's library call (torch.einsum) timed in
+    the same way; then K2 on dsym."""
     from swarm_simulator_tpu_torch.ops import thomas, thomas_probe as tq
     from swarm_simulator_tpu_torch.tools._timing import median_ms
 
     R, Mi, bs = dinvs.shape[0], dinvs.shape[1], dinvs.shape[-1]
     r = 1 % R
     out = {}
-    for st in stages:
+    for name in stages:
+        st, knot = name.split("@")[0], name.endswith("@knot")
         piv = dsym if st == "full" else dinvs
-        got = tq.thomas_probe(piv, koM, b, st, r)
+        got = tq.thomas_probe(piv, koM, b, st, r, knot)
         want = tq.thomas_probe_reference(piv, koM, b, st, r)
         err = float((got - want).abs().max()) / max(
             float(want.abs().max()), 1e-30)
-        ms = median_ms(lambda: tq.thomas_probe(piv, koM, b, st, r), reps)
+        ms = median_ms(lambda: tq.thomas_probe(piv, koM, b, st, r, knot),
+                       reps)
         n = tq.stages_of(st, Mi)
-        out[st] = dict(ms=ms, us_per_stage=1e3 * ms / n, rel_err=err,
-                       stages=n, finite=bool(torch.isfinite(got).all()))
-        log(f"T3 {st:>4} bs {bs} Mi {Mi}: {out[st]['us_per_stage']:.3f} "
+        plan = tq.probe_plan(bs, Mi, st, thomas.sm_count(b.device), knot)
+        out[name] = e = dict(ms=ms, us_per_stage=1e3 * ms / n, rel_err=err,
+                             stages=n, finite=bool(torch.isfinite(got).all()),
+                             plan=plan._asdict())
+        if name == "mv":
+            e["library_ms"] = median_ms(
+                lambda: torch.einsum("kbc,kc->kb", piv[r], b), reps)
+        log(f"T3 {name:>8} bs {bs} Mi {Mi}: {e['us_per_stage']:.3f} "
             f"us/stage ({ms:.4f} ms, {n} stages), rel err vs plain "
-            f"{err:.2e}")
+            f"{err:.2e}; {plan.blocks} blocks of {plan.rows} rows, tiles "
+            f"of {plan.tile_rows}, {plan.slots} slots" + (
+                "" if st in ("dma", "mv") else ", coupling rows "
+                + ("resident" if plan.resident else "through L2")) + (
+                f"; torch.einsum {e['library_ms']:.4f} ms"
+                if name == "mv" else ""))
     phi = k2_phi(bs)
     gen = torch.Generator(device=b.device).manual_seed(1)
     ho = torch.randn((Mi - 1, phi, phi), generator=gen,
@@ -118,7 +141,7 @@ def main(argv=None) -> int:
     ap.add_argument("--bs", type=int, default=256)
     ap.add_argument("--mi", type=int, default=4)
     ap.add_argument("--rungs", type=int, default=2)
-    ap.add_argument("--probes", default="dma,mv,fwd,full")
+    ap.add_argument("--probes", default=",".join(PROBES))
     ap.add_argument("--cpu", action="store_true",
                     help="run the plain version on the CPU (no timing)")
     args = ap.parse_args(argv)
@@ -134,8 +157,8 @@ def main(argv=None) -> int:
     if args.cpu:
         out.update(device="cpu", stages={})
         for st in stages:
-            got = tq.thomas_probe(dsym if st == "full" else dinvs, koM, b, st,
-                                  1 % args.rungs)
+            got = tq.thomas_probe(dsym if st == "full" else dinvs, koM, b,
+                                  st.split("@")[0], 1 % args.rungs)
             out["stages"][st] = dict(abs_sum=float(got.abs().sum()))
             log(f"T3 {st}: abs sum {out['stages'][st]['abs_sum']:.6g} (plain "
                 "version on the CPU, not timed)")

@@ -419,22 +419,32 @@ def test_prim_kernel_matches_plain_on_cuda(spec, grid):
         thomas.TWIN_GAP_FACTOR * thomas.rel_error(want, w64) + 2.0 ** -8
 
 
-@pytest.mark.parametrize("stage", tq.STAGES)
-def test_probe_kernel_matches_plain_on_cuda(stage):
-    """T3 at the 64-agent width (bs 576, Mi 8, rung 1 of 2): within 1e-5
-    of the plain version's scale."""
+@pytest.mark.parametrize("bs, Mi", [(576, 8), (576, 35), (2304, 6)])
+@pytest.mark.parametrize("stage", tq.STAGES + ("dma@knot", "mv@knot"))
+def test_probe_kernel_matches_plain_on_cuda(stage, bs, Mi):
+    """T3 at the 64-agent width (bs 576, Mi 8 and the production Mi 35:
+    whole-stage tiles of the chain's spans, coupling rows in shared
+    memory) and the 256-agent width (bs 2304, Mi 6: tiles of a few rows,
+    koM^T resident beside a two-slot ring in fwd, the coupling rows through
+    L2 in full), rung 1 of 2, dma and mv on flat spans and on the chain's
+    (@knot): within 1e-5 of the plain version's scale (1e-4 over Mi 35's
+    69 dependent stages, as chip_smoke.py holds it)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    bs, Mi = 576, 8
+    st, knot = stage.split("@")[0], stage.endswith("@knot")
+    plan = tq.probe_plan(bs, Mi, st, thomas.sm_count(dev), knot)
+    if knot or st in ("fwd", "full"):
+        assert (plan.tile_rows < plan.rows) == (bs == 2304)
+        assert plan.resident == (st == "fwd" or (st == "full" and bs == 576))
     dinv = torch.randn((2, Mi, bs, bs), generator=gen, device=dev) * 0.01
     dinv += torch.eye(bs, device=dev)
     koM = torch.randn((bs, bs), generator=gen, device=dev) * 0.5 / bs ** 0.5
     b = torch.randn((Mi, bs), generator=gen, device=dev)
     before = tq.thomas_probe.launches
-    got = tq.thomas_probe(dinv, koM, b, stage, 1)
+    got = tq.thomas_probe(dinv, koM, b, st, 1, knot)
     assert tq.thomas_probe.launches == before + 1
-    assert _rel(got, tq.thomas_probe_reference(dinv, koM, b, stage, 1)) \
-        <= 1e-5
+    assert _rel(got, tq.thomas_probe_reference(dinv, koM, b, st, 1)) \
+        <= (1e-5 if Mi <= 8 else 1e-4)
 
 
 @pytest.mark.parametrize("probe", [1, 2, 3, 4])
@@ -487,3 +497,16 @@ def test_row_pattern_kernel_matches_plain_on_cuda():
             assert _rel(got, want) <= 1e-6, name
         else:
             assert torch.equal(got, want), name
+
+
+def test_row_pattern_p8_split_matches_plain_on_cuda():
+    """P8 on its warp-split grid, on seeded normal g and col (sums that
+    cancel, unlike the probe's aranges): within 1e-6 of the plain
+    version's scale (float32 sums of 192 products in another order)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    g = torch.randn((192, 3, 192), generator=gen, device="cuda")
+    col = torch.randn((192, 1, 1), generator=gen, device="cuda")
+    before = rp.row_pattern.launches
+    got = rp.row_pattern(rp.SUM_PATTERN, g, col)
+    assert rp.row_pattern.launches == before + 1
+    assert _rel(got, rp.PATTERNS[rp.SUM_PATTERN].plain(g, col)) <= 1e-6

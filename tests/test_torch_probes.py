@@ -40,6 +40,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from swarm_simulator_tpu_torch.ops import nsfused_probe as npb
 from swarm_simulator_tpu_torch.ops import row_patterns as rp
+from swarm_simulator_tpu_torch.ops import thomas
 from swarm_simulator_tpu_torch.ops import thomas_prim as tp
 from swarm_simulator_tpu_torch.ops import thomas_probe as tq
 from swarm_simulator_tpu_torch.tools import nsfused_probe as t1_tool
@@ -279,6 +280,71 @@ def test_t5_library_call_matches_plain(name):
     assert r[0], r
 
 
+@pytest.mark.parametrize("stage", tq.STAGES + ("dma@knot", "mv@knot"))
+@pytest.mark.parametrize("bs", [256, 576, 2304])
+def test_t3_plan_fits_and_keeps_the_16_byte_rules(bs, stage):
+    """T3's ring plan at bs 256 (the probe's shape), 576 and 2304 (64 and
+    256 agents), Mi 71: one block per SM at most, covering every row of
+    its split (the rung's flat rows for dma and mv, a knot's rows for the
+    chain and @knot); it fits 227 KB with at least two slots as the kernel
+    carves it (csrc/thomas_probe.cu: probe_floats); every tile's TMA copy
+    (and mv's b row) starts and ends on 16 bytes; the coupling rows sit in
+    shared memory at bs 256 and 576, koM^T also at 2304 beside a two-slot
+    ring of 3-row tiles, while full's koM and koM^T (332 KB) go through
+    L2 there."""
+    Mi, sms = 71, 132
+    st, knot = stage.split("@")[0], stage.endswith("@knot")
+    flat = st in ("dma", "mv") and not knot
+    plan = tq.probe_plan(bs, Mi, st, sms, knot)
+    rows, nrow = plan.rows, Mi * bs if flat else bs
+    assert plan.blocks <= sms and (plan.blocks - 1) * rows < nrow \
+        <= plan.blocks * rows
+    assert 2 <= plan.slots <= thomas.MAX_SLOTS
+    assert plan.slot_bytes % 16 == 0
+    assert plan.slot_bytes >= plan.tile_rows * bs * 4 + 15
+    if flat:   # the whole span, or tiles past the chain's TILE_BYTES
+        assert plan.tile_rows == rows or \
+            plan.tile_rows * bs * 4 > thomas.TILE_BYTES
+    else:
+        assert plan.tile_rows == rows or \
+            plan.tile_rows * bs * 4 <= thomas.TILE_BYTES
+    chained = st in ("fwd", "full")
+    assert plan.resident == (chained and (bs < 2304 or st == "fwd"))
+    if chained and not plan.resident:
+        assert rows <= tq.MAX_L2_ROWS
+    if bs == 2304 and st == "fwd":
+        assert (plan.tile_rows, plan.slots) == (3, 2)
+    coup = rows * bs if plan.resident else 0
+    floats = {"dma": 0,
+              "mv": tq.span_knots(rows, bs, Mi) * bs if flat
+              else plan.slots * bs,
+              "fwd": bs + coup + tq.RED_FLOATS + rows,
+              "full": 2 * bs + 2 * coup + tq.RED_FLOATS + rows
+              + plan.blocks * rows + Mi * rows}[st]
+    assert plan.smem == (thomas.BAR_BYTES + plan.slots * plan.slot_bytes
+                         + 4 * floats)
+    assert plan.smem <= thomas.SMEM_PER_BLOCK
+    knots = {0} if flat else {0, 1, Mi - 1}
+    for blk in range(plan.blocks):
+        r0 = blk * rows
+        r1 = min(r0 + rows, nrow)
+        if flat:   # the b rows a span reads are those it has room for
+            assert (r1 - 1) // bs - r0 // bs + 1 <= tq.span_knots(rows, bs,
+                                                                   Mi)
+        for a0 in range(r0, r1, plan.tile_rows):
+            nr = min(plan.tile_rows, r1 - a0)
+            for k in knots:
+                a = (k * bs * bs + a0 * bs) * 4
+                assert a % 16 == 0 and (nr * bs * 4) % 16 == 0
+    assert (bs * 4) % 16 == 0   # mv's b rows, one a knot
+
+
+@pytest.mark.parametrize("bs", [254, 2])
+def test_t3_plan_refuses_rows_off_16_bytes(bs):
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tq.probe_plan(bs, 4, "mv")
+
+
 # ---- wrappers ----
 
 def _wrapper_calls():
@@ -336,6 +402,32 @@ def test_tool_cpu_prints_json(capsys, name):
     assert mod.main(argv + ["--cpu"]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["device"] == "cpu"
+
+
+def test_t3_ring_variant_recomputes_the_layout():
+    """A study's variant of T3's plan carves shared memory as the plan
+    does: the plan itself is its own variant, and a variant of another
+    residency, tiling and depth matches a plan computed with them."""
+    from swarm_simulator_tpu_torch.tools import t3_ring_study  # noqa: F401
+
+    plan = tq.probe_plan(2304, 71, "fwd")
+    assert tq.ring_variant(plan, 2304, 71, "fwd") == plan
+    l2 = tq.ring_variant(plan, 2304, 71, "fwd", resident=False, tile_rows=5,
+                         slots=4)
+    assert l2.smem == plan.smem - 4 * plan.rows * 2304 \
+        - 2 * plan.slot_bytes + 4 * thomas.slot_bytes(5, 2304, 4)
+    assert l2.smem <= thomas.SMEM_PER_BLOCK
+    knot = tq.probe_plan(576, 35, "mv", knot_spans=True)
+    half = tq.ring_variant(knot, 576, 35, "mv", True, slots=4)
+    assert knot.smem - half.smem == 4 * (knot.slot_bytes + 4 * 576)
+
+
+def test_t3_ring_study_without_card_exits_nonzero(monkeypatch, capsys):
+    from swarm_simulator_tpu_torch.tools import t3_ring_study
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert t3_ring_study.main([]) != 0
+    assert capsys.readouterr().out == ""
 
 
 @pytest.mark.parametrize("name", list(TOOLS))
