@@ -47,7 +47,8 @@ Phases (any failure raises and exits non-zero):
      knot), the carries chained in this process, through the kernels, the
      float32 twins and float64 twins; the kernels' worst error over the
      rungs held to thomas.twin_gap_use, and the chained result against
-     K2's full solve; the median time per chunk sweep (CUDA events);
+     K2's full solve; the median time per chunk sweep (CUDA events),
+     K3a's beside its first design's recorded time and its bound;
   9. the sharded entry point: ``solve_ns_phases_sharded`` (chunk mode) on a
      1-rank NCCL group for the 64-agent forest with phase 2's host prep and
      the production phases, with the K1/K2/K3 launch counts read around
@@ -102,8 +103,8 @@ Phases (any failure raises and exits non-zero):
      beside torch.einsum, each held against the plain version, one line a
      shape splitting the chain stage (stream, dot, K2's exchange, fwd);
  16. the fused-chunk probes T1 (tools/nsfused_probe.py): P1-P4 against
-     their plain versions (P3 also against float64, 3e-6) and timed, P4 in
-     ms per iteration beside K1's;
+     their plain versions (P3 also against float64, 3e-6) and timed, P3
+     beside torch.matmul, P4 in ms per iteration beside K1's;
  17. the row-assembly patterns T5 (tools/row_patterns.py): all fourteen
      against their plain versions (bit-equal; P8's sum within 1e-6), and
      timed beside the one PyTorch call that computes each, where there is
@@ -743,6 +744,12 @@ def chunked_solve(dinv, kos, b, rho_idx: int, n: int, fwd=None, bwd=None):
     return torch.cat(x)
 
 
+#: K3a's median ms per sweep at 64 agents in its first design (a warp per
+#: row group, a grid sync per knot), by chunk length: chip_smoke phase 8
+#: on an H100 80GB HBM3 at a 700 W power limit (PERF.md)
+K3A_FIRST_DESIGN_MS = {35: 0.2566, 9: 0.0492}
+
+
 def chunk_sweeps_vs_twins(op, dev):
     """Phase 8: per rung, one seeded right-hand side through the chain
     split into n = 1 and n = 4 chunks, carries chained in this process,
@@ -802,6 +809,15 @@ def chunk_sweeps_vs_twins(op, dev):
         use = thomas.twin_gap_use(k64, t64)
         use_k2 = thomas.twin_gap_use(k2_64, t64)
         med = {k: float(np.median(v)) for k, v in ms.items()}
+        phi = ho32.shape[-1]
+        # one chunk sweep: its slab of the rung, the rows in and out, the
+        # carry and the couplings once; L pivot matvecs
+        nbytes = 4 * (L * bs * bs + 2 * L * bs + bs + L * phi * phi)
+        bnd = bound(nbytes, L * 2 * bs * bs)
+        old = K3A_FIRST_DESIGN_MS.get(L)
+        log(f"K3a n={n} (L={L}): {med['fwd']:.4f} ms per sweep on the ring"
+            + (f", first design {old} ms" if old else "")
+            + f", bound {bnd[0]:.4f} ms ({bnd[1]})")
         log(f"K3 n={n} (L={L}): share of the tolerance used {use:.2f} "
             f"(K2 on the same inputs {use_k2:.2f}); max abs err vs float32 "
             f"twin {max_abs:.3e}; median per sweep K3a {med['fwd']:.4f} ms, "
@@ -813,12 +829,7 @@ def chunk_sweeps_vs_twins(op, dev):
         # against the chained float64 twin, stands beside the chained K3
         check(use_k2 <= 1.0, f"K2 disagrees with the chained float64 "
               f"twin ({use_k2:.2f} of the tolerance; K3 vs K2 {k3_k2})")
-        # one chunk sweep: its slab of the rung, the rows in and out, the
-        # carry and the couplings once; L pivot matvecs
-        phi = ho32.shape[-1]
-        nbytes = 4 * (L * bs * bs + 2 * L * bs + bs + L * phi * phi)
-        out[n] = dict(use=use, max_abs_err=max_abs, L=L,
-                      bound=bound(nbytes, L * 2 * bs * bs), **med)
+        out[n] = dict(use=use, max_abs_err=max_abs, L=L, bound=bnd, **med)
     return out
 
 
@@ -1257,6 +1268,8 @@ def nsfused_probes(dev):
               f"plain version ({res[f'P{p}']['rel_err']:.2e})")
     check(res["P3"]["rel_err_f64"] <= 3e-6, "T1 P3 is "
           f"{res['P3']['rel_err_f64']:.2e} from float64 (limit 3e-6)")
+    log(f"T1 P3: kernel {res['P3']['ms']:.5f} ms, torch.matmul (highest) "
+        f"{res['P3']['library_ms']:.5f} ms on the same inputs")
     log(f"T1 P4: {res['P4']['ms']:.3f} ms per {npb.INNER}-iteration launch, "
         f"{res['P4']['ms_per_iter']:.4f} ms per iteration (K1: "
         f"{res['P4']['k1_ms_per_iter']} ms per ADMM iteration)")

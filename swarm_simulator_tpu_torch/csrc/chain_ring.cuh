@@ -1,5 +1,5 @@
 // The Thomas chain's row stream and vector exchange, shared by K1
-// (csrc/nsfused.cu), K2 (csrc/thomas.cu) and the staged probe T3
+// (csrc/nsfused.cu), K2 and K3a (csrc/thomas.cu) and the staged probe T3
 // (csrc/thomas_probe.cu) on Hopper (sm_90a).
 //
 // A chain of 2*Mi - 1 dependent stages (forward sweep over knots

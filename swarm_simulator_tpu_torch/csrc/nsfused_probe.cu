@@ -9,23 +9,38 @@
 //       y[f, b], D6 [R, 35, 3, 3, 192, 192]
 //   P3  split-precision pair product [216, 192] @ [192, 2048]: x split into
 //       three bf16 parts by bit masks, the three products accumulated in
-//       float32 on the tensor cores (mma.sync m16n8k16 bf16 -> f32)
+//       float32 on the tensor cores (mma.sync m16n8k16 bf16 -> f32), s
+//       exact in bf16
 //   P4  `inner` iterations of the tile-form Thomas sweeps in one launch:
 //       t_{k-1} = D(k-1) y_{k-1}, y_k = b_k - hoT(t_{k-1}) (y_0 = b_0);
 //       x_{Mi-1} = D(Mi-1) y_{Mi-1}; x_k = t_k - D(k) ho_(x_{k+1}), with
 //       D(k) v [g, c] = sum_f sum_b D6[0, k, f, g, b, c] v[f, b],
 //       hoT(t)[g] = sum_f ho[f, g] t[f], ho_(v)[f] = sum_g ho[f, g] v[g]
 //
-// What bounds them on an H100: P1 moves 0.25 MB, P2 reads 1.3 MB, P3 does
-// 0.24 GFLOP (three bf16 passes) on 1.9 MB; all three are launch-bound at
-// these sizes.  P4's 46.4 MB rung fits the 50 MB L2 but not the 132 SMs'
-// 29.97 MB of shared memory, and each iteration is a chain of 69
-// dependent applies of 1.33 MB each.
+// What bounds them on an H100: P1 moves 0.25 MB and P2 reads 1.3 MB, both
+// launch-bound at these sizes.  P3 does 0.51 GFLOP (three bf16 passes) on
+// 3.5 MB moved once (x 0.17 MB, s 1.57 MB, out 1.77 MB): 1.05 us at the
+// HBM rate, 0.5 us at the bf16 tensor-core rate, so the launch and a
+// block's serial phases set its time: 10.4-10.9 us on an H100 80GB HBM3
+// at 700 W, of which a launch of the same grid and shared memory with
+// the tile's store takes 5.3-5.8 and the panels' copy, the split and the
+// products ~1.8 each (PERF.md).  P4's 46.4 MB rung fits the 50 MB L2
+// but not the 132 SMs' 29.97 MB of shared memory, and each iteration is a
+// chain of 69 dependent applies of 1.33 MB each.
 //
 // What the design does about it: P1 one thread per output; P2 a block per
 // (g, 32 columns), eight warps splitting the 576 rows (f, b), partial sums
-// added in warp order in shared memory; P3 a warp per 16 x 32 output tile,
-// the split done in registers as the fragments are loaded.  P4 "resident"
+// added in warp order in shared memory.  P3 one block per 64 x 64 output
+// tile (4 x 32 = 128 blocks at 216 x 2048, one wave on 132 SMs; the M edge
+// masked): the block copies its x rows [64, 192] and s columns [192, 64]
+// into shared memory at once (16-byte cp.async, all in flight), splits
+// each x element once into three bf16 planes and rounds s to bf16 there,
+// then each of eight warps takes a 16 x 32 part of the tile with
+// mma.sync m16n8k16 on fragments read by ldmatrix (rows padded by 16
+// bytes, so a read hits no bank twice), and the tile leaves through
+// shared memory in 16-byte row stores.  (The first design, a warp per
+// 16 x 32 tile loading every fragment from device memory, read x 64
+// times and s 14 times and lost to torch.matmul, PERF.md.)  P4 "resident"
 // means resident in L2: one cooperative launch of 24 blocks, block j owning
 // columns [8j, 8j + 8) of all three g, so an apply and its ho coupling
 // stay inside the block and each chain stage costs one grid sync; after the
@@ -81,58 +96,154 @@ __device__ __forceinline__ void split3(float a, float* p) {
   p[2] = r - a1;
 }
 
-// a warp per 16 x 32 tile of out [M, N]; x [M, K], s [K, N] (K % 16 == 0,
-// N % 32 == 0)
+// one block per kP3Tile x kP3Tile tile of out [M, N]; x [M, K], s [K, N]
+// (K % 16 == 0, N % kP3Tile == 0; rows of x past M read as zeros).
+// Dynamic shared memory, in bytes (p3_smem, ops/nsfused_probe.p3_plan):
+//   stage  max(512 K, out tile): the block's x rows [64, K] and s columns
+//          [K, 64] as float32, copied in with cp.async; then the out tile
+//          [64, kP3OutLd] float32
+//   xs     [3][64][K + kP3Pad] bf16: the three parts of x's rows
+//   ss     [K][64 + kP3Pad] bf16: s's columns
+constexpr int kP3Tile = 64;
+constexpr int kP3Pad = 8;     // bf16 a row is padded by: ldmatrix's eight
+                              // 16-byte row reads fall in distinct banks
+constexpr int kP3OutLd = kP3Tile + 8;
+
+__host__ __device__ inline size_t p3_stage_bytes(int K) {
+  const size_t panels = (size_t)2 * kP3Tile * K * sizeof(float);
+  const size_t out = (size_t)kP3Tile * kP3OutLd * sizeof(float);
+  return panels > out ? panels : out;
+}
+
+__host__ __device__ inline size_t p3_smem(int K) {
+  return p3_stage_bytes(K) +
+         2 * ((size_t)3 * kP3Tile * (K + kP3Pad) +
+              (size_t)K * (kP3Tile + kP3Pad));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   probe::smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// four 8 x 8 bf16 matrices from shared memory, row addresses from lanes
+// 8i..8i+7 for matrix i (.trans: each transposed)
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(probe::smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(probe::smem_addr(p))
+      : "memory");
+}
+
 __global__ void __launch_bounds__(kThreads)
     p3_kernel(const float* __restrict__ x, const float* __restrict__ s,
               float* __restrict__ out, int M, int K, int N) {
-  const int lane = threadIdx.x & 31;
-  const int wt = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  const int ntn = N / 32, ntm = (M + 15) / 16;
-  if (wt >= ntm * ntn) return;
-  const int m0 = (wt / ntn) * 16, n0 = (wt % ntn) * 32;
-  const int g = lane >> 2, q = lane & 3;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = blockIdx.y * kP3Tile, n0 = blockIdx.x * kP3Tile;
+  const int ldx = K + kP3Pad, lds = kP3Tile + kP3Pad;
+  float* xf = reinterpret_cast<float*>(smem);  // [64, K]
+  float* sf = xf + kP3Tile * K;                // [K, 64]
+  __nv_bfloat16* xs =
+      reinterpret_cast<__nv_bfloat16*>(smem + p3_stage_bytes(K));
+  __nv_bfloat16* ss = xs + 3 * kP3Tile * ldx;
+
+  // ---- both panels in flight at once, 16 bytes a copy ----
+  const int kq = K / 4;  // float4s of an x row
+#pragma unroll 4
+  for (int e = tid; e < kP3Tile * kq; e += kThreads) {
+    const int r = e / kq, c = (e - r * kq) * 4;
+    const bool in = m0 + r < M;
+    cp_async16(xf + r * K + c, x + (size_t)(in ? m0 + r : 0) * K + c, in);
+  }
+#pragma unroll 4
+  for (int e = tid; e < K * (kP3Tile / 4); e += kThreads) {
+    const int k = e / (kP3Tile / 4), c = (e % (kP3Tile / 4)) * 4;
+    cp_async16(sf + k * kP3Tile + c, s + (size_t)k * N + n0 + c, true);
+  }
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::
+                   : "memory");
+  __syncthreads();
+
+  // ---- each element of x split once into three bf16 planes, s rounded
+  // to bf16 (exact for the probe's s) ----
+#pragma unroll 4
+  for (int e = tid; e < kP3Tile * kq; e += kThreads) {
+    const int r = e / kq, c = (e - r * kq) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(xf + r * K + c);
+    float p[4][3];
+    split3(v.x, p[0]);
+    split3(v.y, p[1]);
+    split3(v.z, p[2]);
+    split3(v.w, p[3]);
+    for (int part = 0; part < 3; ++part)
+      *reinterpret_cast<uint2*>(xs + (part * kP3Tile + r) * ldx + c) =
+          make_uint2(probe::pack_bf16(p[0][part], p[1][part]),
+                     probe::pack_bf16(p[2][part], p[3][part]));
+  }
+#pragma unroll 4
+  for (int e = tid; e < K * (kP3Tile / 4); e += kThreads) {
+    const int k = e / (kP3Tile / 4), c = (e % (kP3Tile / 4)) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(sf + k * kP3Tile + c);
+    *reinterpret_cast<uint2*>(ss + k * lds + c) = make_uint2(
+        probe::pack_bf16(v.x, v.y), probe::pack_bf16(v.z, v.w));
+  }
+  __syncthreads();
+
+  // ---- warp w: rows 16 (w % 4) .. +16, columns 32 (w / 4) .. +32 ----
+  const int wm = (warp & 3) * 16, wn = (warp >> 2) * 32;
   float d[4][4] = {};
-  auto xat = [&](int m, int k, float* p3) {
-    if (m < M) split3(__ldg(x + (size_t)m * K + k), p3);
-    else p3[0] = p3[1] = p3[2] = 0.f;
-  };
+#pragma unroll 4
   for (int k0 = 0; k0 < K; k0 += 16) {
-    // the A fragments of the three parts: rows g, g + 8; columns 2q, 2q+1,
-    // 2q+8, 2q+9 of this k-slab
-    float v[4][2][3];  // [rows g / g+8 x cols lo / hi][pair][part]
-    const int ks[4] = {k0 + 2 * q, k0 + 2 * q, k0 + 2 * q + 8, k0 + 2 * q + 8};
-    const int ms[4] = {m0 + g, m0 + g + 8, m0 + g, m0 + g + 8};
-    for (int e = 0; e < 4; ++e) {
-      xat(ms[e], ks[e], v[e][0]);
-      xat(ms[e], ks[e] + 1, v[e][1]);
-    }
-    uint32_t bf[4][2];
-    for (int nc = 0; nc < 4; ++nc) {
-      const int n = n0 + nc * 8 + g;
-      const int kk = k0 + 2 * q;
-      bf[nc][0] = probe::pack_bf16(__ldg(s + (size_t)kk * N + n),
-                                   __ldg(s + (size_t)(kk + 1) * N + n));
-      bf[nc][1] = probe::pack_bf16(__ldg(s + (size_t)(kk + 8) * N + n),
-                                   __ldg(s + (size_t)(kk + 9) * N + n));
+    uint32_t bf[4][2];  // B fragments of the four 8-column slabs
+    for (int h = 0; h < 2; ++h) {
+      uint32_t r[4];
+      ldsm_x4_trans(r, ss + (k0 + (lane & 15)) * lds + wn + h * 16 +
+                           8 * (lane >> 4));
+      bf[2 * h][0] = r[0];
+      bf[2 * h][1] = r[1];
+      bf[2 * h + 1][0] = r[2];
+      bf[2 * h + 1][1] = r[3];
     }
     for (int part = 0; part < 3; ++part) {
       uint32_t a[4];
-      for (int e = 0; e < 4; ++e)
-        a[e] = probe::pack_bf16(v[e][0][part], v[e][1][part]);
+      ldsm_x4(a, xs + (part * kP3Tile + wm + (lane & 15)) * ldx + k0 +
+                     8 * (lane >> 4));
       for (int nc = 0; nc < 4; ++nc) probe::mma_bf16_16816(d[nc], a, bf[nc]);
     }
   }
+
+  // ---- the out tile through shared memory (the float32 panels are read
+  // no more), then 16-byte stores of whole rows ----
+  float* ot = xf;  // [64, kP3OutLd]
+  const int g = lane >> 2, q = lane & 3;
   for (int nc = 0; nc < 4; ++nc) {
-    const int n = n0 + nc * 8 + 2 * q;
-    if (m0 + g < M) {
-      out[(size_t)(m0 + g) * N + n] = d[nc][0];
-      out[(size_t)(m0 + g) * N + n + 1] = d[nc][1];
-    }
-    if (m0 + g + 8 < M) {
-      out[(size_t)(m0 + g + 8) * N + n] = d[nc][2];
-      out[(size_t)(m0 + g + 8) * N + n + 1] = d[nc][3];
-    }
+    const int c = wn + nc * 8 + 2 * q;
+    *reinterpret_cast<float2*>(ot + (wm + g) * kP3OutLd + c) =
+        make_float2(d[nc][0], d[nc][1]);
+    *reinterpret_cast<float2*>(ot + (wm + g + 8) * kP3OutLd + c) =
+        make_float2(d[nc][2], d[nc][3]);
+  }
+  __syncthreads();
+  for (int e = tid; e < kP3Tile * (kP3Tile / 4); e += kThreads) {
+    const int r = e / (kP3Tile / 4), c = (e % (kP3Tile / 4)) * 4;
+    if (m0 + r < M)
+      *reinterpret_cast<float4*>(out + (size_t)(m0 + r) * N + n0 + c) =
+          *reinterpret_cast<const float4*>(ot + r * kP3OutLd + c);
   }
 }
 
@@ -260,14 +371,20 @@ int nsfused_probe_p2(void* d, void* y, void* out, void* stream) {
 }
 
 // P3: out [M, N] = x [M, K] @ s [K, N] through three bf16 parts of x
-// (K % 16 == 0, N % 32 == 0; s exact in bf16).
+// (K % 16 == 0, N % 64 == 0, p3_smem(K) within a block's 227 KB; s exact
+// in bf16; x, s and out 16-byte aligned): one block per 64 x 64 tile.
 int nsfused_probe_p3(void* x, void* s, void* out, int M, int K, int N,
                      void* stream) {
-  if (M < 1 || K < 16 || K % 16 || N < 32 || N % 32)
+  if (M < 1 || K < 16 || K % 16 || N < kP3Tile || N % kP3Tile ||
+      ((uintptr_t)x | (uintptr_t)s | (uintptr_t)out) % 16)
     return (int)cudaErrorInvalidValue;
-  const int tiles = ((M + 15) / 16) * (N / 32);
-  const int per_block = kThreads / 32;
-  p3_kernel<<<(tiles + per_block - 1) / per_block, kThreads, 0,
+  const size_t smem = p3_smem(K);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)p3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  p3_kernel<<<dim3(N / kP3Tile, (M + kP3Tile - 1) / kP3Tile), kThreads, smem,
               (cudaStream_t)stream>>>((const float*)x, (const float*)s,
                                       (float*)out, M, K, N);
   return finish(cudaSuccess);

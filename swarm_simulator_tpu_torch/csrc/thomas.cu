@@ -51,9 +51,20 @@
 // (the device prep's LU-plus-Newton inverses are not): every product is
 // Dinv_k @ v.
 //
-// K3a/K3b keep the first design: one warp per (agent, axis) row group on
+// K3a runs on the same ring: ring.Mi = ring.nstage = L, so stage s
+// streams knot s, and the chunk's L forward stages pass the vector in
+// tagged entries with no barrier; stage 0's vector (b_0 less the carry's
+// coupling) is formed whole by every block from the operands.  It is K2's
+// forward half with a carry in, so the same things bound it: the latency
+// of a chain stage at 64 agents (a 35-knot chunk reads 46.4 MB, 14 us at
+// the HBM rate), the row stream at 256.  The ring plan keeps no rows for
+// a back sweep (ops/thomas.ring_plan with hist_knots = 0).
+//
+// K3b keeps the first design: one warp per (agent, axis) row group on
 // ceil(B3 / 8) cooperative blocks, coalesced row reads from device memory
-// into registers, one grid sync per chain step.
+// into registers, one grid sync per chain step.  The sync and the
+// register row reads of every knot, not the bytes, bound it (~6.6 us a
+// stage at 64 agents on an H100 80GB HBM3 at 700 W, PERF.md).
 #include "chain_ring.cuh"
 
 namespace cg = cooperative_groups;
@@ -180,72 +191,102 @@ __global__ void __launch_bounds__(kThreads) thomas_kernel(const Params<T> p) {
   }
 }
 
-struct ChunkParams {
-  const float* dinv;   // [L, bs, bs] pivot inverses of the rung, the chunk's knots
-  const float* kc;     // [L, phi, phi] couplings: kin (K3a) or kout (K3b)
-  const float* v;      // K3a: b [L, bs]; K3b: T [L, bs]
-  const float* carry;  // K3a: t_in [bs]; K3b: x_in [bs]
-  float* y;            // K3a scratch [L, bs]: forward rows y_j (K3b: unused)
-  float* out;          // K3a: T [L, bs]; K3b: x [L, bs]
-  int B3, L, phi;
+// K3a: the forward sweep over one chunk on the chain ring (the note above)
+struct ChunkFwdParams {
+  const float* dinv;         // [L, bs, bs] pivot inverses, the chunk's knots
+  const float* kin;          // [L, phi, phi]
+  const float* b;            // [L, bs]
+  const float* t_in;         // [bs] the carry
+  unsigned long long* vbuf;  // [2, bs] scratch: tagged vector entries
+  float* out;                // T [L, bs]
+  int B3, L, phi, gpb, tile_rows, nslots;
 };
 
-// K3a: the forward sweep over one chunk, carry folded into y_0
-__global__ void __launch_bounds__(kThreads) chunk_fwd_kernel(
-    const ChunkParams p) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float4 smem4[];
-  float* sh = reinterpret_cast<float*>(smem4);
+__global__ void __launch_bounds__(kThreads)
+    chunk_fwd_kernel(const ChunkFwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int phi = p.phi, L = p.L, bs = p.B3 * phi;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rows = p.gpb * phi;
 
-  const int phi = p.phi, L = p.L, B3 = p.B3, bs = B3 * phi;
-  const int lane = threadIdx.x & 31;
-  const int warps_per_block = blockDim.x >> 5;
-  const int gwarp = blockIdx.x * warps_per_block + (threadIdx.x >> 5);
-  const int nwarps = gridDim.x * warps_per_block;
-  const bool vec4 = (bs & 3) == 0;
-  const size_t blk = (size_t)bs * bs;
+  chain::RowRing<float> ring;
+  ring.dinv = p.dinv;
+  ring.bs = bs;
+  ring.Mi = L;
+  ring.r0 = min((int)blockIdx.x * rows, bs);
+  ring.r1 = min(ring.r0 + rows, bs);
+  ring.tile_rows = p.tile_rows;
+  ring.nslots = p.nslots;
+  ring.ntile = (ring.r1 - ring.r0 + p.tile_rows - 1) / p.tile_rows;
+  ring.nstage = L;
+  ring.ntiles = (long long)L * ring.ntile;
+  ring.aligned = bs % 4 == 0;
+  float* vec = reinterpret_cast<float*>(ring.carve(smem));  // [bs]
+  float* tv = vec + bs;  // [rows] this stage's products of the block
+  const int r0 = ring.r0, nrows = ring.r1 - ring.r0;
 
-  for (int j = 0; j < L; ++j) {
-    if (j == 0) {
-      // y_0 = b_0 - (I (x) kin_0)^T t_in, staged by every block
-      for (int i = threadIdx.x; i < bs; i += blockDim.x) {
-        const int grp = i / phi, a = i - grp * phi;
-        float s = p.v[i];
-        for (int c = 0; c < phi; ++c)
-          s = fmaf(-p.kc[c * phi + a], __ldg(p.carry + grp * phi + c), s);
-        sh[i] = s;
+  if (tid == 0) ring.start();
+  for (int j = blockIdx.x * kThreads + tid; j < 2 * bs;
+       j += gridDim.x * kThreads)
+    p.vbuf[j] = 0ull;
+  // no entry carries a tag yet, for every block
+  cg::this_grid().sync();
+
+  long long i = 0;  // this block's next tile
+  for (int s = 0; s < L; ++s) {
+    if (s == 0) {  // y_0 = b_0 - (I (x) kin_0)^T t_in
+      for (int j = tid; j < bs; j += kThreads) {
+        const int a = j % phi;
+        const float* tg = p.t_in + (j - a);
+        float c = 0.f;
+        for (int q = 0; q < phi; ++q) c = fmaf(__ldg(p.kin + q * phi + a),
+                                               __ldg(tg + q), c);
+        vec[j] = __ldg(p.b + j) - c;
       }
+      __syncthreads();
     } else {
-      // y_j, written by other blocks before the last grid sync: read it
-      // through L2 (__ldcg), not a possibly stale L1 line
-      const float* yj = p.y + (size_t)j * bs;
-      for (int i = threadIdx.x; i < bs; i += blockDim.x) sh[i] = __ldcg(yj + i);
+      chain::gather_tagged(p.vbuf + (size_t)(s & 1) * bs, vec, bs,
+                           (unsigned)s);
     }
-    __syncthreads();
-    const float* Dj = p.dinv + (size_t)j * blk;
-    for (int grp = gwarp; grp < B3; grp += nwarps) {
-      float tv[kMaxPhi];
-      for (int a = 0; a < phi; ++a)
-        tv[a] = row_dot(Dj + (size_t)(grp * phi + a) * bs, sh, bs, lane,
-                        vec4);
-      if (lane == 0) {
-        const int r0 = grp * phi;
-        for (int a = 0; a < phi; ++a) p.out[(size_t)j * bs + r0 + a] = tv[a];
-        if (j + 1 < L) {
-          const float* H = p.kc + (size_t)(j + 1) * phi * phi;
-          const float* bn = p.v + (size_t)(j + 1) * bs + r0;
-          float* yn = p.y + (size_t)(j + 1) * bs + r0;
-          for (int i = 0; i < phi; ++i) {
-            float s = 0.f;
-            for (int a = 0; a < phi; ++a) s = fmaf(H[a * phi + i], tv[a], s);
-            yn[i] = bn[i] - s;
-          }
-        }
+    // ---- the block's rows of Dinv_s against it ----
+    for (int t = 0; t < ring.ntile; ++t, ++i) {
+      int row0, nr;
+      const float* A = ring.acquire(i, &row0, &nr);
+      for (int r = warp; r < nr; r += chain::kWarps) {
+        const float v = chain::dot_shared(A + (size_t)r * bs, vec, bs, lane,
+                                          ring.aligned);
+        if (lane == 0) tv[row0 + r] = v;
+      }
+      ring.release(i);
+    }
+    // ---- each owned row: T_s, and its entry of the next vector,
+    // y_{s+1} = b_{s+1} - (I (x) kin_{s+1})^T T_s ----
+    const float* H = s + 1 < L ? p.kin + (size_t)(s + 1) * phi * phi : nullptr;
+    for (int e = tid; e < nrows; e += kThreads) {
+      const int a = e % phi;
+      p.out[(size_t)s * bs + r0 + e] = tv[e];
+      if (s + 1 < L) {
+        const float* tg = tv + (e - a);  // the row group's results
+        float c = 0.f;
+        for (int q = 0; q < phi; ++q) c = fmaf(H[q * phi + a], tg[q], c);
+        chain::put_tagged(p.vbuf + (size_t)((s + 1) & 1) * bs + r0 + e,
+                          __ldg(p.b + (size_t)(s + 1) * bs + r0 + e) - c,
+                          (unsigned)(s + 1));
       }
     }
-    if (j + 1 < L) grid.sync();
+    __syncthreads();  // vec and tv are rewritten by the next stage
   }
 }
+
+// K3b's operands
+struct ChunkParams {
+  const float* dinv;   // [L, bs, bs] pivot inverses, the chunk's knots
+  const float* kc;     // [L, phi, phi] couplings kout
+  const float* v;      // T [L, bs]
+  const float* carry;  // x_in [bs]
+  float* out;          // x [L, bs]
+  int B3, L, phi;
+};
 
 // K3b: the back substitution over one chunk, from x_in at j = L-1
 __global__ void __launch_bounds__(kThreads) chunk_bwd_kernel(
@@ -290,7 +331,7 @@ __global__ void __launch_bounds__(kThreads) chunk_bwd_kernel(
   }
 }
 
-// One cooperative launch of `kernel` on a grid sized to the chain (one
+// K3b's cooperative launch of `kernel` on a grid sized to the chain (one
 // warp per row group), `bs` floats of dynamic shared memory.  Returns a
 // cudaError_t: the launch's, or cudaGetLastError() after it.
 template <typename P>
@@ -352,6 +393,34 @@ int solve_as(void* dinv, void* ho, void* b, void* vbuf, void* x, int B3,
   return (int)cudaGetLastError();
 }
 
+// K3a: the ring plan (gpb, tile_rows, nslots, smem) of ops/thomas.ring_plan
+// with no rows kept, one block per gpb row groups; refused as K2's is
+int chunk_fwd_ring(ChunkFwdParams p, int smem, void* stream) {
+  if (p.phi < 1 || p.phi > kMaxPhi || p.L < 1 || p.B3 < 1 || p.gpb < 1 ||
+      p.tile_rows < 1 || p.tile_rows > p.gpb * p.phi || p.nslots < 1 ||
+      p.nslots > chain::kMaxSlots)
+    return (int)cudaErrorInvalidValue;
+  const int bs = p.B3 * p.phi, rows = p.gpb * p.phi;
+  const size_t need =
+      chain::kBarBytes +
+      p.nslots * chain::slot_bytes(p.tile_rows, bs, sizeof(float)) +
+      sizeof(float) * ((size_t)bs + rows);
+  if ((size_t)smem < need) return (int)cudaErrorInvalidValue;
+  const int want = (p.B3 + p.gpb - 1) / p.gpb;
+  int grid = 0;
+  int e = probe::coop_grid((const void*)chunk_fwd_kernel, kThreads, smem,
+                           want, &grid);
+  if (e != 0) return e;
+  // the chain needs every block of the plan resident at once
+  if (grid < want) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&p};
+  cudaError_t c = cudaLaunchCooperativeKernel(
+      (const void*)chunk_fwd_kernel, dim3(want), dim3(kThreads), args, smem,
+      (cudaStream_t)stream);
+  if (c != cudaSuccess) return (int)c;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -378,22 +447,26 @@ int thomas_solve_bf16(void* dinv, void* ho, void* b, void* vbuf, void* x,
 }
 
 // K3a on `stream`: T [L, bs] of one chunk from b [L, bs], the couplings
-// kin [L, phi, phi] and the carry t_in [bs]; `y` is [L, bs] scratch.
-int thomas_chunk_fwd(void* dinv, void* kin, void* b, void* t_in, void* y,
-                     void* T, int B3, int L, int phi, void* stream) {
-  if (phi < 1 || phi > kMaxPhi || L < 1 || B3 < 1)
-    return (int)cudaErrorInvalidValue;
-  ChunkParams p;
+// kin [L, phi, phi] and the carry t_in [bs]; `vbuf` is [2, bs] 64-bit
+// scratch; gpb, tile_rows, nslots and smem are the ring plan of
+// ops/thomas.ring_plan with hist_knots = 0.
+int thomas_chunk_fwd(void* dinv, void* kin, void* b, void* t_in, void* vbuf,
+                     void* T, int B3, int L, int phi, int gpb, int tile_rows,
+                     int nslots, int smem, void* stream) {
+  ChunkFwdParams p;
   p.dinv = (const float*)dinv;
-  p.kc = (const float*)kin;
-  p.v = (const float*)b;
-  p.carry = (const float*)t_in;
-  p.y = (float*)y;
+  p.kin = (const float*)kin;
+  p.b = (const float*)b;
+  p.t_in = (const float*)t_in;
+  p.vbuf = (unsigned long long*)vbuf;
   p.out = (float*)T;
   p.B3 = B3;
   p.L = L;
   p.phi = phi;
-  return launch_coop(chunk_fwd_kernel, p, B3, phi, stream);
+  p.gpb = gpb;
+  p.tile_rows = tile_rows;
+  p.nslots = nslots;
+  return chunk_fwd_ring(p, smem, stream);
 }
 
 // K3b on `stream`: x [L, bs] of one chunk from K3a's T [L, bs], the
@@ -407,7 +480,6 @@ int thomas_chunk_bwd(void* dinv, void* kout, void* T, void* x_in, void* x,
   p.kc = (const float*)kout;
   p.v = (const float*)T;
   p.carry = (const float*)x_in;
-  p.y = nullptr;
   p.out = (float*)x;
   p.B3 = B3;
   p.L = L;

@@ -4,12 +4,13 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..core.device import resolve_device
 from ..qp import convert, timescale
 from .safety import safety_margin_ratio
 from .sample import sample_times, sample_trajectories
 
 
-def gate_quality(ctrl, plan, mission, param, device="cpu"):
+def gate_quality(ctrl, plan, mission, param, device=None):
     """(ok, metrics) for control points [N, M, n+1, 3]:
       * collision ratio >= 1 (rbp_publisher.hpp:769-798)
       * C^0 / C^2 knot continuity (< 1e-3 / < 5e-3) and endpoint pins
@@ -18,7 +19,9 @@ def gate_quality(ctrl, plan, mission, param, device="cpu"):
       * dynamic limits after time scaling (rbp_planner.hpp:209-266),
         verified by dense sampling of the scaled trajectory
         (<= 1 + 1e-9 of max_vel / max_acc)
-    Sampling runs in float64 on ``device``."""
+    Sampling runs in float64 on ``device`` (None = the card; raises
+    without one: pass ``device="cpu"`` for the CPU)."""
+    device = resolve_device(device)
     dm = np.asarray(ctrl, dtype=np.float64)
     coef = convert.ctrl_to_coef(dm, plan.T, param.n)
     ts = sample_times(np.asarray(plan.T), 0.1)

@@ -10,7 +10,8 @@ which replace the four Pallas TPU kernels of the JAX package's
   p2_tile_apply          (P2, :106) out[g, c] = sum_f sum_b
                                     D6[r, 3, f, g, b, c] y[f, b]
   p3_split_pair_product  (P3, :156) x [216, 192] @ s [192, 2048] through
-                                    three bf16 parts of x, float32 sums
+                                    three bf16 parts of x, float32 sums,
+                                    one block per 64 x 64 tile of out
   p4_resident_thomas     (P4, :231) ``inner`` iterations of the tile-form
                                     forward and backward Thomas sweeps
 
@@ -140,18 +141,48 @@ def p3_split_pair_product_reference(x: torch.Tensor,
     return x0 @ sb + x1 @ sb + x2 @ sb
 
 
+#: P3's output tile (rows and columns of out a block computes), the bf16
+#: elements a shared-memory row is padded by, and the row length of the
+#: out tile staged in shared memory (csrc/nsfused_probe.cu)
+P3_TILE, P3_PAD, P3_OUT_LD = 64, 8, 72
+#: shared memory one block may use on an H100 (227 KB)
+SMEM_PER_BLOCK = 232448
+
+
+def p3_plan(M: int, K: int, N: int) -> tuple[tuple[int, int], int]:
+    """P3's launch for out [M, N] = x [M, K] @ s [K, N]: the grid (column
+    tiles, row tiles) of 64 x 64 output tiles and the bytes of dynamic
+    shared memory a block takes (csrc/nsfused_probe.cu's p3_smem).
+    Raises ValueError on shapes the tiling cannot take: K not a multiple
+    of 16, N not a multiple of 64, or K so deep that a block's panels
+    exceed 227 KB (K > 208)."""
+    if M < 1 or K < 16 or K % 16 or N < P3_TILE or N % P3_TILE:
+        raise ValueError(
+            f"p3_split_pair_product: [{M}, {K}] @ [{K}, {N}] does not tile: "
+            f"K must be a multiple of 16 and N a multiple of {P3_TILE}")
+    stage = max(2 * P3_TILE * K * 4, P3_TILE * P3_OUT_LD * 4)
+    smem = stage + 2 * (3 * P3_TILE * (K + P3_PAD) + K * (P3_TILE + P3_PAD))
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"p3_split_pair_product: K = {K} needs {smem} bytes "
+                         f"of shared memory a block (at most "
+                         f"{SMEM_PER_BLOCK})")
+    return (N // P3_TILE, -(-M // P3_TILE)), smem
+
+
 def p3_split_pair_product(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """x [M, K] @ s [K, N] through three bf16 parts of x on the tensor cores
-    (P3; s exact in bf16, K a multiple of 16, N of 32)."""
+    (P3; s exact in bf16).  The kernel's tiling needs K a multiple of 16
+    (at most 208) and N a multiple of 64 (p3_plan); other shapes raise."""
     if x.device.type == "cpu":
         return p3_split_pair_product_reference(x, s)
     M, K = x.shape
     N = s.shape[-1]
     _build.check_operands("p3_split_pair_product", (("x", x, (M, K)),
                                                     ("s", s, (K, N))))
-    if K % 16 or N % 32:
-        raise ValueError(f"p3_split_pair_product: K = {K} not a multiple of "
-                         f"16 or N = {N} not a multiple of 32")
+    p3_plan(M, K, N)
+    if x.data_ptr() % 16 or s.data_ptr() % 16:
+        raise ValueError("p3_split_pair_product: x and s must be 16-byte "
+                         "aligned")
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     _launch("nsfused_probe_p3", x, s, out, M, K, N)
     p3_split_pair_product.launches += 1

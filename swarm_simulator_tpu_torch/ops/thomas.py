@@ -163,7 +163,7 @@ BAR_BYTES = 128
 
 
 class RingPlan(NamedTuple):
-    """How the chain kernels K1 and K2 stream their pivot rows
+    """How the chain kernels K1, K2 and K3a stream their pivot rows
     (csrc/chain_ring.cuh): each chain block owns ``groups`` row groups of
     every knot, read through a ring of ``slots`` shared-memory slots of
     ``slot_bytes``, tiles of ``tile_rows`` rows."""
@@ -225,7 +225,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = ci
         fn.argtypes = [vp] * 5 + [ci] * 7 + [vp]
     lib.thomas_chunk_fwd.restype = ci
-    lib.thomas_chunk_fwd.argtypes = [vp] * 6 + [ci] * 3 + [vp]
+    lib.thomas_chunk_fwd.argtypes = [vp] * 6 + [ci] * 7 + [vp]
     lib.thomas_chunk_bwd.restype = ci
     lib.thomas_chunk_bwd.argtypes = [vp] * 5 + [ci] * 3 + [vp]
     lib.thomas_error_string.restype = ctypes.c_char_p
@@ -327,9 +327,13 @@ def thomas_chunk_fwd(dinv: torch.Tensor, kin: torch.Tensor, b: torch.Tensor,
     piv = _cuda_operands("thomas_chunk_fwd", rho_idx, dinv, phi, (
         ("dinv", dinv, (R, L, bs, bs)), ("kin", kin, (L, phi, phi)),
         ("b", b, (L, bs)), ("t_in", t_in, (bs,))))
+    # float32 rows, none kept for a back sweep
+    plan = ring_plan(bs, phi, 4, hist_knots=0, sms=sm_count(b.device))
     T = torch.empty_like(b)
-    y = torch.empty_like(b)
-    _launch("thomas_chunk_fwd", piv, kin, b, t_in, y, T, bs // phi, L, phi)
+    # the chain's vector entries, 64 bits each, as K2's
+    vbuf = torch.empty((2, bs), dtype=torch.int64, device=b.device)
+    _launch("thomas_chunk_fwd", piv, kin, b, t_in, vbuf, T, bs // phi, L,
+            phi, plan.groups, plan.tile_rows, plan.slots, plan.smem)
     thomas_chunk_fwd.launches += 1
     return T
 

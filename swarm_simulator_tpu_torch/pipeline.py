@@ -16,6 +16,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .core.device import default_device  # noqa: F401
+from .core.device import resolve_device as _resolve_device
 from .core.types import Mission, Param, PlanResult
 from .corridor.times import build_corridors
 from .eval import safety, sample
@@ -34,21 +36,6 @@ class StageTimes:
     timescale: float = 0.0
     total: float = 0.0
     extra: dict = field(default_factory=dict)
-
-
-def default_device() -> torch.device:
-    """The card: the port's entry points run on CUDA unless the caller
-    asks for the CPU (``device="cpu"``)."""
-    return torch.device("cuda")
-
-
-def _resolve_device(device) -> torch.device:
-    device = default_device() if device is None else torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device} requested (device=None means the card) but "
-            "no CUDA card is available; pass device='cpu' to run on the CPU")
-    return device
 
 
 def plan(

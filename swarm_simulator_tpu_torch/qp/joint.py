@@ -29,6 +29,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..core.types import Mission, Param, PlanResult
 from ..corridor.rsfc import build_rsfc
 from . import assemble, convert, nullspace
@@ -132,11 +133,12 @@ def solve_trajectories(plan: PlanResult, mission: Mission, param: Param,
                        dummy: np.ndarray | None = None,
                        polish_rounds: int | None = None,
                        exact_polish: bool = False,
-                       device: torch.device | str = "cpu",
+                       device: torch.device | str | None = None,
                        ) -> PlanResult:
     """Pipeline entry for Param.solver == "nullspace": fills plan.ctrl /
     plan.coef / plan.solver_info.  The QP and the operator move to
-    ``device``; the solve runs there.
+    ``device`` (None = the card; raises without one: pass
+    ``device="cpu"`` for the CPU); the solve runs there.
 
     polish_rounds None = auto (polish_rounds_for_swarm).  > 0 runs warm
     polish extensions after the cold solve with x0 <- the previous
@@ -168,7 +170,7 @@ def solve_trajectories(plan: PlanResult, mission: Mission, param: Param,
         raise NotImplementedError(
             "exact_polish (the host active-set polish) is not ported "
             "(ROADMAP queue 1, item 9)")
-    device = torch.device(device)
+    device = resolve_device(device)
     if polish_rounds is None:
         polish_rounds = polish_rounds_for_swarm(mission.qn)
     if phases is None:

@@ -1,9 +1,10 @@
-"""Time the chain kernels K2 and K1 (and with --t3 the staged probe T3)
-of this checkout against other checkouts of the port, in one process on
-one CUDA card.
+"""Time the chain kernels K2 and K1 (with --k3 the chunk sweeps K3a and
+K3b, with --t3 the staged probe T3, with --p3 T1's pair product P3) of
+this checkout against other checkouts of the port, in one process on one
+CUDA card.
 
     python3 -m swarm_simulator_tpu_torch.tools.chain_bench
-        [--against ROOT ...] [--reps 20] [--no-256] [--t3]
+        [--against ROOT ...] [--reps 20] [--no-256] [--k3] [--t3] [--p3]
 
 Run from the repository root (it takes the 64-agent problem from
 chip_smoke.py).  Each ROOT is a directory holding a
@@ -11,7 +12,8 @@ chip_smoke.py).  Each ROOT is a directory holding a
 unpacked with ``git archive``); it is loaded under its own module name,
 builds its kernels into its own ``build/``, and is called through the
 same wrappers (``ops/thomas.thomas_solve``, ``ops/nsfused.nsfused_chunk``,
-``ops/thomas_probe.thomas_probe``) on the same tensors.  Cases, each on
+``ops/thomas_probe.thomas_probe``, ``ops/nsfused_probe``) on the same
+tensors.  Cases, each on
 the pivots the planning paths give the kernel:
   K2 at 64 agents (the forest of seed 0): host-prep float32, device-prep
   float32 and device-prep rounded to bf16;
@@ -19,8 +21,15 @@ the pivots the planning paths give the kernel:
   rung 0): float32 and rounded to bf16 (skipped with --no-256);
   K1: one 50-iteration chunk of the 64-agent cold problem from its cold
   state, rung 0;
+  K3a and K3b (--k3): one sweep over the first L knots of the 64-agent
+  host-prep inventory, rung 0, at L = 35 (the whole chain, the 1-rank
+  sharded solve's chunk) and L = 9 (its first chunk split four ways), and
+  at the 256-agent width at L = 71 (skipped with --no-256), a seeded
+  right-hand side and carry, K3b on this checkout's twin's T;
   T3 (--t3): each stage at the 64-agent (bs 576, Mi 35) and 256-agent
-  (bs 2304, Mi 71) shapes on tools/thomas_probe's inputs, rung 1.
+  (bs 2304, Mi 71) shapes on tools/thomas_probe's inputs, rung 1;
+  P3 (--p3): the pair product on tools/nsfused_probe's inputs, x of 216
+  rows and its first 100, with ``torch.matmul`` ("highest") in turns.
 Each variant's result is held against this checkout's float32 twin (the
 largest error relative to the result's scale is printed; K1's is the
 worst over the parts of the state).  Times are CUDA events after the
@@ -50,8 +59,8 @@ def log(*a):
 
 def load_checkout(root: str, alias: str):
     """The ``swarm_simulator_tpu_torch`` package under ``root``, imported
-    as ``alias``: (ops.thomas, ops.nsfused, ops.thomas_probe) of that
-    checkout."""
+    as ``alias``: (ops.thomas, ops.nsfused, ops.thomas_probe,
+    ops.nsfused_probe) of that checkout."""
     pkg = Path(root).resolve() / "swarm_simulator_tpu_torch"
     spec = importlib.util.spec_from_file_location(
         alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
@@ -59,7 +68,8 @@ def load_checkout(root: str, alias: str):
     sys.modules[alias] = mod
     spec.loader.exec_module(mod)
     return tuple(importlib.import_module(f"{alias}.ops.{m}")
-                 for m in ("thomas", "nsfused", "thomas_probe"))
+                 for m in ("thomas", "nsfused", "thomas_probe",
+                           "nsfused_probe"))
 
 
 def inputs(dev, big: bool):
@@ -115,6 +125,69 @@ def in_turns(variants: dict, reps: int, call, check) -> dict:
     return res
 
 
+def k3_in_turns(variants: dict, reps: int, dev, cases: dict,
+                out: dict) -> None:
+    """K3a and K3b of every variant in turns into ``out`` ({"<case> L=<L>
+    fwd|bwd": in_turns' result}): a sweep over the first L knots of rung 0
+    of each inventory in ``cases`` ({name: (dinv, ho, [L, ...])}), each
+    output held against this checkout's float32 twin."""
+    from swarm_simulator_tpu_torch.ops import thomas
+    from swarm_simulator_tpu_torch.qp import nullspace_shard as shard
+
+    gen = torch.Generator().manual_seed(1)
+    for case, (dinv, ho, lengths) in cases.items():
+        bs = dinv.shape[-1]
+        for L in lengths:
+            n = -(-dinv.shape[1] // L)
+            kin, kout = (k[:L].contiguous()
+                         for k in shard.chunk_couplings(ho, n * L))
+            d = dinv[:1, :L].contiguous()
+            b = torch.randn((L, bs), generator=gen).to(dev)
+            t_in = torch.randn(bs, generator=gen).to(dev)
+            T = thomas.thomas_chunk_fwd_reference(d, kin, b, t_in, 0)
+            x = thomas.thomas_chunk_bwd_reference(d, kout, T, t_in, 0)
+            for sweep, want, name, args in (
+                    ("fwd", T, "thomas_chunk_fwd", (d, kin, b, t_in, 0)),
+                    ("bwd", x, "thomas_chunk_bwd", (d, kout, T, t_in, 0))):
+                out[f"{case} L={L} {sweep}"] = res = in_turns(
+                    variants, reps,
+                    lambda v: getattr(variants[v][0], name)(*args),
+                    lambda got: thomas.rel_error(got, want))
+                log(f"K3{'a' if sweep == 'fwd' else 'b'} {case} L={L}: "
+                    + ", ".join(f"{v} {e['ms']} ms (err {e['err']:.1e})"
+                                for v, e in res.items()))
+            del d, T, x
+            torch.cuda.empty_cache()
+
+
+def p3_in_turns(variants: dict, reps: int, dev, out: dict) -> None:
+    """T1's P3 of every variant and ``torch.matmul`` in turns into ``out``
+    ({"M=<rows>": in_turns' result}), each output held against this
+    checkout's plain version."""
+    from swarm_simulator_tpu_torch.ops import nsfused_probe as npb
+    from swarm_simulator_tpu_torch.tools import nsfused_probe as t1
+
+    x216, s = (torch.from_numpy(a).to(dev)
+               for a in t1.probe_inputs((3,))[3])
+    calls = {v: variants[v][3].p3_split_pair_product for v in variants}
+    calls["torch.matmul"] = torch.matmul
+    prec = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        for M in (216, 100):
+            x = x216[:M].contiguous()
+            want = npb.p3_split_pair_product_reference(x, s)
+            out[f"M={M}"] = res = in_turns(
+                calls, reps, lambda v: calls[v](x, s),
+                lambda got: float((got - want).abs().max())
+                / float(want.abs().max()))
+            log(f"P3 M={M}: " + ", ".join(
+                f"{v} {e['ms']} ms (err {e['err']:.1e})"
+                for v, e in res.items()))
+    finally:
+        torch.set_float32_matmul_precision(prec)
+
+
 def t3_in_turns(variants: dict, reps: int, dev, out: dict) -> None:
     """T3's stages of every variant in turns, at 64 and 256 agents, into
     ``out`` ({"bs stage": in_turns' result}); each output held against
@@ -144,19 +217,24 @@ def main() -> int:
     ap.add_argument("--against", nargs="*", default=[], metavar="ROOT")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--no-256", action="store_true")
+    ap.add_argument("--k3", action="store_true",
+                    help="also time K3a and K3b at 64 agents (L = 35 and "
+                         "9) and 256 agents (L = 71)")
     ap.add_argument("--t3", action="store_true",
                     help="also time T3's stages at 64 and 256 agents")
+    ap.add_argument("--p3", action="store_true",
+                    help="also time T1's P3 beside torch.matmul")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chain_bench: needs a CUDA card", file=sys.stderr)
         return 2
     from swarm_simulator_tpu_torch.ops import nsfused, thomas
-    from swarm_simulator_tpu_torch.ops import thomas_probe
+    from swarm_simulator_tpu_torch.ops import nsfused_probe, thomas_probe
     from swarm_simulator_tpu_torch.qp import joint, nullspace as ns
     from swarm_simulator_tpu_torch.tools._timing import card
 
     dev = torch.device("cuda", 0)
-    variants = {"this": (thomas, nsfused, thomas_probe)}
+    variants = {"this": (thomas, nsfused, thomas_probe, nsfused_probe)}
     for n, root in enumerate(args.against):
         variants[root] = load_checkout(root, f"chain_bench_v{n}")
     t0 = time.perf_counter()
@@ -166,6 +244,8 @@ def main() -> int:
         importlib.import_module(th.__name__.rsplit(".", 1)[0] + "._build"
                                 ).build("thomas", "nsfused",
                                         *(("thomas_probe",) if args.t3
+                                          else ()),
+                                        *(("nsfused_probe",) if args.p3
                                           else ()))
 
     with ThreadPoolExecutor(len(variants)) as ex:
@@ -179,7 +259,7 @@ def main() -> int:
     cases, (data, host) = inputs(dev, not args.no_256)
 
     out = {"card": card(), "torch": torch.__version__, "k2": {}, "k1": {},
-           "t3": {}}
+           "k3": {}, "t3": {}, "p3": {}}
     gen = torch.Generator().manual_seed(0)
     for case, (dinv, ho) in cases.items():
         Mi, bs = dinv.shape[1], dinv.shape[-1]
@@ -191,6 +271,13 @@ def main() -> int:
             lambda got: thomas.rel_error(got, want))
         log(f"K2 {case}: " + ", ".join(
             f"{v} {e['ms']} ms (err {e['err']:.1e})" for v, e in res.items()))
+    if args.k3:
+        k3 = {"64 host-prep f32": (*cases["64 host-prep f32"], (35, 9))}
+        if not args.no_256:
+            k3["256 device-prep f32"] = (*cases["256 device-prep f32"],
+                                         (71,))
+        k3_in_turns(variants, args.reps, dev, k3, out["k3"])
+        del k3
     del cases
     torch.cuda.empty_cache()
 
@@ -207,6 +294,8 @@ def main() -> int:
         f"{v} {e['ms']} ms (err {e['err']:.1e})" for v, e in res.items()))
     if args.t3:
         t3_in_turns(variants, args.reps, dev, out["t3"])
+    if args.p3:
+        p3_in_turns(variants, args.reps, dev, out["p3"])
     print(json.dumps(out), flush=True)
     return 0
 

@@ -5,13 +5,16 @@
 
 Run from the repository root (it takes the problem from chip_smoke.py).
 Builds the problem and its rung inventory once, runs the production
-phased solve once to warm up, then once under torch.profiler, and prints:
-the solve's wall time (host clock, ending in a device sync), the device
-time the profiler saw, the device-busy share (device time / wall time of
-the profiled run and of the unprofiled warm-up run; one stream, so
-kernels do not overlap), the shares of the device time of
-the fused chunk kernel (K1), the Thomas solve kernel (K2) and the chunked
-sweeps (K3a/K3b), and the table of the costliest device entries.
+phased solve once to warm up, once more unprofiled, then once under
+torch.profiler, and prints: the solves' wall times (host clock, ending in
+a device sync), the device time the profiler saw, the device-busy share
+(device time / wall time of the profiled run and of the unprofiled
+second run; one stream, so kernels do not overlap), the shares of the
+device time of the fused chunk kernel (K1), the Thomas solve kernel
+(K2), the chunked sweeps K3a and K3b and the rest (torch operations and
+copies), the device spans of the NCCL collectives, the host time per
+iteration (wall time over iterations), and the tables of the costliest
+device and host entries.
 
 Without an option: the cold solve (host-f64 prep, kkt_refine=0, one K1
 launch per chunk).  With ``--refine``: the refine path of replans and
@@ -145,8 +148,10 @@ def timed_solve(d, o, sched):
 
 
 def profile_run(solve) -> int:
-    """Run ``solve() -> (seconds, iterations)`` once to warm up and once
-    under torch.profiler; print the readings."""
+    """Run ``solve() -> (seconds, iterations)`` once to warm up (first-use
+    costs in), once unprofiled and once under torch.profiler; print the
+    readings."""
+    first_s, _ = solve()
     warm_s, iters = solve()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -161,10 +166,19 @@ def profile_run(solve) -> int:
                 if "nsfused" in e.key)
     k2_us = sum(e.self_device_time_total for e in on_dev
                 if "thomas_kernel" in e.key)
-    k3_us = sum(e.self_device_time_total for e in on_dev
-                if "chunk_fwd_kernel" in e.key or "chunk_bwd_kernel" in e.key)
-    print(f"solve: warm-up {warm_s:.3f} s ({iters} iters), profiled "
-          f"{wall_s:.3f} s ({iters_p} iters)")
+    k3a_us = sum(e.self_device_time_total for e in on_dev
+                 if "chunk_fwd_kernel" in e.key)
+    k3b_us = sum(e.self_device_time_total for e in on_dev
+                 if "chunk_bwd_kernel" in e.key)
+    # a collective shows as the device span of its "nccl:" annotation (a
+    # copy on one rank, and any wait for the peers), not as a kernel
+    nccl_us = sum(e.self_device_time_total for e in avg
+                  if e.key.startswith("nccl:"))
+    print(f"solve: first {first_s:.3f} s, unprofiled {warm_s:.3f} s "
+          f"({iters} iters), profiled "
+          f"{wall_s:.3f} s ({iters_p} iters); host time per iteration "
+          f"{1e3 * warm_s / max(iters, 1):.3f} ms unprofiled, "
+          f"{1e3 * wall_s / max(iters_p, 1):.3f} ms profiled")
     if dev_us <= 0:
         print("profile_solve: the profiler saw no device time",
               file=sys.stderr)
@@ -174,10 +188,14 @@ def profile_run(solve) -> int:
     print(f"device time {dev_us / 1e3:.1f} ms, device busy "
           f"{100 * dev_us / 1e6 / wall_s:.1f}% of the profiled wall time, "
           f"{100 * dev_us / 1e6 / warm_s:.1f}% of the unprofiled one; "
-          f"K1 {k1_us / 1e3:.1f} ms = {100 * k1_us / dev_us:.1f}%, K2 "
-          f"{k2_us / 1e3:.1f} ms = {100 * k2_us / dev_us:.1f}%, K3a+K3b "
-          f"{k3_us / 1e3:.1f} ms = {100 * k3_us / dev_us:.1f}% of the "
-          "device time")
+          + ", ".join(f"{name} {us / 1e3:.1f} ms = {100 * us / dev_us:.1f}%"
+                      for name, us in (
+                          ("K1", k1_us), ("K2", k2_us), ("K3a", k3a_us),
+                          ("K3b", k3b_us),
+                          ("the rest (torch ops, copies)",
+                           dev_us - k1_us - k2_us - k3a_us - k3b_us)))
+          + f" of the device time; the NCCL collectives' device spans "
+          f"{nccl_us / 1e3:.1f} ms = {100 * nccl_us / dev_us:.1f}%")
     print(avg.table(sort_by="self_device_time_total", row_limit=12))
     # a solve whose card idles is bound by the host: what it spends there
     print(avg.table(sort_by="self_cpu_time_total", row_limit=15))

@@ -257,16 +257,23 @@ def test_replan_and_device_prep_launch_thomas_kernel_not_twins(change):
     assert metrics["min_safety_ratio"] >= 1.0
 
 
-@pytest.mark.parametrize("n", [1, 4])
-def test_chunk_kernels_match_twins_on_cuda(n):
-    """K3a/K3b at the 64-agent shapes (bs = 576, Mi = 35; n = 4 gives
-    L = 9 and one pad knot), seeded well-conditioned pivots and per-knot
-    couplings: the chained kernels are as accurate as the chained float32
-    twins against float64 twins (thomas.twin_gap_use), and agree with K2's
-    full solve on the same input."""
+@pytest.mark.parametrize("B3, Mi, n", [(192, 35, 1), (192, 35, 4),
+                                       (768, 6, 1), (768, 6, 2),
+                                       (193, 7, 1), (193, 7, 2)])
+def test_chunk_kernels_match_twins_on_cuda(B3, Mi, n):
+    """K3a/K3b with the chain of Mi knots split into n chunks: the 64-agent
+    shapes (bs = 576, Mi = 35; n = 4 gives L = 9 and one pad knot), the
+    256-agent width on a short chain (bs = 2304) and rows off 16 bytes
+    (B3 = 193, bs = 579: K3a's ragged spans; n = 2 pads one knot), on
+    seeded well-conditioned pivots and per-knot couplings.  Each chunk is
+    one launch of each kernel; the pad knots' rows are exactly 0; the
+    chained kernels are as accurate as the chained float32 twins against
+    float64 twins (thomas.twin_gap_use), and agree with K2's full solve on
+    the same input."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(3)
-    Mi, bs, phi, R = 35, 576, 3, 2
+    phi, R = 3, 2
+    bs = B3 * phi
     dinv = (torch.eye(bs, dtype=torch.float64) * 0.5
             + 0.02 * torch.randn((R, Mi, bs, bs), generator=gen,
                                  dtype=torch.float64) / bs ** 0.5)
@@ -275,13 +282,16 @@ def test_chunk_kernels_match_twins_on_cuda(n):
     b = torch.randn((Mi, bs), generator=gen, dtype=torch.float64)
     d32, k32, b32 = (t.float().to(dev).contiguous() for t in (dinv, kos, b))
     d64, k64, b64 = (t.to(dev) for t in (dinv, kos, b))
+    del dinv
     k_err, t_err = [], []
     for r in range(R):
         fwd0, bwd0 = thomas.thomas_chunk_fwd.launches, \
             thomas.thomas_chunk_bwd.launches
-        kern = chunked_solve(d32, k32, b32, r, n)[:Mi]
+        kern = chunked_solve(d32, k32, b32, r, n)
         assert thomas.thomas_chunk_fwd.launches == fwd0 + n
         assert thomas.thomas_chunk_bwd.launches == bwd0 + n
+        assert int(torch.count_nonzero(kern[Mi:])) == 0
+        kern = kern[:Mi]
         twins = (thomas.thomas_chunk_fwd_reference,
                  thomas.thomas_chunk_bwd_reference)
         twin32 = chunked_solve(d32, k32, b32, r, n, *twins)[:Mi]
@@ -447,11 +457,13 @@ def test_probe_kernel_matches_plain_on_cuda(stage, bs, Mi):
         <= (1e-5 if Mi <= 8 else 1e-4)
 
 
-@pytest.mark.parametrize("probe", [1, 2, 3, 4])
-def test_nsfused_probe_kernels_match_plain_on_cuda(probe):
-    """T1's P1-P4 at their fixed sizes (P4 over 9 knots, 2 iterations):
-    within 1e-5 of the plain version's scale; P3 also within 3e-6 of a
-    float64 product."""
+@pytest.mark.parametrize("probe, M", [(1, 216), (2, 216), (3, 216),
+                                      (3, 100), (4, 216)])
+def test_nsfused_probe_kernels_match_plain_on_cuda(probe, M):
+    """T1's P1-P4 at their fixed sizes (P4 over 9 knots, 2 iterations; P3
+    also at M = 100 rows, its 64-row tiles' masked edge): within 1e-5 of
+    the plain version's scale; P3 also within 3e-6 of a float64
+    product."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -468,7 +480,7 @@ def test_nsfused_probe_kernels_match_plain_on_cuda(probe):
     elif probe == 3:
         s = torch.randint(-1, 2, (192, 2048), generator=gen,
                           device=dev).float()
-        wrapper, args = npb.p3_split_pair_product, (r(216, 192, scale=3.0), s)
+        wrapper, args = npb.p3_split_pair_product, (r(M, 192, scale=3.0), s)
         plain = npb.p3_split_pair_product_reference
     else:
         wrapper, args = npb.p4_resident_thomas, (

@@ -25,6 +25,7 @@ from swarm_simulator_tpu.qp import joint as joint_j
 from swarm_simulator_tpu.qp import nullspace as ns_j
 from swarm_simulator_tpu.utils.timing import ProblemSize
 from swarm_simulator_tpu_torch.core import types as types_t
+from swarm_simulator_tpu_torch.eval.gate import gate_quality as gate_t
 from swarm_simulator_tpu_torch.qp import admm as admm_t
 from swarm_simulator_tpu_torch.qp import assemble as asm_t
 from swarm_simulator_tpu_torch.qp import joint as joint_t
@@ -210,3 +211,42 @@ def test_log_prints_size_and_writes_the_export(tmp_path, monkeypatch,
         tmp_path / "jax.npz")
     assert sorted(got) == sorted(want)
     assert all(np.array_equal(got[k], v) for k, v in want.items())
+
+
+@pytest.mark.parametrize("entry", ["solve_trajectories", "gate_quality"])
+def test_entry_points_without_a_card_raise(entry, monkeypatch):
+    """device=None means the card: on a host without one,
+    joint.solve_trajectories and eval/gate.gate_quality raise the
+    resolver's error (which names device='cpu') before they touch an
+    input, as pipeline.plan does."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    plan, mission, param = _tiny(types_t)
+    if entry == "solve_trajectories":
+        fn, args = joint_t.solve_trajectories, (plan, mission, param)
+    else:   # no control points: the raise comes first
+        fn, args = gate_t, (None, plan, mission, param)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fn(*args)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        fn(*args, device="cuda")
+
+
+def test_gate_quality_on_cpu_matches_jax(tmp_path, monkeypatch):
+    """gate_quality with device='cpu' on the 8-agent problem solved at 50
+    iterations on the CPU: the same verdict and metrics (1e-6) as the JAX
+    package's bench.gate_quality on the same control points."""
+    import bench
+
+    plan, mission, param = _tiny(types_t)
+    monkeypatch.chdir(tmp_path)
+    out = joint_t.solve_trajectories(
+        plan, mission, param, device="cpu", polish_rounds=0,
+        phases=joint_t.production_phases((50, 0, 0)))
+    ok_t, m_t = gate_t(out.ctrl, out, mission, param, device="cpu")
+    plan_j, mission_j, param_j = _tiny(types_j)
+    ok_j, m_j = bench.gate_quality(out.ctrl, plan_j, mission_j, param_j)
+    assert ok_t == ok_j
+    assert m_t.keys() == m_j.keys()
+    for k in m_j:
+        assert np.isfinite(float(m_t[k])), k
+        assert abs(float(m_t[k]) - float(m_j[k])) <= 1e-6, k

@@ -63,7 +63,7 @@ def test_evaluate_and_gate_match_jax(both):
     for k in ej:
         assert abs(et[k] - ej[k]) <= 1e-6 * max(1.0, abs(ej[k])), k
     ok_j, m_j = bench.gate_quality(rj.ctrl, rj, mj, pj)
-    ok_t, m_t = gate_t(rt.ctrl, rt, mt, pt)
+    ok_t, m_t = gate_t(rt.ctrl, rt, mt, pt, device="cpu")
     assert ok_t == ok_j
     assert ok_t, m_t
     for k in m_j:
@@ -82,6 +82,7 @@ def test_plan_rejects_unported_modes(change):
 def test_joint_rejects_unported_modes(kw):
     param = st.Param(**KW)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        joint_t.solve_trajectories(None, mission_t(4), param, **kw)
+        joint_t.solve_trajectories(None, mission_t(4), param,
+                                   device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         joint_t.rescue_box_batches(None, mission_t(4), param, None)

@@ -345,6 +345,28 @@ def test_t3_plan_refuses_rows_off_16_bytes(bs):
         tq.probe_plan(bs, 4, "mv")
 
 
+@pytest.mark.parametrize("M, grid", [(216, (32, 4)), (100, (32, 2)),
+                                     (64, (32, 1)), (1, (32, 1))])
+def test_t1_p3_plan_tiles_out_in_64_by_64_blocks(M, grid):
+    """P3's launch at the probe's [M, 192] @ [192, 2048]: a block per
+    64 x 64 tile of out (216 rows: 4 x 32 = 128 blocks, one wave on 132
+    SMs), the M edge masked in the last row of tiles; its shared memory
+    (the float32 panels, three bf16 planes of x and one of s, each row
+    padded by 8) within 227 KB."""
+    got, smem = npb.p3_plan(M, 192, 2048)
+    assert got == grid
+    assert smem == 2 * 64 * 192 * 4 + 2 * (3 * 64 * 200 + 192 * 72)
+    assert smem <= npb.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("K, N, match", [
+    (192, 2016, "multiple of 64"), (192, 32, "multiple of 64"),
+    (200, 2048, "multiple of 16"), (224, 2048, "shared memory")])
+def test_t1_p3_plan_refuses_shapes_the_tiling_cannot_take(K, N, match):
+    with pytest.raises(ValueError, match=match):
+        npb.p3_plan(216, K, N)
+
+
 # ---- wrappers ----
 
 def _wrapper_calls():

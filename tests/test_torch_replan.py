@@ -61,7 +61,7 @@ def test_replan_and_device_prep_match_jax_float64(both):
         assert len(it["replan_prep_s"]) == len(it["replan_solve_s"]) == 1
     scale = max(1.0, np.abs(rj.ctrl).max())
     assert np.abs(rt.ctrl - rj.ctrl).max() <= 1e-6 * scale
-    ok, m = gate_t(rt.ctrl, rt, mt, pt)
+    ok, m = gate_t(rt.ctrl, rt, mt, pt, device="cpu")
     # a stale inventory under a full RSFC refresh leaves the boxes violated
     # in both packages (the JAX package's refresh_ns_op_np says so): that
     # mode is held to parity only
@@ -99,4 +99,5 @@ def test_replan_polish_runs_on_the_round_operator():
 def test_joint_rejects_bad_prep_modes(kw, match):
     param = st.Param(**KW)
     with pytest.raises(ValueError, match=match):
-        joint_t.solve_trajectories(None, mission_t(4), param, **kw)
+        joint_t.solve_trajectories(None, mission_t(4), param,
+                                   device="cpu", **kw)

@@ -270,50 +270,55 @@ def test_from_numpy_strips_lane_padding():
 
 @pytest.mark.parametrize("itemsize", [4, 2])
 @pytest.mark.parametrize("bs, phi", [(45, 3), (54, 3), (72, 3), (576, 3),
-                                     (640, 2), (2304, 3)])
+                                     (640, 2), (2304, 3), (579, 3)])
 def test_ring_plan_fits_and_keeps_the_16_byte_rules(bs, phi, itemsize):
-    """The chain kernels' ring plan (K1, K2) at the widths of 5, 6, 8, 64
-    and 256 agents and of T2's probe: it fits 227 KB with at least two
-    slots, its slots hold a tile at any offset within a 16-byte line, and
-    every tile's copy (rungs starting on a 16-byte line or off it by one
-    element or 8 bytes, knots of an odd width falling anywhere) splits
-    into a TMA part that starts, ends and lands on 16-byte boundaries and
-    ragged edges of under 16 bytes each."""
+    """The chain kernels' ring plans at the widths of 5, 6, 8, 64 and 256
+    agents, of T2's probe and of a row off 16 bytes (B3 = 193): K1's and
+    K2's (rows of 71 knots kept) and, on float32 rows, K3a's (none kept).
+    Each fits 227 KB with at least two slots, its slots hold a tile at
+    any offset within a 16-byte line, and every tile's copy (rungs
+    starting on a 16-byte line or off it by one element or 8 bytes, knots
+    of an odd width falling anywhere) splits into a TMA part that starts,
+    ends and lands on 16-byte boundaries and ragged edges of under 16
+    bytes each."""
     Mi = 5
-    plan = thomas.ring_plan(bs, phi, itemsize, hist_knots=71)
-    rows = plan.groups * phi
-    blocks, tiles = -(-bs // rows), -(-rows // plan.tile_rows)
+    plans = [(thomas.ring_plan(bs, phi, itemsize, hist_knots=71), 71)]
+    if itemsize == 4:
+        plans.append((thomas.ring_plan(bs, phi, 4, hist_knots=0), 0))
     aligned = (bs * itemsize) % 16 == 0   # the kernels' test
-    assert 2 <= plan.slots <= thomas.MAX_SLOTS
-    assert plan.smem <= thomas.SMEM_PER_BLOCK
-    assert plan.smem == (thomas.BAR_BYTES + plan.slots * plan.slot_bytes
-                         + 4 * (bs + rows + 71 * rows))
-    assert plan.slot_bytes % 16 == 0
-    assert plan.slot_bytes >= plan.tile_rows * bs * itemsize + 15
-    assert plan.tile_rows == rows or \
-        plan.tile_rows * bs * itemsize <= thomas.TILE_BYTES
-    assert blocks <= 132      # one chain block per SM at most
-    for base in (0, itemsize, 8):
-        if aligned and base:
-            continue   # the wrapper refuses an aligned-row rung off 16
-        for blk in range(blocks):
-            r0 = min(blk * rows, bs)
-            r1 = min(r0 + rows, bs)
-            for k in range(Mi):
-                for t in range(tiles):
-                    a0 = r0 + t * plan.tile_rows
-                    nr = min(plan.tile_rows, r1 - a0)
-                    a = base + (k * bs * bs + a0 * bs) * itemsize
-                    e = a + nr * bs * itemsize
-                    lo, hi = -(-a // 16) * 16, e // 16 * 16
-                    dst = lo - a // 16 * 16      # within the slot
-                    if hi > lo:
-                        assert (hi - lo) % 16 == 0 and dst % 16 == 0
-                        assert dst + hi - lo <= plan.slot_bytes
-                        assert lo - a < 16 and e - hi < 16
-                        if aligned:
-                            assert lo == a and hi == e
-                    else:
-                        assert e - a < 32
-                    # the slot holds the tile at its offset in the line
-                    assert a % 16 + (e - a) <= plan.slot_bytes
+    for plan, hist in plans:
+        rows = plan.groups * phi
+        blocks, tiles = -(-bs // rows), -(-rows // plan.tile_rows)
+        assert 2 <= plan.slots <= thomas.MAX_SLOTS
+        assert plan.smem <= thomas.SMEM_PER_BLOCK
+        assert plan.smem == (thomas.BAR_BYTES + plan.slots * plan.slot_bytes
+                             + 4 * (bs + rows + hist * rows))
+        assert plan.slot_bytes % 16 == 0
+        assert plan.slot_bytes >= plan.tile_rows * bs * itemsize + 15
+        assert plan.tile_rows == rows or \
+            plan.tile_rows * bs * itemsize <= thomas.TILE_BYTES
+        assert blocks <= 132      # one chain block per SM at most
+        for base in (0, itemsize, 8):
+            if aligned and base:
+                continue   # the wrapper refuses an aligned-row rung off 16
+            for blk in range(blocks):
+                r0 = min(blk * rows, bs)
+                r1 = min(r0 + rows, bs)
+                for k in range(Mi):
+                    for t in range(tiles):
+                        a0 = r0 + t * plan.tile_rows
+                        nr = min(plan.tile_rows, r1 - a0)
+                        a = base + (k * bs * bs + a0 * bs) * itemsize
+                        e = a + nr * bs * itemsize
+                        lo, hi = -(-a // 16) * 16, e // 16 * 16
+                        dst = lo - a // 16 * 16      # within the slot
+                        if hi > lo:
+                            assert (hi - lo) % 16 == 0 and dst % 16 == 0
+                            assert dst + hi - lo <= plan.slot_bytes
+                            assert lo - a < 16 and e - hi < 16
+                            if aligned:
+                                assert lo == a and hi == e
+                        else:
+                            assert e - a < 32
+                        # the slot holds the tile at its offset in the line
+                        assert a % 16 + (e - a) <= plan.slot_bytes
