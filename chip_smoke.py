@@ -48,7 +48,8 @@ Phases (any failure raises and exits non-zero):
      float32 twins and float64 twins; the kernels' worst error over the
      rungs held to thomas.twin_gap_use, and the chained result against
      K2's full solve; the median time per chunk sweep (CUDA events),
-     K3a's beside its first design's recorded time and its bound;
+     K3a's and K3b's beside their first designs' recorded times and their
+     bound;
   9. the sharded entry point: ``solve_ns_phases_sharded`` (chunk mode) on a
      1-rank NCCL group for the 64-agent forest with phase 2's host prep and
      the production phases, with the K1/K2/K3 launch counts read around
@@ -91,11 +92,11 @@ Phases (any failure raises and exits non-zero):
  14. the chain-primitive bench T2 (tools/thomas_prim_bench.py) at its own
      shape (bs 640, Mi 35), the 64-agent (576, 35) and the 256-agent
      (2304, 71) shapes: every mode and dma@4 on each grid timed there (one
-     block and K2's; K2's alone at 2304), from zeros and from a seeded
-     acc0, held against the plain version at REPS 2; then, with the launch
-     counts read around it, us per step of each (one block at REPS 2, K2's
-     grid at REPS 20), each timed launch held against the plain version at
-     its own REPS;
+     block and the chain ring; the ring alone at 2304), from zeros and
+     from a seeded acc0, held against the plain version at REPS 2; then,
+     with the launch counts read around it, us per step of each (one block
+     at REPS 2, the ring at REPS 20) beside its bound, each timed launch
+     held against the plain version at its own REPS;
  15. the staged Thomas probe T3 (tools/thomas_probe.py): its four stages
      (dma and mv also on the chain's spans) held against the plain version
      at its own shape (bs 256, Mi 4), then us per stage of each at the
@@ -744,10 +745,11 @@ def chunked_solve(dinv, kos, b, rho_idx: int, n: int, fwd=None, bwd=None):
     return torch.cat(x)
 
 
-#: K3a's median ms per sweep at 64 agents in its first design (a warp per
-#: row group, a grid sync per knot), by chunk length: chip_smoke phase 8
-#: on an H100 80GB HBM3 at a 700 W power limit (PERF.md)
+#: K3a's and K3b's median ms per sweep at 64 agents in their first design
+#: (a warp per row group, a grid sync per knot), by chunk length:
+#: chip_smoke phase 8 on an H100 80GB HBM3 at a 700 W power limit (PERF.md)
 K3A_FIRST_DESIGN_MS = {35: 0.2566, 9: 0.0492}
+K3B_FIRST_DESIGN_MS = {35: 0.2311, 9: 0.0479}
 
 
 def chunk_sweeps_vs_twins(op, dev):
@@ -814,10 +816,12 @@ def chunk_sweeps_vs_twins(op, dev):
         # carry and the couplings once; L pivot matvecs
         nbytes = 4 * (L * bs * bs + 2 * L * bs + bs + L * phi * phi)
         bnd = bound(nbytes, L * 2 * bs * bs)
-        old = K3A_FIRST_DESIGN_MS.get(L)
-        log(f"K3a n={n} (L={L}): {med['fwd']:.4f} ms per sweep on the ring"
-            + (f", first design {old} ms" if old else "")
-            + f", bound {bnd[0]:.4f} ms ({bnd[1]})")
+        for name, key, first in (("K3a", "fwd", K3A_FIRST_DESIGN_MS),
+                                 ("K3b", "bwd", K3B_FIRST_DESIGN_MS)):
+            old = first.get(L)
+            log(f"{name} n={n} (L={L}): {med[key]:.4f} ms per sweep on the "
+                "ring" + (f", first design {old} ms" if old else "")
+                + f", bound {bnd[0]:.4f} ms ({bnd[1]})")
         log(f"K3 n={n} (L={L}): share of the tolerance used {use:.2f} "
             f"(K2 on the same inputs {use_k2:.2f}); max abs err vs float32 "
             f"twin {max_abs:.3e}; median per sweep K3a {med['fwd']:.4f} ms, "
@@ -1145,7 +1149,7 @@ def prim_bench(dev):
         d, k, bb = t2.inputs(bs, Mi, dev)
         acc0 = torch.randn((bs, bs), generator=torch.Generator(
             device=dev).manual_seed(1), device=dev)
-        grids = ("k2",) if bs == 2304 else tp.GRIDS
+        grids = ("ring",) if bs == 2304 else tp.GRIDS
         for spec in T2_SPECS:
             use = prim_vs_plain(spec, d, k, bb, acc0, grids)
             log(f"T2 {spec} vs plain (bs {bs}, Mi {Mi}, REPS 2; zero and "
@@ -1157,27 +1161,29 @@ def prim_bench(dev):
         for spec in T2_SPECS:
             for grid in grids:
                 reps = 2 if grid == "one" else 20
-                # the JSON entry: the forward step on K2's first grid at the
+                # the JSON entry: the forward step on the chain ring at the
                 # 64-agent shape, its plain version timed beside it
-                entry = (bs, spec, grid) == (576, "fwd", "k2")
+                entry = (bs, spec, grid) == (576, "fwd", "ring")
                 r = t2.time_mode(d, k, bb, spec, reps, grid,
                                  plain_reps=1 if entry else 0)
                 fwd = r if entry else fwd
-                log(f"T2 bs {bs} Mi {Mi} {spec:>7} {grid:>3} "
+                nbytes, ops, kind = t2.work(spec, bs, Mi, reps)
+                bnd = bound(nbytes, ops,
+                            BF16_FLOPS if kind == "bf16" else F32_FLOPS)
+                log(f"T2 bs {bs} Mi {Mi} {spec:>7} {grid:>4} "
                     f"({r['blocks']} blocks, REPS {reps}): "
-                    f"{r['us_per_step']:.3f} us/step ({r['ms']:.4f} ms), "
-                    f"rel err vs plain {r['rel_err']:.2e}")
+                    f"{r['us_per_step']:.3f} us/step ({r['ms']:.4f} ms; "
+                    f"bound {1e3 * bnd[0] / (reps * Mi):.4f} us/step, "
+                    f"{bnd[1]}), rel err vs plain {r['rel_err']:.2e}")
                 check(t2.agrees(r), f"T2 {spec} {grid} at bs {bs}, REPS "
                       f"{reps}: rel err vs plain {r['rel_err']:.2e}")
         launches += read_counts()["t2"]
         del d, k, bb, acc0
         torch.cuda.empty_cache()
     check(launches > 0, "the T2 bench launched T2 0 times")
-    Mi, bs = 35, 576
     return dict(counts={"t2": launches}, max_abs_err=fwd["max_abs_err"],
                 ms=fwd["ms"], plain_ms=fwd["plain_ms"],
-                bound=bound(4 * (Mi * bs * bs + bs * bs + 2 * Mi * bs),
-                            20 * Mi * 6 * bs * bs))
+                bound=bound(*t2.work("fwd", 576, 35, 20)[:2]))
 
 
 def t3_bound(stage: str, bs: int, Mi: int) -> tuple[float, str]:

@@ -1,6 +1,8 @@
 """Where the port's entry points run: the card, unless the caller asks
 for the CPU (``device="cpu"``).  Shared by ``pipeline.plan``/``evaluate``,
-``qp/joint.solve_trajectories`` and ``eval/gate.gate_quality``."""
+``qp/joint.solve_trajectories``, ``qp/interop.from_numpy`` and the
+``eval`` functions (``gate_quality``, ``sample_trajectories`` and the
+safety metrics)."""
 from __future__ import annotations
 
 import torch

@@ -1,9 +1,13 @@
 // The Thomas chain's row stream and vector exchange, shared by K1
-// (csrc/nsfused.cu), K2 and K3a (csrc/thomas.cu) and the staged probe T3
-// (csrc/thomas_probe.cu) on Hopper (sm_90a).
+// (csrc/nsfused.cu), K2, K3a and K3b (csrc/thomas.cu), the staged probe T3
+// (csrc/thomas_probe.cu) and the chain-primitive bench T2
+// (csrc/thomas_prim.cu) on Hopper (sm_90a).
 //
-// A chain of 2*Mi - 1 dependent stages (forward sweep over knots
-// 0..Mi-1, back substitution over Mi-2..0) runs on `ncb` chain blocks.
+// A chain of dependent stages runs on `ncb` chain blocks; each stage
+// reads one knot's pivot block, in an order the kernel names (Order):
+// K1 and K2 run 2*Mi - 1 stages, the forward sweep over knots 0..Mi-1
+// and the back substitution over Mi-2..0; K3a one chunk's knots forward,
+// K3b backward.
 // Chain block c owns the row groups [c*gpb, (c+1)*gpb) (gpb*phi rows) of
 // every knot's pivot block, so its rows of one knot are one contiguous
 // byte span.  The pivot rows of a stage do not depend on the chain, only
@@ -12,7 +16,9 @@
 // TMA bulk copies (cp.async.bulk on an mbarrier per slot), and issues a
 // tile as soon as its slot is consumed, so the copies of later stages
 // are in flight while the block waits for the vector and takes the dot.
-// The stream of tiles is periodic: K1 runs it once per ADMM iteration.
+// The stream of tiles is periodic, `nstage` stages a period: K1 runs it
+// once per ADMM iteration, T2 once per repetition (the forward order
+// repeated: step s reads knot s mod Mi).
 //
 // TMA needs 16-byte aligned addresses and sizes.  A block's span starts
 // on a 16-byte boundary only when a row is a multiple of 16 bytes
@@ -200,10 +206,17 @@ __device__ __forceinline__ float dot_shared(const __nv_bfloat16* row,
   return probe::warp_sum(s);
 }
 
+// the knot a ring's stage s reads, of Mi knots: forward then back (K1,
+// K2, T3: s < Mi ? s : 2 Mi - 2 - s), forward (K3a, T2: s), backward
+// (K3b: Mi - 1 - s)
+enum Order { kForwardBack = 0, kForward, kBackward };
+
 // One chain block's ring over the pivot rows [r0, r1) of every knot block
 // of `dinv` [Mi, bs, bs]: tile i of the stream is tile i % ntile of stage
-// (i / ntile) % nstage, whose knot is the stage's (forward, then back).
-template <typename T>
+// (i / ntile) % nstage, whose knot is the stage's in the order kOrder
+// (fixed at compile time: the stream's address arithmetic takes no
+// branch on it).
+template <typename T, int kOrder = kForwardBack>
 struct RowRing {
   uint64_t* bars;
   unsigned char* slots;
@@ -222,7 +235,11 @@ struct RowRing {
     return slots + (size_t)nslots * slot;
   }
 
-  __device__ int knot_of(int s) const { return s < Mi ? s : 2 * Mi - 2 - s; }
+  __device__ int knot_of(int s) const {
+    if (kOrder == kForward) return s;
+    if (kOrder == kBackward) return Mi - 1 - s;
+    return s < Mi ? s : 2 * Mi - 2 - s;
+  }
 
   // the global span of tile i: its first row and row count, and where it
   // starts

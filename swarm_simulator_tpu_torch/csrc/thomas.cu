@@ -51,20 +51,24 @@
 // (the device prep's LU-plus-Newton inverses are not): every product is
 // Dinv_k @ v.
 //
-// K3a runs on the same ring: ring.Mi = ring.nstage = L, so stage s
-// streams knot s, and the chunk's L forward stages pass the vector in
-// tagged entries with no barrier; stage 0's vector (b_0 less the carry's
-// coupling) is formed whole by every block from the operands.  It is K2's
-// forward half with a carry in, so the same things bound it: the latency
-// of a chain stage at 64 agents (a 35-knot chunk reads 46.4 MB, 14 us at
-// the HBM rate), the row stream at 256.  The ring plan keeps no rows for
-// a back sweep (ops/thomas.ring_plan with hist_knots = 0).
-//
-// K3b keeps the first design: one warp per (agent, axis) row group on
-// ceil(B3 / 8) cooperative blocks, coalesced row reads from device memory
-// into registers, one grid sync per chain step.  The sync and the
-// register row reads of every knot, not the bytes, bound it (~6.6 us a
-// stage at 64 agents on an H100 80GB HBM3 at 700 W, PERF.md).
+// K3a and K3b run on the same ring, one kernel template: ring.Mi =
+// ring.nstage = L, stage s streams knot s (K3a, the forward order) or knot
+// L - 1 - s (K3b, the backward order), and the chunk's L stages pass the
+// vector in tagged entries with no barrier between knots.  Stage 0's
+// vector is formed whole by every block from the carry: b_0 less the
+// coupling of t_in (K3a), (I (x) kout_{L-1}) x_in (K3b).  The owner of a
+// row group then stores its result (T_s, or x_k = T_k less its dot) and
+// the next stage's entries of it.  What a stage's rows need besides the
+// dot (K3a: b_{s+1}'s rows and kin_{s+1}; K3b: T_k's rows and
+// kout_{k-1}) is loaded, where the chain's latency sets the pace (a
+// block's rows of a stage fit one ring slot), into registers before the
+// block waits for the vector, so its latency passes with the wait; where
+// the stream sets it (the rows stream in several tiles a stage), after
+// the dot (chunk_ring picks).  They are K2's forward half with a carry
+// in, so the same things bound them: the latency of a chain stage at 64
+// agents (a 35-knot chunk reads 46.4 MB, 14 us at the HBM rate), the row
+// stream at 256.  Beside the ring a block keeps the vector and its
+// products, no rows of earlier knots (ops/thomas.chunk_plan).
 #include "chain_ring.cuh"
 
 namespace cg = cooperative_groups;
@@ -73,29 +77,6 @@ namespace {
 
 constexpr int kThreads = chain::kThreads;
 constexpr int kMaxPhi = 4;
-
-// dot(row of length n in device memory, shared vector); every lane
-// returns the full sum
-__device__ __forceinline__ float row_dot(const float* __restrict__ row,
-                                         const float* vec, int n, int lane,
-                                         bool vec4) {
-  float s = 0.f;
-  if (vec4) {
-    const float4* r4 = reinterpret_cast<const float4*>(row);
-    const float4* v4 = reinterpret_cast<const float4*>(vec);
-    for (int j = lane; j < (n >> 2); j += 32) {
-      float4 a = __ldg(r4 + j);
-      float4 b = v4[j];
-      s = fmaf(a.x, b.x, s);
-      s = fmaf(a.y, b.y, s);
-      s = fmaf(a.z, b.z, s);
-      s = fmaf(a.w, b.w, s);
-    }
-  } else {
-    for (int j = lane; j < n; j += 32) s = fmaf(__ldg(row + j), vec[j], s);
-  }
-  return probe::warp_sum(s);
-}
 
 template <typename T>
 struct Params {
@@ -191,25 +172,26 @@ __global__ void __launch_bounds__(kThreads) thomas_kernel(const Params<T> p) {
   }
 }
 
-// K3a: the forward sweep over one chunk on the chain ring (the note above)
-struct ChunkFwdParams {
+// K3a / K3b: one chunk's sweep on the chain ring (the note above)
+struct ChunkParams {
   const float* dinv;         // [L, bs, bs] pivot inverses, the chunk's knots
-  const float* kin;          // [L, phi, phi]
-  const float* b;            // [L, bs]
-  const float* t_in;         // [bs] the carry
+  const float* kc;           // [L, phi, phi] couplings: kin (K3a), kout (K3b)
+  const float* v;            // [L, bs]: b (K3a), T (K3b)
+  const float* carry;        // [bs]: t_in (K3a), x_in (K3b)
   unsigned long long* vbuf;  // [2, bs] scratch: tagged vector entries
-  float* out;                // T [L, bs]
+  float* out;                // [L, bs]: T (K3a), x (K3b)
   int B3, L, phi, gpb, tile_rows, nslots;
 };
 
+template <bool kBack, bool kEarly>
 __global__ void __launch_bounds__(kThreads)
-    chunk_fwd_kernel(const ChunkFwdParams p) {
+    chunk_kernel(const ChunkParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int phi = p.phi, L = p.L, bs = p.B3 * phi;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rows = p.gpb * phi;
 
-  chain::RowRing<float> ring;
+  chain::RowRing<float, kBack ? chain::kBackward : chain::kForward> ring;
   ring.dinv = p.dinv;
   ring.bs = bs;
   ring.Mi = L;
@@ -222,7 +204,8 @@ __global__ void __launch_bounds__(kThreads)
   ring.ntiles = (long long)L * ring.ntile;
   ring.aligned = bs % 4 == 0;
   float* vec = reinterpret_cast<float*>(ring.carve(smem));  // [bs]
-  float* tv = vec + bs;  // [rows] this stage's products of the block
+  // [rows] this stage's products of the block (K3b: then its x_k)
+  float* tv = vec + bs;
   const int r0 = ring.r0, nrows = ring.r1 - ring.r0;
 
   if (tid == 0) ring.start();
@@ -234,21 +217,44 @@ __global__ void __launch_bounds__(kThreads)
 
   long long i = 0;  // this block's next tile
   for (int s = 0; s < L; ++s) {
-    if (s == 0) {  // y_0 = b_0 - (I (x) kin_0)^T t_in
+    const int k = ring.knot_of(s);
+    const int kn = kBack ? k - 1 : k + 1;  // the next stage's knot
+    const bool more = s + 1 < L;
+    // the coupling of the next stage's entries: K3a kin_{s+1}, K3b
+    // kout_{k-1}
+    const float* Hn = p.kc + (size_t)(more ? kn : k) * phi * phi;
+    // ---- kEarly: loaded into registers before the wait, used after the
+    // dot (so neither waits on the other): thread e's row of the
+    // right-hand side the stage needs (K3a b_{s+1}, K3b T_k) and its
+    // row's coupling entries (K3a kin_{s+1}[:, a], K3b kout_{k-1}[a, :]);
+    // rows past the first kThreads load theirs when they are used ----
+    const int a0 = tid % phi;
+    float pre = 0.f, h[kMaxPhi];
+    if (kEarly && tid < nrows && (kBack || more))
+      pre = __ldg(p.v + (size_t)(kBack ? k : kn) * bs + r0 + tid);
+#pragma unroll
+    for (int q = 0; q < kMaxPhi; ++q)
+      h[q] = kEarly && more && q < phi && tid < nrows
+                 ? __ldg(Hn + (kBack ? a0 * phi + q : q * phi + a0))
+                 : 0.f;
+    // ---- the stage's vector ----
+    if (s == 0) {  // K3a: b_0 - (I (x) kin_0)^T t_in; K3b: (I (x) kout) x_in
+      const float* H = p.kc + (size_t)k * phi * phi;
       for (int j = tid; j < bs; j += kThreads) {
         const int a = j % phi;
-        const float* tg = p.t_in + (j - a);
+        const float* cg0 = p.carry + (j - a);  // the carry's row group
         float c = 0.f;
-        for (int q = 0; q < phi; ++q) c = fmaf(__ldg(p.kin + q * phi + a),
-                                               __ldg(tg + q), c);
-        vec[j] = __ldg(p.b + j) - c;
+        for (int q = 0; q < phi; ++q)
+          c = fmaf(__ldg(H + (kBack ? a * phi + q : q * phi + a)),
+                   __ldg(cg0 + q), c);
+        vec[j] = kBack ? c : __ldg(p.v + j) - c;
       }
       __syncthreads();
     } else {
       chain::gather_tagged(p.vbuf + (size_t)(s & 1) * bs, vec, bs,
                            (unsigned)s);
     }
-    // ---- the block's rows of Dinv_s against it ----
+    // ---- the block's rows of Dinv_k against it ----
     for (int t = 0; t < ring.ntile; ++t, ++i) {
       int row0, nr;
       const float* A = ring.acquire(i, &row0, &nr);
@@ -259,95 +265,45 @@ __global__ void __launch_bounds__(kThreads)
       }
       ring.release(i);
     }
-    // ---- each owned row: T_s, and its entry of the next vector,
-    // y_{s+1} = b_{s+1} - (I (x) kin_{s+1})^T T_s ----
-    const float* H = s + 1 < L ? p.kin + (size_t)(s + 1) * phi * phi : nullptr;
-    for (int e = tid; e < nrows; e += kThreads) {
-      const int a = e % phi;
-      p.out[(size_t)s * bs + r0 + e] = tv[e];
-      if (s + 1 < L) {
-        const float* tg = tv + (e - a);  // the row group's results
-        float c = 0.f;
-        for (int q = 0; q < phi; ++q) c = fmaf(H[q * phi + a], tg[q], c);
-        chain::put_tagged(p.vbuf + (size_t)((s + 1) & 1) * bs + r0 + e,
-                          __ldg(p.b + (size_t)(s + 1) * bs + r0 + e) - c,
-                          (unsigned)(s + 1));
+    // ---- each owned row: its result (K3a T_s; K3b x_k = T_k - dot, kept
+    // in tv for the row group's entries), and its entry of the next
+    // vector: K3a y_{s+1} = b_{s+1} - (I (x) kin_{s+1})^T T_s, K3b
+    // (I (x) kout_{k-1}) x_k ----
+    if (kBack) {
+      for (int e = tid; e < nrows; e += kThreads) {
+        const float T = kEarly && e < kThreads
+                            ? pre
+                            : __ldg(p.v + (size_t)k * bs + r0 + e);
+        tv[e] = T - tv[e];
+        p.out[(size_t)k * bs + r0 + e] = tv[e];
       }
+      __syncthreads();
+    }
+    for (int e = tid; e < nrows; e += kThreads) {
+      const int a = e % phi, g0 = e - a;  // the row group's first row
+      if (!kBack) p.out[(size_t)k * bs + r0 + e] = tv[e];
+      if (!more) continue;
+      float c = 0.f, bn = 0.f;
+      if (kEarly) {
+        const bool mine = e < kThreads;  // loaded before the wait
+#pragma unroll
+        for (int q = 0; q < kMaxPhi; ++q)  // unrolled: h stays in registers
+          if (q < phi)
+            c = fmaf(mine ? h[q]
+                          : __ldg(Hn + (kBack ? a * phi + q : q * phi + a)),
+                     tv[g0 + q], c);
+        bn = kBack ? 0.f
+                   : (mine ? pre : __ldg(p.v + (size_t)kn * bs + r0 + e));
+      } else {
+        for (int q = 0; q < phi; ++q)
+          c = fmaf(Hn[kBack ? a * phi + q : q * phi + a], tv[g0 + q], c);
+        if (!kBack) bn = __ldg(p.v + (size_t)kn * bs + r0 + e);
+      }
+      chain::put_tagged(p.vbuf + (size_t)((s + 1) & 1) * bs + r0 + e,
+                        kBack ? c : bn - c, (unsigned)(s + 1));
     }
     __syncthreads();  // vec and tv are rewritten by the next stage
   }
-}
-
-// K3b's operands
-struct ChunkParams {
-  const float* dinv;   // [L, bs, bs] pivot inverses, the chunk's knots
-  const float* kc;     // [L, phi, phi] couplings kout
-  const float* v;      // T [L, bs]
-  const float* carry;  // x_in [bs]
-  float* out;          // x [L, bs]
-  int B3, L, phi;
-};
-
-// K3b: the back substitution over one chunk, from x_in at j = L-1
-__global__ void __launch_bounds__(kThreads) chunk_bwd_kernel(
-    const ChunkParams p) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float4 smem4[];
-  float* sh = reinterpret_cast<float*>(smem4);
-
-  const int phi = p.phi, L = p.L, B3 = p.B3, bs = B3 * phi;
-  const int lane = threadIdx.x & 31;
-  const int warps_per_block = blockDim.x >> 5;
-  const int gwarp = blockIdx.x * warps_per_block + (threadIdx.x >> 5);
-  const int nwarps = gridDim.x * warps_per_block;
-  const bool vec4 = (bs & 3) == 0;
-  const size_t blk = (size_t)bs * bs;
-
-  for (int j = L - 1; j >= 0; --j) {
-    // stage (I (x) kout_j) x_{j+1}; x_{j+1} is the carry or a row that
-    // other blocks wrote before the last grid sync (__ldcg)
-    const float* H = p.kc + (size_t)j * phi * phi;
-    const float* xn = j == L - 1 ? p.carry : p.out + (size_t)(j + 1) * bs;
-    for (int i = threadIdx.x; i < bs; i += blockDim.x) {
-      const int grp = i / phi, a = i - grp * phi;
-      float s = 0.f;
-      for (int c = 0; c < phi; ++c)
-        s = fmaf(H[a * phi + c], __ldcg(xn + grp * phi + c), s);
-      sh[i] = s;
-    }
-    __syncthreads();
-    const float* Dj = p.dinv + (size_t)j * blk;
-    for (int grp = gwarp; grp < B3; grp += nwarps) {
-      float tv[kMaxPhi];
-      for (int a = 0; a < phi; ++a)
-        tv[a] = row_dot(Dj + (size_t)(grp * phi + a) * bs, sh, bs, lane,
-                        vec4);
-      if (lane == 0) {
-        const size_t r0 = (size_t)j * bs + grp * phi;
-        for (int a = 0; a < phi; ++a) p.out[r0 + a] = p.v[r0 + a] - tv[a];
-      }
-    }
-    if (j > 0) grid.sync();
-  }
-}
-
-// K3b's cooperative launch of `kernel` on a grid sized to the chain (one
-// warp per row group), `bs` floats of dynamic shared memory.  Returns a
-// cudaError_t: the launch's, or cudaGetLastError() after it.
-template <typename P>
-int launch_coop(void (*kernel)(const P), P p, int B3, int phi,
-                void* stream) {
-  int grid = 0;
-  int e = probe::coop_grid((const void*)kernel, kThreads,
-                           (size_t)B3 * phi * sizeof(float),
-                           (B3 + kThreads / 32 - 1) / (kThreads / 32), &grid);
-  if (e != 0) return e;
-  void* args[] = {&p};
-  cudaError_t c = cudaLaunchCooperativeKernel(
-      (const void*)kernel, dim3(grid), dim3(kThreads), args,
-      (size_t)B3 * phi * sizeof(float), (cudaStream_t)stream);
-  if (c != cudaSuccess) return (int)c;
-  return (int)cudaGetLastError();
 }
 
 // K2 on pivots of type T: the ring plan (gpb, tile_rows, nslots, smem) of
@@ -393,9 +349,15 @@ int solve_as(void* dinv, void* ho, void* b, void* vbuf, void* x, int B3,
   return (int)cudaGetLastError();
 }
 
-// K3a: the ring plan (gpb, tile_rows, nslots, smem) of ops/thomas.ring_plan
-// with no rows kept, one block per gpb row groups; refused as K2's is
-int chunk_fwd_ring(ChunkFwdParams p, int smem, void* stream) {
+// K3a / K3b: the ring plan (gpb, tile_rows, nslots, smem) of
+// ops/thomas.chunk_plan, one block per gpb row groups; refused as K2's is.
+// The loads a stage's results need go before the vector's wait where a
+// block's rows of a stage fit one slot (the chain's latency sets the
+// pace, as at 64 agents), after the dot where they stream in several
+// tiles (the stream does, as at 256 agents, where the early loads made
+// both sweeps 3-4% slower on an H100).
+template <bool kBack>
+int chunk_ring(ChunkParams p, int smem, void* stream) {
   if (p.phi < 1 || p.phi > kMaxPhi || p.L < 1 || p.B3 < 1 || p.gpb < 1 ||
       p.tile_rows < 1 || p.tile_rows > p.gpb * p.phi || p.nslots < 1 ||
       p.nslots > chain::kMaxSlots)
@@ -407,18 +369,39 @@ int chunk_fwd_ring(ChunkFwdParams p, int smem, void* stream) {
       sizeof(float) * ((size_t)bs + rows);
   if ((size_t)smem < need) return (int)cudaErrorInvalidValue;
   const int want = (p.B3 + p.gpb - 1) / p.gpb;
+  const void* kernel = p.tile_rows >= rows
+                           ? (const void*)chunk_kernel<kBack, true>
+                           : (const void*)chunk_kernel<kBack, false>;
   int grid = 0;
-  int e = probe::coop_grid((const void*)chunk_fwd_kernel, kThreads, smem,
-                           want, &grid);
+  int e = probe::coop_grid(kernel, kThreads, smem, want, &grid);
   if (e != 0) return e;
   // the chain needs every block of the plan resident at once
   if (grid < want) return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&p};
   cudaError_t c = cudaLaunchCooperativeKernel(
-      (const void*)chunk_fwd_kernel, dim3(want), dim3(kThreads), args, smem,
-      (cudaStream_t)stream);
+      kernel, dim3(want), dim3(kThreads), args, smem, (cudaStream_t)stream);
   if (c != cudaSuccess) return (int)c;
   return (int)cudaGetLastError();
+}
+
+// K3a's / K3b's operands as ChunkParams (their entry points below)
+ChunkParams chunk_params(void* dinv, void* kc, void* v, void* carry,
+                         void* vbuf, void* out, int B3, int L, int phi,
+                         int gpb, int tile_rows, int nslots) {
+  ChunkParams p;
+  p.dinv = (const float*)dinv;
+  p.kc = (const float*)kc;
+  p.v = (const float*)v;
+  p.carry = (const float*)carry;
+  p.vbuf = (unsigned long long*)vbuf;
+  p.out = (float*)out;
+  p.B3 = B3;
+  p.L = L;
+  p.phi = phi;
+  p.gpb = gpb;
+  p.tile_rows = tile_rows;
+  p.nslots = nslots;
+  return p;
 }
 
 }  // namespace
@@ -446,45 +429,25 @@ int thomas_solve_bf16(void* dinv, void* ho, void* b, void* vbuf, void* x,
                                  tile_rows, nslots, smem, stream);
 }
 
-// K3a on `stream`: T [L, bs] of one chunk from b [L, bs], the couplings
-// kin [L, phi, phi] and the carry t_in [bs]; `vbuf` is [2, bs] 64-bit
-// scratch; gpb, tile_rows, nslots and smem are the ring plan of
-// ops/thomas.ring_plan with hist_knots = 0.
+// K3a / K3b on `stream`, one chunk's sweep: K3a T [L, bs] from b [L, bs],
+// the couplings kin [L, phi, phi] and the carry t_in [bs]; K3b x [L, bs]
+// from K3a's T, the couplings kout and the carry x_in.  `vbuf` is [2, bs]
+// 64-bit scratch; gpb, tile_rows, nslots and smem are the ring plan of
+// ops/thomas.chunk_plan.
 int thomas_chunk_fwd(void* dinv, void* kin, void* b, void* t_in, void* vbuf,
                      void* T, int B3, int L, int phi, int gpb, int tile_rows,
                      int nslots, int smem, void* stream) {
-  ChunkFwdParams p;
-  p.dinv = (const float*)dinv;
-  p.kin = (const float*)kin;
-  p.b = (const float*)b;
-  p.t_in = (const float*)t_in;
-  p.vbuf = (unsigned long long*)vbuf;
-  p.out = (float*)T;
-  p.B3 = B3;
-  p.L = L;
-  p.phi = phi;
-  p.gpb = gpb;
-  p.tile_rows = tile_rows;
-  p.nslots = nslots;
-  return chunk_fwd_ring(p, smem, stream);
+  return chunk_ring<false>(chunk_params(dinv, kin, b, t_in, vbuf, T, B3, L,
+                                        phi, gpb, tile_rows, nslots),
+                           smem, stream);
 }
 
-// K3b on `stream`: x [L, bs] of one chunk from K3a's T [L, bs], the
-// couplings kout [L, phi, phi] and the carry x_in [bs].
-int thomas_chunk_bwd(void* dinv, void* kout, void* T, void* x_in, void* x,
-                     int B3, int L, int phi, void* stream) {
-  if (phi < 1 || phi > kMaxPhi || L < 1 || B3 < 1)
-    return (int)cudaErrorInvalidValue;
-  ChunkParams p;
-  p.dinv = (const float*)dinv;
-  p.kc = (const float*)kout;
-  p.v = (const float*)T;
-  p.carry = (const float*)x_in;
-  p.out = (float*)x;
-  p.B3 = B3;
-  p.L = L;
-  p.phi = phi;
-  return launch_coop(chunk_bwd_kernel, p, B3, phi, stream);
+int thomas_chunk_bwd(void* dinv, void* kout, void* T, void* x_in, void* vbuf,
+                     void* x, int B3, int L, int phi, int gpb, int tile_rows,
+                     int nslots, int smem, void* stream) {
+  return chunk_ring<true>(chunk_params(dinv, kout, T, x_in, vbuf, x, B3, L,
+                                       phi, gpb, tile_rows, nslots),
+                          smem, stream);
 }
 
 const char* thomas_error_string(int e) {

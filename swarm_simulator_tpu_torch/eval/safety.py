@@ -1,5 +1,8 @@
 """Safety and acceptance metrics (float64, on the plan's device).
 
+A ``device`` of None means the card (raising without one), as for every
+entry point of the port; pass ``device="cpu"`` for the CPU.
+
 The reference prints two acceptance numbers after every run
 (rbp_publisher.hpp:125-126): the global minimum inter-agent ellipsoidal
 distance ratio (collision iff < 1, update_safety_margin_ratio :769-798)
@@ -10,10 +13,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
+
 
 def safety_margin_ratio(pos, radius, *, downwash: float,
-                        device="cpu") -> float:
+                        device=None) -> float:
     """pos [N, S, 3] -> min over time/pairs of downwash-scaled dist ratio."""
+    device = resolve_device(device)
     f64 = torch.float64
     pos = torch.as_tensor(pos, dtype=f64, device=device)
     radius = torch.as_tensor(radius, dtype=f64, device=device)
@@ -26,18 +32,20 @@ def safety_margin_ratio(pos, radius, *, downwash: float,
     return float(ratio.min())
 
 
-def flight_distance(pos, device="cpu") -> float:
+def flight_distance(pos, device=None) -> float:
     """Total path length over all agents from dense samples [N, S, 3]."""
+    device = resolve_device(device)
     pos = torch.as_tensor(pos, dtype=torch.float64, device=device)
     return float(torch.linalg.vector_norm(pos[:, 1:] - pos[:, :-1],
                                           dim=-1).sum())
 
 
 def knot_continuity_error(coef: np.ndarray, T: np.ndarray, n: int,
-                          phi: int, device="cpu") -> float:
+                          phi: int, device=None) -> float:
     """Max |p^(r)(T_m^-) - p^(r)(T_m^+)| over interior knots, r < phi."""
     from .sample import sample_trajectories
 
+    device = resolve_device(device)
     T = np.asarray(T)
     eps = 1e-6
     sl = sample_trajectories(coef, T, T[1:-1] - eps, n=n, derivatives=phi,

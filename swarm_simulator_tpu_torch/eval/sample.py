@@ -11,15 +11,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
+
 
 def sample_trajectories(coef, T, t, *, n: int, derivatives: int = 3,
-                        device="cpu") -> torch.Tensor:
+                        device=None) -> torch.Tensor:
     """coef [N, M, n+1, 3], T [M+1], t [S] -> states [N, S, derivatives, 3]
-    (float64 on ``device``).
+    (float64 on ``device``: None = the card, raising without one; pass
+    ``device="cpu"`` for the CPU).
 
     derivative 0 = position, 1 = velocity, 2 = acceleration, ...
     Column j of coef multiplies tau^(n-j) with tau local to the segment.
     """
+    device = resolve_device(device)
     f64 = torch.float64
     coef = torch.as_tensor(coef, dtype=f64, device=device)
     T = torch.as_tensor(T, dtype=f64, device=device)

@@ -163,7 +163,7 @@ BAR_BYTES = 128
 
 
 class RingPlan(NamedTuple):
-    """How the chain kernels K1, K2 and K3a stream their pivot rows
+    """How the chain kernels K1, K2, K3a and K3b stream their pivot rows
     (csrc/chain_ring.cuh): each chain block owns ``groups`` row groups of
     every knot, read through a ring of ``slots`` shared-memory slots of
     ``slot_bytes``, tiles of ``tile_rows`` rows."""
@@ -190,10 +190,10 @@ def ring_plan(bs: int, phi: int, itemsize: int, hist_knots: int = 0,
     stream (at 256), which outweighs the wider vector exchange
     (PERF.md).
     A block keeps its rows of ``hist_knots`` knots in shared memory
-    beside the ring (K2's forward rows y_k; K1 keeps none).  Whole stages
-    go in a slot when two of them fit, else tiles of at most TILE_BYTES;
-    as many slots as the rest of the block's shared memory holds, up to
-    MAX_SLOTS."""
+    beside the ring (K2's forward rows y_k; K1, K3a and K3b keep none).
+    Whole stages go in a slot when two of them fit, else tiles of at most
+    TILE_BYTES; as many slots as the rest of the block's shared memory
+    holds, up to MAX_SLOTS."""
     if phi < 1 or bs % phi:
         raise ValueError(f"rows of {bs} do not split into groups of {phi}")
     B3 = bs // phi
@@ -224,10 +224,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     for fn in (lib.thomas_solve, lib.thomas_solve_bf16):
         fn.restype = ci
         fn.argtypes = [vp] * 5 + [ci] * 7 + [vp]
-    lib.thomas_chunk_fwd.restype = ci
-    lib.thomas_chunk_fwd.argtypes = [vp] * 6 + [ci] * 7 + [vp]
-    lib.thomas_chunk_bwd.restype = ci
-    lib.thomas_chunk_bwd.argtypes = [vp] * 5 + [ci] * 3 + [vp]
+    for fn in (lib.thomas_chunk_fwd, lib.thomas_chunk_bwd):
+        fn.restype = ci
+        fn.argtypes = [vp] * 6 + [ci] * 7 + [vp]
     lib.thomas_error_string.restype = ctypes.c_char_p
     lib.thomas_error_string.argtypes = [ci]
 
@@ -315,6 +314,30 @@ thomas_solve.launches = 0
 thomas_solve.launches_bf16 = 0
 
 
+def chunk_plan(bs: int, phi: int, sms: int = 132) -> RingPlan:
+    """The ring plan of K3a and K3b: float32 rows, none kept for a back
+    sweep."""
+    return ring_plan(bs, phi, 4, hist_knots=0, sms=sms)
+
+
+def _chunk_sweep(fname: str, dinv, kc, v, carry, rho_idx: int):
+    """Launch K3a or K3b (``fname``) on one chunk; returns its [L, bs]."""
+    R, L, bs = dinv.shape[0], dinv.shape[1], dinv.shape[-1]
+    phi = kc.shape[-1]
+    names = (("kin", "b", "t_in") if fname == "thomas_chunk_fwd"
+             else ("kout", "T", "x_in"))
+    piv = _cuda_operands(fname, rho_idx, dinv, phi, (
+        ("dinv", dinv, (R, L, bs, bs)), (names[0], kc, (L, phi, phi)),
+        (names[1], v, (L, bs)), (names[2], carry, (bs,))))
+    plan = chunk_plan(bs, phi, sm_count(v.device))
+    out = torch.empty_like(v)
+    # the chain's vector entries, 64 bits each, as K2's
+    vbuf = torch.empty((2, bs), dtype=torch.int64, device=v.device)
+    _launch(fname, piv, kc, v, carry, vbuf, out, bs // phi, L, phi,
+            plan.groups, plan.tile_rows, plan.slots, plan.smem)
+    return out
+
+
 def thomas_chunk_fwd(dinv: torch.Tensor, kin: torch.Tensor, b: torch.Tensor,
                      t_in: torch.Tensor, rho_idx: int) -> torch.Tensor:
     """T [L, bs] of one chunk's forward sweep (see
@@ -322,18 +345,7 @@ def thomas_chunk_fwd(dinv: torch.Tensor, kin: torch.Tensor, b: torch.Tensor,
     CPU tensors run the plain twin; anything else raises."""
     if b.device.type == "cpu":
         return thomas_chunk_fwd_reference(dinv, kin, b, t_in, rho_idx)
-    R, L, bs = dinv.shape[0], dinv.shape[1], dinv.shape[-1]
-    phi = kin.shape[-1]
-    piv = _cuda_operands("thomas_chunk_fwd", rho_idx, dinv, phi, (
-        ("dinv", dinv, (R, L, bs, bs)), ("kin", kin, (L, phi, phi)),
-        ("b", b, (L, bs)), ("t_in", t_in, (bs,))))
-    # float32 rows, none kept for a back sweep
-    plan = ring_plan(bs, phi, 4, hist_knots=0, sms=sm_count(b.device))
-    T = torch.empty_like(b)
-    # the chain's vector entries, 64 bits each, as K2's
-    vbuf = torch.empty((2, bs), dtype=torch.int64, device=b.device)
-    _launch("thomas_chunk_fwd", piv, kin, b, t_in, vbuf, T, bs // phi, L,
-            phi, plan.groups, plan.tile_rows, plan.slots, plan.smem)
+    T = _chunk_sweep("thomas_chunk_fwd", dinv, kin, b, t_in, rho_idx)
     thomas_chunk_fwd.launches += 1
     return T
 
@@ -348,13 +360,7 @@ def thomas_chunk_bwd(dinv: torch.Tensor, kout: torch.Tensor, T: torch.Tensor,
     CPU tensors run the plain twin; anything else raises."""
     if T.device.type == "cpu":
         return thomas_chunk_bwd_reference(dinv, kout, T, x_in, rho_idx)
-    R, L, bs = dinv.shape[0], dinv.shape[1], dinv.shape[-1]
-    phi = kout.shape[-1]
-    piv = _cuda_operands("thomas_chunk_bwd", rho_idx, dinv, phi, (
-        ("dinv", dinv, (R, L, bs, bs)), ("kout", kout, (L, phi, phi)),
-        ("T", T, (L, bs)), ("x_in", x_in, (bs,))))
-    x = torch.empty_like(T)
-    _launch("thomas_chunk_bwd", piv, kout, T, x_in, x, bs // phi, L, phi)
+    x = _chunk_sweep("thomas_chunk_bwd", dinv, kout, T, x_in, rho_idx)
     thomas_chunk_bwd.launches += 1
     return x
 

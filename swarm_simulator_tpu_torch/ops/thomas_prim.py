@@ -22,14 +22,18 @@ parts a copy).  The output [Mi, bs] is zero but for row 0, acc's row 0
 at the end.  acc starts at zeros or at ``acc0``: the TPU kernel reads its
 accumulator uninitialised, so its result is defined only once the start
 is.  For CUDA tensors the wrapper launches the kernel on one block
-(``grid="one"``, the TPU probe's single core) or on K2's first grid
-(``grid="k2"``, ceil(bs / 24) cooperative blocks, a grid sync per step),
-or raises; for CPU tensors it runs the plain version
-``thomas_prim_reference``.
+(``grid="one"``, the TPU probe's single core) or on the chain ring
+(``grid="ring"``, one block per SM, rows split by row group as
+ops/thomas.ring_plan splits them, no barrier between steps; see
+``prim_plan``), or raises; for CPU tensors it runs the plain version
+``thomas_prim_reference``.  dmag's group lands in its slot as one 3-D
+tensor-map copy (faster than or equal to nbuf 1-D bulk copies on one
+barrier at every width on an H100, PERF.md).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -37,12 +41,16 @@ from . import _build
 
 MODES = ("dma", "mv_sub", "mv_lane", "mv_mxu", "trans", "fwd", "dmag",
          "dmaq")
-GRIDS = ("one", "k2")
+GRIDS = ("one", "ring")
 #: bytes of one ring slot (whole rows, at least one) with up to 4 slots;
 #: the ring's slots share 160 KB beyond that
 TILE_BYTES = 40 * 1024
 RING_BYTES = 160 * 1024
 SMEM_LIMIT = 232448
+#: bytes of the mbarriers at the front of shared memory (up to 64), and
+#: the alignment of a ring slot (csrc/thomas_prim.cu: kBarBytes, kSlotAlign)
+BAR_BYTES = 512
+SLOT_ALIGN = 128
 
 
 def parse_mode(spec: str) -> tuple[str, int]:
@@ -98,39 +106,92 @@ def thomas_prim_reference(dinv: torch.Tensor, koM: torch.Tensor,
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.thomas_prim_grid.restype = ci
-    lib.thomas_prim_grid.argtypes = [ci] * 5 + [ctypes.POINTER(ci)]
     lib.thomas_prim.restype = ci
-    lib.thomas_prim.argtypes = [vp] * 5 + [ci] * 7 + [vp]
+    lib.thomas_prim.argtypes = [vp] * 5 + [ci] * 10 + [vp]
     lib.thomas_prim_error_string.restype = ctypes.c_char_p
     lib.thomas_prim_error_string.argtypes = [ci]
 
 
-def tile_rows(bs: int, nslots: int) -> int:
-    """Rows of one ring slot."""
-    return max(1, min(TILE_BYTES, RING_BYTES // nslots) // (bs * 4))
+class PrimPlan(NamedTuple):
+    """How T2 streams the rung (csrc/thomas_prim.cu): ``blocks`` blocks,
+    block c owning rows [c * rows, (c + 1) * rows) of every pivot block,
+    read through a ring of ``slots`` slots of ``slot_bytes`` (tiles of
+    ``tile_rows`` rows; dmag's slot holds its group's nbuf tiles back to
+    back)."""
+    blocks: int
+    rows: int
+    tile_rows: int
+    slots: int
+    slot_bytes: int
+    smem: int       # dynamic shared memory of a block, bytes
 
 
-def blocks_wanted(grid: str, bs: int) -> int:
-    """1, or K2's first grid at this width: one warp per row group of 3, eight
-    warps a block."""
-    return 1 if grid == "one" else -(-bs // 24)
+def row_group(bs: int) -> int:
+    """The rows the ring grid keeps together: the chain's row groups of
+    phi = 3 (an agent axis's derivative orders) where bs splits into them,
+    as at 64 and 256 agents (576, 2304), else single rows (the probe's own
+    bs 640)."""
+    return 3 if bs % 3 == 0 else 1
+
+
+def prim_plan(bs: int, mode: str, nbuf: int, grid: str,
+              sms: int = 132) -> PrimPlan:
+    """T2's plan on ``grid``: "one" one block of all bs rows; "ring" the
+    row groups spread over as many blocks as the card has SMs, one each,
+    as ops/thomas.ring_plan spreads the chain's.  The ring has ``nbuf``
+    slots (dmag and dmaq 2), each a tile of whole rows (dmag: of each of
+    its nbuf pivot blocks) of at most min(TILE_BYTES, RING_BYTES / slots)
+    bytes, at least one row; beside it the block keeps the state row, its
+    partial row, a tile's row products, and where the mode reads them the
+    partial rows it gathers from every block (mv_sub, mv_mxu, fwd) and its
+    rows of b (fwd) (csrc/thomas_prim.cu carves the same)."""
+    if grid not in GRIDS:
+        raise ValueError(f"thomas_prim: grid {grid!r} is not one of {GRIDS}")
+    if grid == "one":
+        rows = bs
+    else:
+        g = row_group(bs)
+        rows = -(-(bs // g) // sms) * g
+    blocks = -(-bs // rows)
+    slots = 2 if mode in ("dmag", "dmaq") else nbuf
+    grp = nbuf if mode == "dmag" else 1
+    fit = min(TILE_BYTES, RING_BYTES // slots) // (grp * bs * 4)
+    tile_rows = max(1, min(rows, fit))
+    slot = -(-grp * tile_rows * bs * 4 // SLOT_ALIGN) * SLOT_ALIGN
+    gather = blocks * rows if mode in ("mv_sub", "mv_mxu", "fwd") else 0
+    smem = (BAR_BYTES + slots * slot + 4 * (
+        2 * bs + tile_rows + gather + (rows if mode == "fwd" else 0)))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"thomas_prim: bs = {bs} with {slots} slots needs "
+                         "more shared memory than a block has")
+    return PrimPlan(blocks=blocks, rows=rows, tile_rows=tile_rows,
+                    slots=slots, slot_bytes=slot, smem=smem)
+
+
+def exchange_words(mode: str, steps: int, blocks: int, bs: int) -> int:
+    """The 64-bit tagged entries T2 exchanges between blocks in ``steps``
+    steps (csrc/thomas_prim.cu lays them out the same; the caller zeroes
+    them): mv_sub each step's column-0 partials and the last step's
+    partial rows, mv_lane each step's row 0 entry 0, mv_mxu two parities
+    of partial rows, fwd those and two parities of the state row; the
+    other modes exchange nothing."""
+    return {"mv_sub": steps * blocks + blocks * bs, "mv_lane": steps + 1,
+            "mv_mxu": 2 * blocks * bs,
+            "fwd": 2 * blocks * bs + 2 * bs}.get(mode, 1)
 
 
 def thomas_prim(dinv: torch.Tensor, koM: torch.Tensor, b: torch.Tensor,
                 mode: str, nbuf: int = 2, reps: int = 20,
                 acc0: torch.Tensor | None = None, rho_idx: int = 0,
-                grid: str = "k2") -> torch.Tensor:
+                grid: str = "ring") -> torch.Tensor:
     """out [Mi, bs] of REPS x Mi steps of ``mode`` (see the module).  CUDA
-    float32 tensors launch T2 once on ``grid`` ("one" or "k2"); CPU tensors
-    run the plain version; anything else raises."""
+    float32 tensors launch T2 once on ``grid`` ("one" or "ring"); CPU
+    tensors run the plain version; anything else raises."""
     if b.device.type == "cpu":
         return thomas_prim_reference(dinv, koM, b, mode, nbuf, reps, acc0,
                                      rho_idx)
     if mode not in MODES:
         raise ValueError(f"thomas_prim: unknown mode {mode!r}")
-    if grid not in GRIDS:
-        raise ValueError(f"thomas_prim: grid {grid!r} is not one of {GRIDS}")
     if not 1 <= nbuf <= 8 or reps < 0:
         raise ValueError(f"thomas_prim: nbuf {nbuf} outside [1, 8] or reps "
                          f"{reps} < 0")
@@ -149,28 +210,25 @@ def thomas_prim(dinv: torch.Tensor, koM: torch.Tensor, b: torch.Tensor,
     rung = dinv[rho_idx]
     if rung.data_ptr() % 16:
         raise ValueError("thomas_prim: dinv is not 16-byte aligned")
-    nslots = 2 if mode in ("dmag", "dmaq") else nbuf
-    rows = tile_rows(bs, nslots)
-    if 512 + 4 * (nslots * rows * bs + 2 * bs + rows) > SMEM_LIMIT:
-        raise ValueError(f"thomas_prim: bs = {bs} with {nslots} slots needs "
-                         "more shared memory than a block has")
-    lib = _build.load("thomas_prim", _declare)
-    code = MODES.index(mode)
     dev = b.device
+    plan = prim_plan(bs, mode, nbuf, grid,
+                     torch.cuda.get_device_properties(dev)
+                     .multi_processor_count)
+    steps = reps * (Mi // nbuf if mode == "dmag" else Mi)
+    lib = _build.load("thomas_prim", _declare)
     with torch.cuda.device(dev):
-        g = ctypes.c_int(0)
-        _build.check_error("thomas_prim_grid", lib.thomas_prim_grid(
-            code, nbuf, bs, rows, blocks_wanted(grid, bs), ctypes.byref(g)),
-            lib.thomas_prim_error_string)
         acc = (torch.zeros((bs, bs), dtype=torch.float32, device=dev)
                if acc0 is None else acc0.clone())
-        part = torch.empty((2, g.value, bs), dtype=torch.float32, device=dev)
+        xb = torch.zeros(exchange_words(mode, steps, plan.blocks, bs),
+                         dtype=torch.int64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptr = ctypes.c_void_p
         _build.check_error("thomas_prim", lib.thomas_prim(
             ptr(rung.data_ptr()), ptr(koM.data_ptr()), ptr(b.data_ptr()),
-            ptr(acc.data_ptr()), ptr(part.data_ptr()), bs, Mi, reps, code,
-            nbuf, rows, g.value, ptr(stream)), lib.thomas_prim_error_string)
+            ptr(acc.data_ptr()), ptr(xb.data_ptr()), bs, Mi, reps,
+            MODES.index(mode), nbuf, plan.rows, plan.tile_rows, plan.slots,
+            plan.slot_bytes, plan.smem, ptr(stream)),
+            lib.thomas_prim_error_string)
         out = torch.zeros_like(b)
         out[0] = acc[0]
     thomas_prim.launches += 1

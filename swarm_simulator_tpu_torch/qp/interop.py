@@ -22,6 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from .assemble import QPData
 from .nullspace import NSOp
 from .nullspace_shard import SpikeOp
@@ -36,10 +37,12 @@ def flat_pivots(d: np.ndarray) -> np.ndarray:
         d.transpose(0, 1, 3, 2, 5, 4)).reshape(R, Mi, B3 * phi, B3 * phi)
 
 
-def from_numpy(data, op, *, device="cpu"):
-    """(QPData, NSOp or SpikeOp) on ``device`` from objects carrying the
-    JAX package's field names with numpy (or array-like) leaves.  Extra
-    fields of the source (the dense-mode ``Kinvs``) are ignored."""
+def from_numpy(data, op, *, device=None):
+    """(QPData, NSOp or SpikeOp) on ``device`` (None = the card, raising
+    without one; pass ``device="cpu"`` for the CPU) from objects carrying
+    the JAX package's field names with numpy (or array-like) leaves.
+    Extra fields of the source (the dense-mode ``Kinvs``) are ignored."""
+    device = resolve_device(device)
     data_t = QPData(**{
         f.name: (None if getattr(data, f.name, None) is None
                  else np.asarray(getattr(data, f.name)))

@@ -1,10 +1,11 @@
 """Time the chain kernels K2 and K1 (with --k3 the chunk sweeps K3a and
-K3b, with --t3 the staged probe T3, with --p3 T1's pair product P3) of
-this checkout against other checkouts of the port, in one process on one
-CUDA card.
+K3b, with --t3 the staged probe T3, with --p3 T1's pair product P3, with
+--t2 the chain-primitive bench T2) of this checkout against other
+checkouts of the port, in one process on one CUDA card.
 
     python3 -m swarm_simulator_tpu_torch.tools.chain_bench
         [--against ROOT ...] [--reps 20] [--no-256] [--k3] [--t3] [--p3]
+        [--t2]
 
 Run from the repository root (it takes the 64-agent problem from
 chip_smoke.py).  Each ROOT is a directory holding a
@@ -12,8 +13,8 @@ chip_smoke.py).  Each ROOT is a directory holding a
 unpacked with ``git archive``); it is loaded under its own module name,
 builds its kernels into its own ``build/``, and is called through the
 same wrappers (``ops/thomas.thomas_solve``, ``ops/nsfused.nsfused_chunk``,
-``ops/thomas_probe.thomas_probe``, ``ops/nsfused_probe``) on the same
-tensors.  Cases, each on
+``ops/thomas_probe.thomas_probe``, ``ops/nsfused_probe``,
+``ops/thomas_prim.thomas_prim``) on the same tensors.  Cases, each on
 the pivots the planning paths give the kernel:
   K2 at 64 agents (the forest of seed 0): host-prep float32, device-prep
   float32 and device-prep rounded to bf16;
@@ -29,7 +30,13 @@ the pivots the planning paths give the kernel:
   T3 (--t3): each stage at the 64-agent (bs 576, Mi 35) and 256-agent
   (bs 2304, Mi 71) shapes on tools/thomas_probe's inputs, rung 1;
   P3 (--p3): the pair product on tools/nsfused_probe's inputs, x of 216
-  rows and its first 100, with ``torch.matmul`` ("highest") in turns.
+  rows and its first 100, with ``torch.matmul`` ("highest") in turns;
+  T2 (--t2): every mode of chip_smoke.py's phase 14 from a zero start on
+  tools/thomas_prim_bench's inputs at its three shapes (bs 640 and 576,
+  Mi 35; bs 2304, Mi 71; the last skipped with --no-256), on each
+  checkout's many-block grid (the last of its ``GRIDS``: "ring" here,
+  "k2" in checkouts before it) at REPS 20 and on one block at REPS 2
+  (not at bs 2304), microseconds per step over REPS x Mi.
 Each variant's result is held against this checkout's float32 twin (the
 largest error relative to the result's scale is printed; K1's is the
 worst over the parts of the state).  Times are CUDA events after the
@@ -41,6 +48,7 @@ power limit.
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib
 import importlib.util
 import json
@@ -60,7 +68,7 @@ def log(*a):
 def load_checkout(root: str, alias: str):
     """The ``swarm_simulator_tpu_torch`` package under ``root``, imported
     as ``alias``: (ops.thomas, ops.nsfused, ops.thomas_probe,
-    ops.nsfused_probe) of that checkout."""
+    ops.nsfused_probe, ops.thomas_prim) of that checkout."""
     pkg = Path(root).resolve() / "swarm_simulator_tpu_torch"
     spec = importlib.util.spec_from_file_location(
         alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
@@ -69,7 +77,7 @@ def load_checkout(root: str, alias: str):
     spec.loader.exec_module(mod)
     return tuple(importlib.import_module(f"{alias}.ops.{m}")
                  for m in ("thomas", "nsfused", "thomas_probe",
-                           "nsfused_probe"))
+                           "nsfused_probe", "thomas_prim"))
 
 
 def inputs(dev, big: bool):
@@ -212,6 +220,42 @@ def t3_in_turns(variants: dict, reps: int, dev, out: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def t2_in_turns(variants: dict, reps: int, dev, big: bool,
+                out: dict) -> None:
+    """T2's modes of every variant in turns into ``out`` ({"<bs> <grid>
+    <mode>": in_turns' result with ``us_per_step``}), each output held
+    against this checkout's plain version at the same REPS."""
+    import chip_smoke
+    from swarm_simulator_tpu_torch.ops import thomas_prim as tp
+    from swarm_simulator_tpu_torch.tools import thomas_prim_bench as t2
+
+    for bs, Mi in ((640, 35), (576, 35)) + (((2304, 71),) if big else ()):
+        d, k, bb = t2.inputs(bs, Mi, dev)
+        for grid, R in (("many", 20), ("one", 2)):
+            if grid == "one" and bs == 2304:
+                continue
+            for spec in chip_smoke.T2_SPECS:
+                mode, nbuf = tp.parse_mode(spec)
+                want = tp.thomas_prim_reference(d, k, bb, mode, nbuf, R)
+                calls = {}
+                for v, mods in variants.items():
+                    g = mods[4].GRIDS[-1] if grid == "many" else "one"
+                    calls[v] = functools.partial(mods[4].thomas_prim, d, k,
+                                                 bb, mode, nbuf, R, grid=g)
+                out[f"{bs} {grid} {spec}"] = res = in_turns(
+                    calls, max(1, reps // 4), lambda v: calls[v](),
+                    lambda got: float((got - want).abs().max())
+                    / max(float(want.abs().max()), 1e-30))
+                for e in res.values():
+                    e["us_per_step"] = (1e3 * e["ms"] / (R * Mi)
+                                        if e["ms"] else None)
+                log(f"T2 bs {bs} {grid} {spec}: " + ", ".join(
+                    f"{v} {e['us_per_step']} us/step (err {e['err']:.1e})"
+                    for v, e in res.items()))
+        del d, k, bb
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", nargs="*", default=[], metavar="ROOT")
@@ -224,17 +268,21 @@ def main() -> int:
                     help="also time T3's stages at 64 and 256 agents")
     ap.add_argument("--p3", action="store_true",
                     help="also time T1's P3 beside torch.matmul")
+    ap.add_argument("--t2", action="store_true",
+                    help="also time T2's modes at phase 14's shapes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chain_bench: needs a CUDA card", file=sys.stderr)
         return 2
     from swarm_simulator_tpu_torch.ops import nsfused, thomas
-    from swarm_simulator_tpu_torch.ops import nsfused_probe, thomas_probe
+    from swarm_simulator_tpu_torch.ops import (nsfused_probe, thomas_prim,
+                                               thomas_probe)
     from swarm_simulator_tpu_torch.qp import joint, nullspace as ns
     from swarm_simulator_tpu_torch.tools._timing import card
 
     dev = torch.device("cuda", 0)
-    variants = {"this": (thomas, nsfused, thomas_probe, nsfused_probe)}
+    variants = {"this": (thomas, nsfused, thomas_probe, nsfused_probe,
+                         thomas_prim)}
     for n, root in enumerate(args.against):
         variants[root] = load_checkout(root, f"chain_bench_v{n}")
     t0 = time.perf_counter()
@@ -246,6 +294,8 @@ def main() -> int:
                                         *(("thomas_probe",) if args.t3
                                           else ()),
                                         *(("nsfused_probe",) if args.p3
+                                          else ()),
+                                        *(("thomas_prim",) if args.t2
                                           else ()))
 
     with ThreadPoolExecutor(len(variants)) as ex:
@@ -259,7 +309,7 @@ def main() -> int:
     cases, (data, host) = inputs(dev, not args.no_256)
 
     out = {"card": card(), "torch": torch.__version__, "k2": {}, "k1": {},
-           "k3": {}, "t3": {}, "p3": {}}
+           "k3": {}, "t3": {}, "p3": {}, "t2": {}}
     gen = torch.Generator().manual_seed(0)
     for case, (dinv, ho) in cases.items():
         Mi, bs = dinv.shape[1], dinv.shape[-1]
@@ -296,6 +346,8 @@ def main() -> int:
         t3_in_turns(variants, args.reps, dev, out["t3"])
     if args.p3:
         p3_in_turns(variants, args.reps, dev, out["p3"])
+    if args.t2:
+        t2_in_turns(variants, args.reps, dev, not args.no_256, out["t2"])
     print(json.dumps(out), flush=True)
     return 0
 

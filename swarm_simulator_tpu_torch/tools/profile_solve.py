@@ -166,10 +166,14 @@ def profile_run(solve) -> int:
                 if "nsfused" in e.key)
     k2_us = sum(e.self_device_time_total for e in on_dev
                 if "thomas_kernel" in e.key)
+    # K3a/K3b: one template, chunk_kernel<back, early loads>, since the
+    # sweeps share the chain ring; chunk_fwd_kernel/chunk_bwd_kernel before
     k3a_us = sum(e.self_device_time_total for e in on_dev
-                 if "chunk_fwd_kernel" in e.key)
+                 if "chunk_kernel<false" in e.key
+                 or "chunk_fwd_kernel" in e.key)
     k3b_us = sum(e.self_device_time_total for e in on_dev
-                 if "chunk_bwd_kernel" in e.key)
+                 if "chunk_kernel<true" in e.key
+                 or "chunk_bwd_kernel" in e.key)
     # a collective shows as the device span of its "nccl:" annotation (a
     # copy on one rank, and any wait for the peers), not as a kernel
     nccl_us = sum(e.self_device_time_total for e in avg

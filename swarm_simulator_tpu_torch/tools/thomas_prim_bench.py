@@ -1,9 +1,9 @@
 """T2, the chain-primitive bench: microseconds per step of each primitive
-of the Thomas chain, on one block and on K2's first grid.
+of the Thomas chain, on one block and on the chain ring.
 
     python3 -m swarm_simulator_tpu_torch.tools.thomas_prim_bench
         [--bs 640] [--mi 35] [--reps 20]
-        [--modes dma,mv_sub,mv_lane,mv_mxu,trans,fwd] [--grids one,k2]
+        [--modes dma,mv_sub,mv_lane,mv_mxu,trans,fwd] [--grids one,ring]
         [--cpu]
 
 The counterpart of the JAX package's tools/pallas_debug/thomas_prim_bench.py
@@ -67,6 +67,27 @@ def inputs(bs: int, Mi: int, dev, seed: int = 0) -> tuple[torch.Tensor, ...]:
             torch.randn((Mi, bs), generator=gen, device=dev))
 
 
+def work(spec: str, bs: int, Mi: int, reps: int) -> tuple[int, int, str]:
+    """(bytes, operations, their type) of REPS x Mi steps of ``spec`` for
+    a bound: the pivot blocks the mode reads (dmag Mi // nbuf groups of
+    nbuf), the start state acc0, and fwd's koM and b read once, the output
+    [Mi, bs] written once; per step bs additions (dma, dmag, dmaq), 2 bs^2
+    operations (mv_sub, mv_lane, trans; mv_mxu's on bf16 tensor cores) or
+    6 bs^2 (fwd: the row's matvec, then two FMAs an element)."""
+    from swarm_simulator_tpu_torch.ops import thomas_prim as tp
+
+    mode, nbuf = tp.parse_mode(spec)
+    grp = nbuf if mode == "dmag" else 1
+    steps = reps * (Mi // grp)
+    blocks = Mi // grp * grp
+    nbytes = 4 * (blocks * bs * bs + bs * bs + Mi * bs
+                  + (bs * bs + Mi * bs if mode == "fwd" else 0))
+    per = {"mv_sub": 2, "mv_lane": 2, "mv_mxu": 2, "trans": 2,
+           "fwd": 6}.get(mode)
+    ops = steps * (per * bs * bs if per else bs)
+    return nbytes, ops, "bf16" if mode == "mv_mxu" else "float32"
+
+
 def time_mode(dinv, koM, b, spec: str, reps: int, grid: str,
               plain_reps: int = 0) -> dict:
     """One mode on one grid from a zero start: median CUDA-event ms of
@@ -92,8 +113,10 @@ def time_mode(dinv, koM, b, spec: str, reps: int, grid: str,
     ms = median_ms(kernel, 3)
     got, want = last["out"], plain()
     err = float((got - want).abs().max())
-    r = dict(ms=ms, us_per_step=1e3 * ms / (reps * Mi),
-             blocks=tp.blocks_wanted(grid, b.shape[1]),
+    blocks = tp.prim_plan(b.shape[1], mode, nbuf, grid,
+                          torch.cuda.get_device_properties(b.device)
+                          .multi_processor_count).blocks
+    r = dict(ms=ms, us_per_step=1e3 * ms / (reps * Mi), blocks=blocks,
              rel_err=err / max(float(want.abs().max()), 1e-30),
              max_abs_err=err, finite=bool(torch.isfinite(got).all()))
     if plain_reps:
@@ -112,7 +135,7 @@ def main(argv=None) -> int:
     ap.add_argument("--mi", type=int, default=35)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--modes", default="dma,mv_sub,mv_lane,mv_mxu,trans,fwd")
-    ap.add_argument("--grids", default="one,k2")
+    ap.add_argument("--grids", default="one,ring")
     ap.add_argument("--cpu", action="store_true",
                     help="run the plain version on the CPU (no timing)")
     args = ap.parse_args(argv)

@@ -267,7 +267,8 @@ def ladder_objectives(data, phases_t) -> dict:
             _, info = jax.jit(
                 lambda d, o: ns_j.solve_ns_phases(d, ph_j, op=o))(data_j,
                                                                    op_j)
-            data_t, op_t = interop.from_numpy(data, jax.device_get(op_j))
+            data_t, op_t = interop.from_numpy(data, jax.device_get(op_j),
+                                              device="cpu")
             assert op_t.Dinvs.dtype == (torch.bfloat16 if bf16
                                         else torch.float32)
             _, info_t = ns_t.solve_ns_schedule(

@@ -41,7 +41,8 @@ from swarm_simulator_tpu_torch.world.esdf import ESDF
 from swarm_simulator_tpu_torch.world.forest import generate_forest
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import chunked_solve  # noqa: E402
+from chip_smoke import (MXU_WALK, chunked_solve,  # noqa: E402
+                        mxu_exact_pivots)
 
 pytestmark = [
     pytest.mark.cuda,
@@ -305,6 +306,51 @@ def test_chunk_kernels_match_twins_on_cuda(B3, Mi, n):
     assert thomas.twin_gap_use(k_err, t_err) <= 1.0, (k_err, t_err)
 
 
+@pytest.mark.parametrize("B3, Mi, n", [(192, 35, 1), (192, 35, 4),
+                                       (192, 3, 3), (193, 7, 1),
+                                       (768, 6, 1)])
+def test_chunk_bwd_ring_matches_twins_on_cuda(B3, Mi, n):
+    """K3b alone on the chain ring, on the last chunk of a chain of Mi
+    knots split into n: the 64-agent width at L = 35 and at L = 9 (one
+    pad knot: zero pivots, zero couplings and T's zero rows), L = 1, rows
+    off 16 bytes (bs 579: ragged spans) and the 256-agent width (bs
+    2304), a seeded T and carry on each of two rungs: one launch a
+    sweep; as accurate as its float32 twin against its float64 twin
+    (thomas.twin_gap_use); the pad knot's rows exactly 0."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4)
+    phi, R = 3, 2
+    bs = B3 * phi
+    L = -(-Mi // n)
+    real = Mi - (n - 1) * L   # real knots of the last chunk
+    dinv = (torch.eye(bs, dtype=torch.float64) * 0.5
+            + 0.02 * torch.randn((R, L, bs, bs), generator=gen,
+                                 dtype=torch.float64) / bs ** 0.5)
+    dinv[:, real:] = 0.0
+    kos = 0.3 * torch.randn((Mi - 1, phi, phi), generator=gen,
+                            dtype=torch.float64)
+    kout = shard.chunk_couplings(kos, n * L)[1][(n - 1) * L:].contiguous()
+    T = torch.randn((L, bs), generator=gen, dtype=torch.float64)
+    T[real:] = 0.0
+    x_in = (torch.randn(bs, generator=gen, dtype=torch.float64)
+            if n == 1 else torch.zeros(bs, dtype=torch.float64))
+    d32, k32, T32, x32 = (t.float().to(dev).contiguous()
+                          for t in (dinv, kout, T, x_in))
+    d64, k64, T64, x64 = (t.to(dev) for t in (dinv, kout, T, x_in))
+    k_err, t_err = [], []
+    for r in range(R):
+        before = thomas.thomas_chunk_bwd.launches
+        got = thomas.thomas_chunk_bwd(d32, k32, T32, x32, r)
+        assert thomas.thomas_chunk_bwd.launches == before + 1
+        assert torch.isfinite(got).all()
+        assert int(torch.count_nonzero(got[real:])) == 0
+        twin32 = thomas.thomas_chunk_bwd_reference(d32, k32, T32, x32, r)
+        twin64 = thomas.thomas_chunk_bwd_reference(d64, k64, T64, x64, r)
+        k_err.append(thomas.rel_error(got[:real], twin64[:real]))
+        t_err.append(thomas.rel_error(twin32[:real], twin64[:real]))
+    assert thomas.twin_gap_use(k_err, t_err) <= 1.0, (k_err, t_err)
+
+
 def test_sharded_solve_on_one_nccl_rank():
     """The sharded joint solve (chunk mode) on a 1-rank NCCL group for the
     8-agent forest: every KKT solve goes through K3a/K3b, neither K1 nor
@@ -398,21 +444,33 @@ def _rel(got, want):
                                                  1e-30)
 
 
-@pytest.mark.parametrize("grid", tp.GRIDS)
+@pytest.mark.parametrize("grid, bs", [("one", 576), ("ring", 576),
+                                      ("ring", 640), ("ring", 2304)])
 @pytest.mark.parametrize("spec", ["dma", "mv_sub", "mv_lane", "mv_mxu",
                                   "trans", "fwd", "dmag", "dmaq", "dma@4"])
-def test_prim_kernel_matches_plain_on_cuda(spec, grid):
-    """T2 at bs 576 (Mi 6, two reps) from a seeded start, on one block and
-    on K2's grid: within 1e-5 of the plain version's scale (float32 sums in
-    another order); mv_mxu, which rounds its carried row to bf16 each step
-    (so float32 runs summing in another order drift apart), against a
-    float64 plain run within 3x the float32 plain run's error plus one
-    bf16 unit, 2^-8 (a rounding flip of the carried row)."""
+def test_prim_kernel_matches_plain_on_cuda(spec, grid, bs):
+    """T2 (Mi 6, two reps) from a seeded start, on one block at bs 576 and
+    on the chain ring at bs 576 (rows in groups of 3), 640 (single rows)
+    and 2304 (tiles of a few rows): within 1e-5 of the plain version's
+    scale (float32 sums in another order); mv_mxu, which rounds its
+    carried row to bf16 each step (so float32 runs summing in another
+    order drift apart), bit for bit on signed-permutation pivots (exact in
+    any order: chip_smoke.mxu_exact_pivots) and against a float64 plain
+    run within 3x the float32 plain run's error plus one bf16 unit, 2^-8
+    (a rounding flip of the carried row), at bs 576; at the widths added
+    with the ring (640, 2304) plus chip_smoke.py's walk of 2^-8
+    sqrt(steps) instead: there one block and the plain float32 run walk
+    as far, and each grid's walk is its summation order's
+    (tools/t2_mxu_drift: over five seeds a single step errs <= 1e-6 on
+    both grids, and each grid's result sides with a float32 witness of
+    its block and tile order)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    bs, Mi = 576, 6
+    Mi = 6
     dinv = torch.randn((1, Mi, bs, bs), generator=gen, device=dev) * 0.01
-    koM = torch.randn((bs, bs), generator=gen, device=dev) * 0.1
+    # koM as the T2 tool draws it: the probe's 0.1, at bs 2304 0.5/sqrt(bs)
+    koM = (torch.randn((bs, bs), generator=gen, device=dev)
+           * (0.1 if bs < 2304 else 0.5 / bs ** 0.5))
     b = torch.randn((Mi, bs), generator=gen, device=dev)
     acc0 = torch.randn((bs, bs), generator=gen, device=dev)
     mode, nbuf = tp.parse_mode(spec)
@@ -423,10 +481,34 @@ def test_prim_kernel_matches_plain_on_cuda(spec, grid):
     if mode != "mv_mxu":
         assert _rel(got, want) <= 1e-5
         return
+    exact = mxu_exact_pivots(Mi, bs, dev)
+    assert torch.equal(
+        tp.thomas_prim(exact, koM, b, mode, nbuf, 2, acc0, grid=grid),
+        tp.thomas_prim_reference(exact, koM, b, mode, nbuf, 2, acc0))
     w64 = tp.thomas_prim_reference(dinv, koM.double(), b.double(), mode,
                                    nbuf, 2, acc0.double())
+    walk = 2.0 ** -8 if bs == 576 else MXU_WALK * (2 * Mi) ** 0.5
     assert thomas.rel_error(got, w64) <= \
-        thomas.TWIN_GAP_FACTOR * thomas.rel_error(want, w64) + 2.0 ** -8
+        thomas.TWIN_GAP_FACTOR * thomas.rel_error(want, w64) + walk
+
+
+@pytest.mark.parametrize("grid, bs", [("one", 576), ("ring", 576),
+                                      ("ring", 640), ("ring", 2304)])
+@pytest.mark.parametrize("nbuf", [2, 4])
+def test_prim_dmag_tensor_map_matches_plain_on_cuda(nbuf, grid, bs):
+    """T2's dmag, each group of nbuf knots in one 3-D tensor-map copy, on
+    Mi 9 (so the group leaves the last knot out at nbuf 2 and 4; two reps)
+    from a seeded start: within 1e-5 of the plain version's scale."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    Mi = 9
+    dinv = torch.randn((1, Mi, bs, bs), generator=gen, device=dev) * 0.01
+    koM = torch.zeros((bs, bs), device=dev)
+    b = torch.randn((Mi, bs), generator=gen, device=dev)
+    acc0 = torch.randn((bs, bs), generator=gen, device=dev)
+    want = tp.thomas_prim_reference(dinv, koM, b, "dmag", nbuf, 2, acc0)
+    got = tp.thomas_prim(dinv, koM, b, "dmag", nbuf, 2, acc0, grid=grid)
+    assert _rel(got, want) <= 1e-5
 
 
 @pytest.mark.parametrize("bs, Mi", [(576, 8), (576, 35), (2304, 6)])

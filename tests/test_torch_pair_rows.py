@@ -13,21 +13,27 @@ qp/nullspace_shard places it.  ``Param.log`` makes
 import dataclasses
 from types import SimpleNamespace
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from swarm_simulator_tpu.core import types as types_j
+from swarm_simulator_tpu.eval import safety as safety_j
+from swarm_simulator_tpu.eval import sample as sample_j
 from swarm_simulator_tpu.qp import admm as admm_j
 from swarm_simulator_tpu.qp import assemble as asm_j
 from swarm_simulator_tpu.qp import joint as joint_j
 from swarm_simulator_tpu.qp import nullspace as ns_j
 from swarm_simulator_tpu.utils.timing import ProblemSize
 from swarm_simulator_tpu_torch.core import types as types_t
+from swarm_simulator_tpu_torch.eval import safety as safety_t
+from swarm_simulator_tpu_torch.eval import sample as sample_t
 from swarm_simulator_tpu_torch.eval.gate import gate_quality as gate_t
 from swarm_simulator_tpu_torch.qp import admm as admm_t
 from swarm_simulator_tpu_torch.qp import assemble as asm_t
+from swarm_simulator_tpu_torch.qp import interop
 from swarm_simulator_tpu_torch.qp import joint as joint_t
 from swarm_simulator_tpu_torch.qp import nullspace as ns_t
 from swarm_simulator_tpu_torch.qp import nullspace_shard as shard_t
@@ -213,22 +219,109 @@ def test_log_prints_size_and_writes_the_export(tmp_path, monkeypatch,
     assert all(np.array_equal(got[k], v) for k, v in want.items())
 
 
-@pytest.mark.parametrize("entry", ["solve_trajectories", "gate_quality"])
+def _seeded_samples(seed=0, N=4, M=3, n=5):
+    """Seeded piecewise polynomials coef [N, M, n+1, 3] on knot times T
+    [M+1] and dense sample times t, as numpy float64."""
+    rng = np.random.default_rng(seed)
+    coef = rng.normal(size=(N, M, n + 1, 3))
+    T = np.cumsum(np.r_[0.0, rng.uniform(0.5, 1.5, M)])
+    t = np.linspace(0.0, T[-1], 17)
+    return coef, T, t, n
+
+
+def _entry_call(entry):
+    """(function, positional arguments, keyword arguments) of one entry
+    point of the port on small inputs; the inputs never get read when the
+    device resolution raises first."""
+    plan, mission, param = _tiny(types_t)
+    coef, T, t, n = _seeded_samples()
+    pos = np.zeros((4, 5, 3))
+    return {
+        "solve_trajectories": (joint_t.solve_trajectories,
+                               (plan, mission, param), {}),
+        # no control points: the raise comes first
+        "gate_quality": (gate_t, (None, plan, mission, param), {}),
+        "sample_trajectories": (sample_t.sample_trajectories, (coef, T, t),
+                                {"n": n}),
+        "safety_margin_ratio": (safety_t.safety_margin_ratio,
+                                (pos, np.ones(4)), {"downwash": 2.0}),
+        "flight_distance": (safety_t.flight_distance, (pos,), {}),
+        "knot_continuity_error": (safety_t.knot_continuity_error,
+                                  (coef, T, n, 3), {}),
+        "from_numpy": (interop.from_numpy, (None, None), {}),
+    }[entry]
+
+
+ENTRIES = ["solve_trajectories", "gate_quality", "sample_trajectories",
+           "safety_margin_ratio", "flight_distance", "knot_continuity_error",
+           "from_numpy"]
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
 def test_entry_points_without_a_card_raise(entry, monkeypatch):
     """device=None means the card: on a host without one,
-    joint.solve_trajectories and eval/gate.gate_quality raise the
+    joint.solve_trajectories, eval/gate.gate_quality, the eval functions
+    it samples and measures with and qp/interop.from_numpy raise the
     resolver's error (which names device='cpu') before they touch an
     input, as pipeline.plan does."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    plan, mission, param = _tiny(types_t)
-    if entry == "solve_trajectories":
-        fn, args = joint_t.solve_trajectories, (plan, mission, param)
-    else:   # no control points: the raise comes first
-        fn, args = gate_t, (None, plan, mission, param)
+    fn, args, kwargs = _entry_call(entry)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        fn(*args)
+        fn(*args, **kwargs)
     with pytest.raises(RuntimeError, match="no CUDA card"):
-        fn(*args, device="cuda")
+        fn(*args, **kwargs, device="cuda")
+
+
+@pytest.mark.parametrize("entry", ENTRIES[2:])
+def test_eval_and_interop_on_cpu_match_jax(entry):
+    """With device="cpu" the eval functions and qp/interop.from_numpy give
+    the JAX package's numbers on small seeded inputs: samples of seeded
+    polynomials (and their positions' safety ratio and flight distance,
+    and the knot continuity error of the polynomials) within 1e-12 of the
+    result's scale in float64; the QP data and operator of the 8-agent
+    problem carried across bit for bit."""
+    coef, T, t, n = _seeded_samples()
+    if entry == "from_numpy":
+        data_j, _ = joint_j.assemble_joint(*_tiny(types_j))
+        data_j = jax.tree.map(np.asarray, data_j)
+        op_j = ns_j.prepare_ns_np(data_j, ns_j.NSSettings(kkt_mode="banded",
+                                                          n_rungs=2))
+        data_t, op_t = interop.from_numpy(data_j, op_j, device="cpu")
+        for f in dataclasses.fields(asm_t.QPData):
+            want = getattr(data_j, f.name, None)
+            got = getattr(data_t, f.name)
+            assert (got is None) == (want is None), f.name
+            if want is not None:
+                assert got.device.type == "cpu"
+                assert np.array_equal(got.numpy(), np.asarray(want)), f.name
+        for k in ns_t.NSOp._fields:
+            assert getattr(op_t, k).device.type == "cpu"
+            assert np.array_equal(getattr(op_t, k).numpy(),
+                                  np.asarray(getattr(op_j, k))), k
+        return
+    states_j = np.array(sample_j.sample_trajectories(
+        jnp.asarray(coef), jnp.asarray(T), jnp.asarray(t), n=n))
+    if entry == "sample_trajectories":
+        got = sample_t.sample_trajectories(coef, T, t, n=n, device="cpu")
+        assert got.device.type == "cpu"
+        got, want = got.numpy(), states_j
+    elif entry == "knot_continuity_error":
+        got = safety_t.knot_continuity_error(coef, T, n, 3, device="cpu")
+        want = safety_j.knot_continuity_error(coef, T, n, 3)
+    else:
+        pos = states_j[:, :, 0]
+        if entry == "flight_distance":
+            got = safety_t.flight_distance(pos, device="cpu")
+            want = float(safety_j.flight_distance(jnp.asarray(pos)))
+        else:
+            radius = np.full(pos.shape[0], 0.2)
+            got = safety_t.safety_margin_ratio(pos, radius, downwash=2.0,
+                                               device="cpu")
+            want = float(safety_j.safety_margin_ratio(
+                jnp.asarray(pos), jnp.asarray(radius), downwash=2.0))
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert np.isfinite(want).all() and np.abs(want).max() > 0
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
 
 
 def test_gate_quality_on_cpu_matches_jax(tmp_path, monkeypatch):

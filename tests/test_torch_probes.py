@@ -169,6 +169,76 @@ def test_t2_seeded_start_matches_float64(mode):
     assert not got[1:].any()
 
 
+@pytest.mark.parametrize("grid", tp.GRIDS)
+@pytest.mark.parametrize("bs", [640, 576, 2304])
+def test_t2_plan_fits_and_owns_every_row_once(bs, grid):
+    """T2's plans (ops/thomas_prim.prim_plan) at phase 14's widths for
+    every mode it runs, on 132 SMs: "one" is one block of all rows;
+    "ring" at most one block per SM, its rows whole row groups split as
+    ops/thomas.ring_plan splits the chain's (groups of 3 at 576 and 2304,
+    single rows at the probe's 640); the blocks own every row once; a
+    slot holds a tile (dmag: of each of its nbuf blocks) on 128 bytes;
+    every tile's copy starts and ends on 16 bytes; the layout
+    csrc/thomas_prim.cu carves (the gathered partial rows only for the
+    modes that exchange them, b's rows only for fwd) fits 227 KB."""
+    sms = 132
+    for spec in T2_MODES + ("dmag@4", "dmaq@4", "mv_sub@8"):
+        mode, nbuf = tp.parse_mode(spec)
+        plan = tp.prim_plan(bs, mode, nbuf, grid, sms)
+        if grid == "one":
+            assert (plan.blocks, plan.rows) == (1, bs)
+        else:
+            phi = tp.row_group(bs)
+            assert phi == (3 if bs % 3 == 0 else 1)
+            chain = thomas.ring_plan(bs, phi, 4, sms=sms)
+            assert plan.rows == chain.groups * phi
+            assert plan.blocks <= sms
+        assert (plan.blocks - 1) * plan.rows < bs <= plan.blocks * plan.rows
+        owner = np.full(bs, -1)
+        for c in range(plan.blocks):
+            r0, r1 = c * plan.rows, min((c + 1) * plan.rows, bs)
+            assert r1 > r0 and (owner[r0:r1] == -1).all()
+            owner[r0:r1] = c
+            for a0 in range(r0, r1, plan.tile_rows):
+                nr = min(plan.tile_rows, r1 - a0)
+                for k in (0, 1, 34):
+                    assert ((k * bs * bs + a0 * bs) * 4) % 16 == 0
+                    assert (nr * bs * 4) % 16 == 0
+        assert (owner >= 0).all()
+        grp = nbuf if mode == "dmag" else 1
+        assert plan.slots == (2 if mode in ("dmag", "dmaq") else nbuf)
+        assert 1 <= plan.tile_rows <= plan.rows
+        assert plan.slot_bytes % tp.SLOT_ALIGN == 0
+        assert plan.slot_bytes >= grp * plan.tile_rows * bs * 4
+        gather = mode in ("mv_sub", "mv_mxu", "fwd")
+        assert plan.smem == (tp.BAR_BYTES + plan.slots * plan.slot_bytes
+                             + 4 * (2 * bs + plan.tile_rows
+                                    + gather * plan.blocks * plan.rows
+                                    + (mode == "fwd") * plan.rows))
+        assert plan.smem <= tp.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("bs, rows, tile_rows", [(48, 48, 7), (48, 6, 4),
+                                                 (240, 6, 4)])
+def test_t2_mxu_order_witness_is_the_plain_recurrence(bs, rows, tile_rows):
+    """tools/t2_mxu_drift's witness of a grid's summation order (one
+    block; 8 blocks added one after another; 40 blocks added by lanes and
+    a butterfly) computes mv_mxu's recurrence: in float64 within 1e-12 of
+    the plain version's scale, and its block sum within 1e-12 of a plain
+    sum."""
+    from swarm_simulator_tpu_torch.tools import t2_mxu_drift as drift
+
+    dinv, koM, b, acc0 = drift.draw(bs, 3, 0, torch.device("cpu"))
+    want = tp.thomas_prim_reference(dinv.double(), koM.double(), b.double(),
+                                    "mv_mxu", 2, 2, acc0.double())[0]
+    got = drift.order_witness(dinv.double(), acc0.double(), 2, rows,
+                              tile_rows)
+    assert thomas.rel_error(got, want) <= 1e-12
+    P = torch.randn((-(-bs // rows), bs), dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(1))
+    assert thomas.rel_error(drift.sum_blocks(P), P.sum(0)) <= 1e-12
+
+
 # ---- T3 ----
 
 @pytest.fixture(scope="module")
@@ -449,6 +519,14 @@ def test_t3_ring_study_without_card_exits_nonzero(monkeypatch, capsys):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert t3_ring_study.main([]) != 0
+    assert capsys.readouterr().out == ""
+
+
+def test_t2_mxu_drift_without_card_exits_nonzero(monkeypatch, capsys):
+    from swarm_simulator_tpu_torch.tools import t2_mxu_drift
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert t2_mxu_drift.main([]) != 0
     assert capsys.readouterr().out == ""
 
 

@@ -274,7 +274,8 @@ def test_from_numpy_strips_lane_padding():
 def test_ring_plan_fits_and_keeps_the_16_byte_rules(bs, phi, itemsize):
     """The chain kernels' ring plans at the widths of 5, 6, 8, 64 and 256
     agents, of T2's probe and of a row off 16 bytes (B3 = 193): K1's and
-    K2's (rows of 71 knots kept) and, on float32 rows, K3a's (none kept).
+    K2's (rows of 71 knots kept) and, on float32 rows, K3a's and K3b's
+    (none kept).
     Each fits 227 KB with at least two slots, its slots hold a tile at
     any offset within a 16-byte line, and every tile's copy (rungs
     starting on a 16-byte line or off it by one element or 8 bytes, knots
@@ -284,7 +285,7 @@ def test_ring_plan_fits_and_keeps_the_16_byte_rules(bs, phi, itemsize):
     Mi = 5
     plans = [(thomas.ring_plan(bs, phi, itemsize, hist_knots=71), 71)]
     if itemsize == 4:
-        plans.append((thomas.ring_plan(bs, phi, 4, hist_knots=0), 0))
+        plans.append((thomas.chunk_plan(bs, phi), 0))
     aligned = (bs * itemsize) % 16 == 0   # the kernels' test
     for plan, hist in plans:
         rows = plan.groups * phi
@@ -322,3 +323,28 @@ def test_ring_plan_fits_and_keeps_the_16_byte_rules(bs, phi, itemsize):
                             assert e - a < 32
                         # the slot holds the tile at its offset in the line
                         assert a % 16 + (e - a) <= plan.slot_bytes
+
+
+@pytest.mark.parametrize("bs", [576, 579, 2304])
+def test_chunk_plan_owns_every_row_group_once(bs):
+    """K3a's and K3b's ring plan (ops/thomas.chunk_plan) at the 64-agent
+    width, rows off 16 bytes (B3 = 193) and the 256-agent width, on 132
+    SMs: its blocks (one per SM at most) own every row group of a knot
+    exactly once, each at least one group, and the layout csrc/thomas.cu
+    carves beside the ring (the vector and the block's products) fits
+    the plan's shared memory, within 227 KB, with at least two slots."""
+    phi = 3
+    plan = thomas.chunk_plan(bs, phi)
+    B3, rows = bs // phi, plan.groups * phi
+    blocks = -(-B3 // plan.groups)
+    assert blocks <= 132
+    owner = np.full(B3, -1)
+    for c in range(blocks):
+        g0, g1 = c * plan.groups, min((c + 1) * plan.groups, B3)
+        assert g1 > g0 and (owner[g0:g1] == -1).all()
+        owner[g0:g1] = c
+    assert (owner >= 0).all()
+    assert 2 <= plan.slots <= thomas.MAX_SLOTS
+    carved = (thomas.BAR_BYTES + plan.slots * plan.slot_bytes
+              + 4 * (bs + rows))
+    assert carved == plan.smem <= thomas.SMEM_PER_BLOCK
