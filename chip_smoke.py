@@ -105,7 +105,11 @@ Phases (any failure raises and exits non-zero):
      shape splitting the chain stage (stream, dot, K2's exchange, fwd);
  16. the fused-chunk probes T1 (tools/nsfused_probe.py): P1-P4 against
      their plain versions (P3 also against float64, 3e-6) and timed, P3
-     beside torch.matmul, P4 in ms per iteration beside K1's;
+     beside torch.matmul, P2 (the cluster apply) beside torch.einsum and
+     its first design's recorded time, P4 (the re-layout, then the chain
+     on K2's template) beside its first design's recorded time and per
+     iteration beside K1's chunk as phase 2 timed it, and P4's re-layout
+     alone (bit-equal to the plain permute) beside that PyTorch copy;
  17. the row-assembly patterns T5 (tools/row_patterns.py): all fourteen
      against their plain versions (bit-equal; P8's sum within 1e-6), and
      timed beside the one PyTorch call that computes each, where there is
@@ -438,6 +442,7 @@ def _counters() -> dict:
                 t1p2=(npb.p2_tile_apply, "launches"),
                 t1p3=(npb.p3_split_pair_product, "launches"),
                 t1p4=(npb.p4_resident_thomas, "launches"),
+                t1p4r=(npb.p4_relayout, "launches"),
                 t5=(rp.row_pattern, "launches"),
                 twin1=(nsfused.nsfused_chunk_reference, "cuda_calls"),
                 twin2=(thomas.thomas_solve_reference, "cuda_calls"),
@@ -1258,38 +1263,66 @@ def probe_stages(dev):
                 bound=mv["bound"], stages=out)
 
 
-def nsfused_probes(dev):
+#: T1's first designs (P2 a block per (g, 32 columns); P4 24 cooperative
+#: blocks with a grid sync a stage), median ms: chip_smoke phase 16 on an
+#: H100 80GB HBM3 at a 700 W power limit (PERF.md)
+P2_FIRST_DESIGN_MS = 0.01043
+P4_FIRST_DESIGN_MS = 19.82
+
+
+def nsfused_probes(dev, k1_ms: float):
     """Phase 16: T1's P1-P4 through the tool (each against its plain
-    version, P3 also against float64; timed) with the launch counts read
-    around it."""
+    version, P3 also against float64; timed; P4 beside ``k1_ms``, phase
+    2's K1 chunk) with the launch counts read around it."""
     from swarm_simulator_tpu_torch.ops import nsfused_probe as npb
     from swarm_simulator_tpu_torch.tools import nsfused_probe as t1
 
     reset_counts()
-    res = t1.run((1, 2, 3, 4), dev, True)
+    res = t1.run((1, 2, 3, 4), dev, True, k1_ms=k1_ms)
     counts = read_counts()
     for p in range(1, 5):
         check(counts[f"t1p{p}"] > 0, f"T1 P{p} launched 0 times")
         check(res[f"P{p}"]["rel_err"] <= 1e-5, f"T1 P{p} disagrees with the "
               f"plain version ({res[f'P{p}']['rel_err']:.2e})")
+    check(counts["t1p4r"] > 0, "T1 P4's re-layout launched 0 times")
+    check(res["P4"]["relayout_max_abs_err"] == 0.0, "T1 P4's re-layout is "
+          "not the plain permute")
     check(res["P3"]["rel_err_f64"] <= 3e-6, "T1 P3 is "
           f"{res['P3']['rel_err_f64']:.2e} from float64 (limit 3e-6)")
+    log(f"T1 P2: kernel {res['P2']['ms']:.5f} ms, torch.einsum "
+        f"{res['P2']['library_ms']:.5f} ms on the same inputs, first design "
+        f"{P2_FIRST_DESIGN_MS} ms")
     log(f"T1 P3: kernel {res['P3']['ms']:.5f} ms, torch.matmul (highest) "
         f"{res['P3']['library_ms']:.5f} ms on the same inputs")
-    log(f"T1 P4: {res['P4']['ms']:.3f} ms per {npb.INNER}-iteration launch, "
-        f"{res['P4']['ms_per_iter']:.4f} ms per iteration (K1: "
-        f"{res['P4']['k1_ms_per_iter']} ms per ADMM iteration)")
+    p4 = res["P4"]
+    log(f"T1 P4: {p4['ms']:.3f} ms per {npb.INNER}-iteration call (first "
+        f"design {P4_FIRST_DESIGN_MS} ms), {p4['ms_per_iter']:.4f} ms per "
+        f"iteration; K1 in phase 2: {k1_ms:.3f} ms per chunk, "
+        f"{p4['k1_ms_per_iter']:.4f} ms per ADMM iteration (P4's iteration "
+        f"{p4['ms_per_iter'] / p4['k1_ms_per_iter']:.1%} of it)")
+    log(f"T1 P4 re-layout: kernel {p4['relayout_ms']:.5f} ms (inside the "
+        f"call's time), PyTorch permute copy {p4['relayout_library_ms']:.5f}"
+        " ms")
     B3, phi, Mi, MP, PL = npb.B3, npb.PHI, npb.MI, npb.MP, npb.PL
     n = phi * B3
+    rung = 4 * Mi * phi * phi * B3 * B3
     bounds = {
         1: bound(4 * (MP * B3 + 108 * B3), 2 * 108 * B3),
         2: bound(4 * (phi * phi * B3 * B3 + 2 * n), 2 * n * n),
         3: bound(4 * (MP * B3 + B3 * PL + MP * PL), 3 * 2 * MP * B3 * PL,
                  BF16_FLOPS),
-        4: bound(4 * (Mi * phi * phi * B3 * B3 + phi * phi + 2 * Mi * n),
-                 npb.INNER * (2 * Mi - 1) * 2 * n * n)}
-    return {p: dict(res[f"P{p}"], launches=counts[f"t1p{p}"],
-                    bound=bounds[p]) for p in range(1, 5)}
+        4: bound(rung + 4 * (phi * phi + 2 * Mi * n),
+                 npb.INNER * (2 * Mi - 1) * 2 * n * n),
+        "4r": bound(2 * rung, 0)}
+    out = {p: dict(res[f"P{p}"], launches=counts[f"t1p{p}"],
+                   bound=bounds[p]) for p in range(1, 5)}
+    out["4r"] = dict(launches=counts["t1p4r"],
+                     max_abs_err=p4["relayout_max_abs_err"],
+                     ms=p4["relayout_ms"],
+                     plain_ms=p4["relayout_plain_ms"],
+                     library_ms=p4["relayout_library_ms"],
+                     bound=bounds["4r"])
+    return out
 
 
 def row_pattern_probes(dev):
@@ -1436,7 +1469,7 @@ def main() -> int:
     # ---- phases 14-17: the probes T2, T3, T1, T5 ----
     t2 = prim_bench(dev)
     t3 = probe_stages(dev)
-    t1 = nsfused_probes(dev)
+    t1 = nsfused_probes(dev, k1["ms"])
     t5 = row_pattern_probes(dev)
 
     def entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
@@ -1446,7 +1479,8 @@ def main() -> int:
         # recurrence, P4's sweeps or T5's fourteen patterns together, so
         # those have no library time (phase 17 times each pattern's own);
         # T4's function is one torch.sum, T3's mv stage and T1's P2 one
-        # torch.einsum, P1 one torch.add on views, P3 one torch.matmul
+        # torch.einsum, P1 one torch.add on views, P3 one torch.matmul,
+        # P4's re-layout one copy of the permuted rung (its plain version)
         return {"name": name, "route": "cuda",
                 "source": "swarm_simulator_tpu_torch/csrc/" + source,
                 "replaces": replaces, "launches": launches,
@@ -1497,6 +1531,11 @@ def main() -> int:
                 t1[p]["launches"], t1[p]["max_abs_err"], t1[p]["ms"],
                 t1[p]["plain_ms"], t1[p]["bound"], t1[p]["library_ms"])
           for p, line in ((1, 67), (2, 106), (3, 156), (4, 231))),
+        entry("nsfused_probe_p4_relayout", "nsfused_probe.cu",
+              "tools/pallas_debug/nsfused_probe.py:231",
+              t1["4r"]["launches"], t1["4r"]["max_abs_err"], t1["4r"]["ms"],
+              t1["4r"]["plain_ms"], t1["4r"]["bound"],
+              t1["4r"]["library_ms"]),
         entry("row_pattern", "row_patterns.cu",
               "tools/pallas_debug/mosaic_patterns.py:21",
               t5["counts"]["t5"], t5["max_abs_err"], t5["ms"],

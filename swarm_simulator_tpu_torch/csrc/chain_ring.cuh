@@ -1,13 +1,14 @@
 // The Thomas chain's row stream and vector exchange, shared by K1
-// (csrc/nsfused.cu), K2, K3a and K3b (csrc/thomas.cu), the staged probe T3
+// (csrc/nsfused.cu), K2, K3a and K3b (csrc/thomas.cu), T1's P4 (with K2
+// through csrc/thomas_chain.cuh), the staged probe T3
 // (csrc/thomas_probe.cu) and the chain-primitive bench T2
 // (csrc/thomas_prim.cu) on Hopper (sm_90a).
 //
 // A chain of dependent stages runs on `ncb` chain blocks; each stage
 // reads one knot's pivot block, in an order the kernel names (Order):
-// K1 and K2 run 2*Mi - 1 stages, the forward sweep over knots 0..Mi-1
-// and the back substitution over Mi-2..0; K3a one chunk's knots forward,
-// K3b backward.
+// K1, K2 and P4 run 2*Mi - 1 stages, the forward sweep over knots
+// 0..Mi-1 and the back substitution over Mi-2..0; K3a one chunk's knots
+// forward, K3b backward.
 // Chain block c owns the row groups [c*gpb, (c+1)*gpb) (gpb*phi rows) of
 // every knot's pivot block, so its rows of one knot are one contiguous
 // byte span.  The pivot rows of a stage do not depend on the chain, only
@@ -17,8 +18,8 @@
 // tile as soon as its slot is consumed, so the copies of later stages
 // are in flight while the block waits for the vector and takes the dot.
 // The stream of tiles is periodic, `nstage` stages a period: K1 runs it
-// once per ADMM iteration, T2 once per repetition (the forward order
-// repeated: step s reads knot s mod Mi).
+// once per ADMM iteration, P4 once per iteration, T2 once per repetition
+// (the forward order repeated: step s reads knot s mod Mi).
 //
 // TMA needs 16-byte aligned addresses and sizes.  A block's span starts
 // on a 16-byte boundary only when a row is a multiple of 16 bytes
@@ -215,14 +216,24 @@ enum Order { kForwardBack = 0, kForward, kBackward };
 // of `dinv` [Mi, bs, bs]: tile i of the stream is tile i % ntile of stage
 // (i / ntile) % nstage, whose knot is the stage's in the order kOrder
 // (fixed at compile time: the stream's address arithmetic takes no
-// branch on it).
-template <typename T, int kOrder = kForwardBack>
+// branch on it).  With kSkip the stream leaves out the `nskip` stages of
+// a period from stage `skip0` on (their rows sit in shared memory
+// beside the ring, T1's P4): `nstage` then counts the stages a period
+// streams, and streamed stage q is stage q, or q + nskip from skip0 on.
+// With kIssueLast the block's last thread refills a released slot, not
+// thread 0, which owns the block's first row: the copy's issue then does
+// not delay that row's entry of the next vector (T1's P4; 5% of P4's
+// time, and 8-10% of K1's and K2's, which still issue from thread 0,
+// on an H100, PERF.md).
+template <typename T, int kOrder = kForwardBack, bool kSkip = false,
+          bool kIssueLast = false>
 struct RowRing {
   uint64_t* bars;
   unsigned char* slots;
   size_t slot;  // bytes of one slot
   const T* dinv;
   int bs, Mi, r0, r1, tile_rows, nslots, ntile, nstage;
+  int skip0, nskip;  // kSkip only
   long long ntiles;  // tiles of the whole stream
   bool aligned;      // rows are 16-byte multiples: no ragged edges
 
@@ -244,7 +255,9 @@ struct RowRing {
   // the global span of tile i: its first row and row count, and where it
   // starts
   __device__ const T* span(long long i, int* row0, int* nr) const {
-    const int s = (int)((i / ntile) % nstage), t = (int)(i % ntile);
+    int s = (int)((i / ntile) % nstage);
+    if (kSkip && s >= skip0) s += nskip;
+    const int t = (int)(i % ntile);
     const int a = r0 + t * tile_rows;
     *row0 = a - r0;
     *nr = r1 - a < tile_rows ? r1 - a : tile_rows;
@@ -302,11 +315,12 @@ struct RowRing {
     return d;
   }
 
-  // every thread, after its last read of tile i's slot: thread 0 refills
-  // the slot with tile i + nslots
+  // every thread, after its last read of tile i's slot: thread 0 (or,
+  // kIssueLast, the last thread) refills the slot with tile i + nslots
   __device__ void release(long long i) const {
     __syncthreads();
-    if (threadIdx.x == 0 && i + nslots < ntiles) issue(i + nslots);
+    const unsigned issuer = kIssueLast ? blockDim.x - 1 : 0;
+    if (threadIdx.x == issuer && i + nslots < ntiles) issue(i + nslots);
   }
 };
 

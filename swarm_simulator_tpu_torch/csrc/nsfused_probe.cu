@@ -26,11 +26,21 @@
 // the tile's store takes 5.3-5.8 and the panels' copy, the split and the
 // products ~1.8 each (PERF.md).  P4's 46.4 MB rung fits the 50 MB L2
 // but not the 132 SMs' 29.97 MB of shared memory, and each iteration is a
-// chain of 69 dependent applies of 1.33 MB each.
+// chain of 69 dependent applies of 1.33 MB each: the latency of a chain
+// stage sets its time, as K2's (csrc/thomas.cu).
 //
-// What the design does about it: P1 one thread per output; P2 a block per
-// (g, 32 columns), eight warps splitting the 576 rows (f, b), partial sums
-// added in warp order in shared memory.  P3 one block per 64 x 64 output
+// What the design does about it: P1 one thread per output.  P2 one
+// thread-block cluster per 16 output columns (all three g; ops/
+// nsfused_probe.p2_plan: 12 clusters of 8 blocks at B3 = 192), the blocks
+// splitting the 576 rows (f, b): each of a block's 96 threads loads its
+// 16-byte row segments all at once (9 at 72 rows a block), so a block
+// waits one memory round trip, not a chain of dependent loads; the eight
+// lanes of a (g, 4 columns) add in registers, and each block stores its
+// partial tile into the cluster leader's shared memory (distributed shared
+// memory), which adds them in rank order after one cluster barrier
+// (deterministic, no atomics, nothing through device memory).  (The first
+// design, a block per (g, 32 columns) on 18 SMs, walked 72 dependent loads
+// a thread.)  P3 one block per 64 x 64 output
 // tile (4 x 32 = 128 blocks at 216 x 2048, one wave on 132 SMs; the M edge
 // masked): the block copies its x rows [64, 192] and s columns [192, 64]
 // into shared memory at once (16-byte cp.async, all in flight), splits
@@ -40,12 +50,26 @@
 // bytes, so a read hits no bank twice), and the tile leaves through
 // shared memory in 16-byte row stores.  (The first design, a warp per
 // 16 x 32 tile loading every fragment from device memory, read x 64
-// times and s 14 times and lost to torch.matmul, PERF.md.)  P4 "resident"
-// means resident in L2: one cooperative launch of 24 blocks, block j owning
-// columns [8j, 8j + 8) of all three g, so an apply and its ho coupling
-// stay inside the block and each chain stage costs one grid sync; after the
-// first iteration the rung is read from L2, not device memory.
-#include "probe_common.cuh"
+// times and s 14 times and lost to torch.matmul, PERF.md.)  P4 is K2's
+// chain with P4's back substitution: through the permutation
+// row (c, g) -> 3c + g, column (b, f) -> 3b + f, the tile-form apply
+// D(k) v is the flat [576, 576] block M_k[3c + g, 3b + f] =
+// D6[r, k, f, g, b, c] against v in the same order, hoT and ho_ are
+// K2's (I (x) ho)^T and (I (x) ho) on groups of 3, and the back form is
+// x_k = t_k - M_k (I (x) ho) x_{k+1}.  So P4 is two launches: the
+// re-layout (the TPU kernel's copy of the rung into VMEM), a tiled
+// transpose through shared memory that reads and writes the rung once
+// (32 c x 32 b x 3 f a block, coalesced on c in and on (b, f) out, the
+// source read under evict-first so the flat rung stays in L2), then all
+// `inner` iterations in one launch of the template csrc/thomas_chain.cuh
+// (kTForm): 96 chain blocks of 2 row groups on the chain ring, the
+// vector in stage-tagged entries with no grid sync between stages or
+// iterations, each block's T rows in shared memory, and optionally its
+// rows of the last few knots (ops/nsfused_probe.p4_plan).  (The first
+// design, 24 cooperative blocks of 8 columns, synced the grid after each
+// of the 3450 stages and reloaded the vector from device memory: 5.74 us
+// a stage.)
+#include "thomas_chain.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -63,26 +87,107 @@ __global__ void p1_kernel(const float* __restrict__ x, float* __restrict__ out) 
   out[e] = x[(6 * i + j) * kB3 + c] + 2.0f * x[(6 * i + 3 + j) * kB3 + c];
 }
 
-// ---- P2: grid (3 g, 6 column chunks), 256 threads ----
-__global__ void __launch_bounds__(kThreads)
+// ---- P2: a cluster per kP2Cols output columns, kP2Threads a block ----
+constexpr int kP2Cols = 16;                  // ops/nsfused_probe.P2_COLS
+constexpr int kP2Quads = kP2Cols / 4;        // float4 columns of a tile
+constexpr int kP2Lanes = 8;                  // threads of one (g, quad)
+constexpr int kP2Steps = 12;                 // rows a lane at most
+constexpr int kP2Threads = kPhi * kP2Quads * kP2Lanes;  // 96
+constexpr int kP2MaxCluster = 8;             // the portable cluster size
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// block `rank` of cluster `tile` sums rows [rank * rows, +rows) of the
+// 576 (f, b) for columns [tile * kP2Cols, +kP2Cols) of all three g; thread
+// (q, l) takes quad q = g * kP2Quads + column quad, rows l, l + 8, ...
+__global__ void __launch_bounds__(kP2Threads)
     p2_kernel(const float* __restrict__ d, const float* __restrict__ y,
-              float* __restrict__ out) {
-  __shared__ float red[8][32];
-  const int g = blockIdx.x, c = blockIdx.y * 32 + (threadIdx.x & 31);
-  const int warp = threadIdx.x >> 5;
-  float s = 0.f;
-  for (int rr = warp; rr < kPhi * kB3; rr += 8) {
-    const int f = rr / kB3, b = rr - f * kB3;
-    s = fmaf(__ldg(d + (((size_t)(f * kPhi + g) * kB3 + b) * kB3 + c)),
-             __ldg(y + rr), s);
+              float* __restrict__ out, int cluster, int rows) {
+  __shared__ float4 part[kP2MaxCluster][kPhi * kP2Quads];  // the leader's
+  // the cluster's blocks must all have started before one writes into
+  // another's shared memory: arrive now, wait once the loads are in
+  cluster_arrive_relaxed();
+  const int rank = blockIdx.x % cluster, tile = blockIdx.x / cluster;
+  const int q = threadIdx.x / kP2Lanes, l = threadIdx.x % kP2Lanes;
+  const int g = q / kP2Quads, c = tile * kP2Cols + (q % kP2Quads) * 4;
+  const int r0 = rank * rows, r1 = min(r0 + rows, kPhi * kB3);
+  float4 v[kP2Steps];
+  float w[kP2Steps];
+#pragma unroll
+  for (int u = 0; u < kP2Steps; ++u) {  // every load in flight at once
+    const int j = r0 + l + u * kP2Lanes;
+    if (j < r1) {
+      const int f = j / kB3, bb = j - f * kB3;
+      v[u] = __ldg(reinterpret_cast<const float4*>(
+          d + ((size_t)(f * kPhi + g) * kB3 + bb) * kB3 + c));
+      w[u] = __ldg(y + j);
+    } else {
+      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      w[u] = 0.f;
+    }
   }
-  red[warp][threadIdx.x & 31] = s;
-  __syncthreads();
-  if (warp == 0) {
-    float v = 0.f;
-    for (int w = 0; w < 8; ++w) v += red[w][threadIdx.x];
-    out[g * kB3 + c] = v;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int u = 0; u < kP2Steps; ++u) {
+    acc.x = fmaf(v[u].x, w[u], acc.x);
+    acc.y = fmaf(v[u].y, w[u], acc.y);
+    acc.z = fmaf(v[u].z, w[u], acc.z);
+    acc.w = fmaf(v[u].w, w[u], acc.w);
   }
+  // the kP2Lanes lanes of a quad are neighbours in one warp
+  for (int off = kP2Lanes / 2; off > 0; off >>= 1) {
+    acc.x += __shfl_xor_sync(0xffffffffu, acc.x, off);
+    acc.y += __shfl_xor_sync(0xffffffffu, acc.y, off);
+    acc.z += __shfl_xor_sync(0xffffffffu, acc.z, off);
+    acc.w += __shfl_xor_sync(0xffffffffu, acc.w, off);
+  }
+  cluster_wait();
+  cg::cluster_group cl = cg::this_cluster();
+  if (l == 0) *cl.map_shared_rank(&part[rank][q], 0) = acc;
+  cl.sync();  // every partial has landed in the leader's slots
+  if (rank == 0 && threadIdx.x < kPhi * kP2Quads) {
+    const int qq = threadIdx.x;
+    float4 s = part[0][qq];
+    for (int r = 1; r < cluster; ++r) {  // in rank order
+      const float4 o = part[r][qq];
+      s.x += o.x;
+      s.y += o.y;
+      s.z += o.z;
+      s.w += o.w;
+    }
+    *reinterpret_cast<float4*>(out + (qq / kP2Quads) * kB3 + tile * kP2Cols +
+                               (qq % kP2Quads) * 4) = s;
+  }
+}
+
+// an empty kernel: the launch floor of a grid (tools/chain_bench --floor)
+__global__ void floor_kernel() {}
+
+// launch `kernel` over `blocks` blocks of `threads` in clusters of
+// `cluster` blocks (1: no cluster) on `stream`
+template <typename... Args>
+cudaError_t launch_clustered(void (*kernel)(Args...), int blocks,
+                             int threads, int cluster, cudaStream_t stream,
+                             Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 // ---- P3 ----
@@ -247,100 +352,32 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---- P4: 24 cooperative blocks, block j owns columns [8j, 8j + 8) ----
-struct P4Params {
-  const float* d;   // [Mi, 3, 3, 192, 192] the rung
-  const float* ho;  // [3, 3]
-  const float* b;   // [Mi, 3, 192]
-  float* t;         // [Mi, 3, 192] scratch
-  float* x;         // [Mi, 3, 192] out
-  int Mi, inner;
-};
+// ---- P4: the re-layout, then the chain (csrc/thomas_chain.cuh) ----
+constexpr int kRelTile = 32;  // c and b a re-layout block takes
 
-__global__ void __launch_bounds__(kThreads) p4_kernel(const P4Params p) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ float v[kPhi * kB3];
-  __shared__ float red[32][kPhi][8];
-  __shared__ float res[kPhi][8];
-  __shared__ float ho[kPhi][kPhi];
-  const int col = threadIdx.x & 7, rp = threadIdx.x >> 3;
-  const int c0 = blockIdx.x * 8;
+// m [Mi, 576, 576] from the rung d [Mi, 3 f, 3 g, 192 b, 192 c]:
+// m[k, 3c + g, 3b + f] = d[k, f, g, b, c].  Block (b tile, c tile, 3k + g)
+// reads 3 f x 32 b rows of 32 c (128 bytes each) and writes 32 rows
+// (c, g) of 96 (b, f), through a tile padded to 97 floats a row (the
+// reads down a column and along a row each hit 32 banks)
+__global__ void __launch_bounds__(kThreads)
+    p4_relayout_kernel(const float* __restrict__ d, float* __restrict__ m) {
+  __shared__ float tile[kRelTile][kPhi * kRelTile + 1];
+  const int b0 = blockIdx.x * kRelTile, c0 = blockIdx.y * kRelTile;
+  const int k = blockIdx.z / kPhi, g = blockIdx.z - kPhi * k;
   const int n = kPhi * kB3;
-  if (threadIdx.x < kPhi * kPhi) ho[threadIdx.x / kPhi][threadIdx.x % kPhi] =
-      p.ho[threadIdx.x];
+  for (int e = threadIdx.x; e < kPhi * kRelTile * kRelTile; e += kThreads) {
+    const int cl = e % kRelTile, bl = (e / kRelTile) % kRelTile;
+    const int f = e / (kRelTile * kRelTile);
+    tile[cl][bl * kPhi + f] = __ldcs(
+        d + (((size_t)(k * kPhi + f) * kPhi + g) * kB3 + b0 + bl) * kB3 + c0 +
+        cl);
+  }
   __syncthreads();
-
-  // res[g][col] = D(k) v [g, c0 + col]
-  auto dapply = [&](int k) {
-    float acc[kPhi] = {0.f, 0.f, 0.f};
-    for (int rr = rp; rr < n; rr += 32) {
-      const int f = rr / kB3, bb = rr - f * kB3;
-      const float vr = v[rr];
-      for (int g = 0; g < kPhi; ++g)
-        acc[g] = fmaf(__ldg(p.d + ((((size_t)k * kPhi + f) * kPhi + g) * kB3 +
-                                   bb) * kB3 + c0 + col),
-                      vr, acc[g]);
-    }
-    for (int g = 0; g < kPhi; ++g) red[rp][g][col] = acc[g];
-    __syncthreads();
-    if (threadIdx.x < kPhi * 8) {
-      const int g = threadIdx.x >> 3, cc = threadIdx.x & 7;
-      float s = 0.f;
-      for (int r = 0; r < 32; ++r) s += red[r][g][cc];
-      res[g][cc] = s;
-    }
-    __syncthreads();
-  };
-
-  const int Mi = p.Mi;
-  const int gg = threadIdx.x >> 3, cc = threadIdx.x & 7;  // < 24: (g, col)
-  const size_t row = kPhi * kB3;
-  for (int it = 0; it < p.inner; ++it) {
-    // ---- forward ----
-    for (int k = 1; k < Mi; ++k) {
-      const float* src = k == 1 ? p.b : p.x + (size_t)(k - 1) * row;
-      for (int i = threadIdx.x; i < n; i += kThreads) v[i] = __ldcg(src + i);
-      __syncthreads();
-      dapply(k - 1);
-      if (threadIdx.x < kPhi * 8) {
-        const int c = c0 + cc;
-        p.t[(size_t)(k - 1) * row + gg * kB3 + c] = res[gg][cc];
-        float s = 0.f;
-        for (int f = 0; f < kPhi; ++f) s = fmaf(ho[f][gg], res[f][cc], s);
-        // y_k lives in x's row k until the back substitution overwrites it
-        p.x[(size_t)k * row + gg * kB3 + c] =
-            p.b[(size_t)k * row + gg * kB3 + c] - s;
-      }
-      grid.sync();
-    }
-    // ---- x_{Mi-1} = D(Mi-1) y_{Mi-1} ----
-    {
-      const float* src = Mi == 1 ? p.b : p.x + (size_t)(Mi - 1) * row;
-      for (int i = threadIdx.x; i < n; i += kThreads) v[i] = __ldcg(src + i);
-      __syncthreads();
-      dapply(Mi - 1);
-      if (threadIdx.x < kPhi * 8)
-        p.x[(size_t)(Mi - 1) * row + gg * kB3 + c0 + cc] = res[gg][cc];
-      grid.sync();
-    }
-    // ---- back substitution ----
-    for (int k = Mi - 2; k >= 0; --k) {
-      const float* xn = p.x + (size_t)(k + 1) * row;
-      for (int i = threadIdx.x; i < n; i += kThreads) {
-        const int f = i / kB3, bb = i - f * kB3;
-        float s = 0.f;
-        for (int g = 0; g < kPhi; ++g)
-          s = fmaf(ho[f][g], __ldcg(xn + g * kB3 + bb), s);
-        v[i] = s;
-      }
-      __syncthreads();
-      dapply(k);
-      if (threadIdx.x < kPhi * 8) {
-        const size_t e = (size_t)k * row + gg * kB3 + c0 + cc;
-        p.x[e] = p.t[e] - res[gg][cc];
-      }
-      grid.sync();
-    }
+  for (int e = threadIdx.x; e < kRelTile * kPhi * kRelTile; e += kThreads) {
+    const int j = e % (kPhi * kRelTile), cl = e / (kPhi * kRelTile);
+    m[((size_t)k * n + (size_t)(c0 + cl) * kPhi + g) * n + kPhi * b0 + j] =
+        tile[cl][j];
   }
 }
 
@@ -363,11 +400,29 @@ int nsfused_probe_p1(void* x, void* out, void* stream) {
   return finish(cudaSuccess);
 }
 
-// P2: out [3, 192] = the apply of d [3, 3, 192, 192] (D6[r, 3]) to y [3, 192].
-int nsfused_probe_p2(void* d, void* y, void* out, void* stream) {
-  p2_kernel<<<dim3(kPhi, kB3 / 32), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)d, (const float*)y, (float*)out);
-  return finish(cudaSuccess);
+// P2: out [3, 192] = the apply of d [3, 3, 192, 192] (D6[r, 3]) to y [3, 192]
+// (d and out 16-byte aligned): ops/nsfused_probe.p2_plan's clusters of
+// `cluster` blocks, `rows` of the 576 (f, b) a block.
+int nsfused_probe_p2(void* d, void* y, void* out, int cluster, int rows,
+                     void* stream) {
+  if (cluster < 1 || cluster > kP2MaxCluster || rows < 1 ||
+      rows > kP2Lanes * kP2Steps || cluster * rows < kPhi * kB3 ||
+      ((uintptr_t)d | (uintptr_t)out) % 16)
+    return (int)cudaErrorInvalidValue;
+  return finish(launch_clustered(
+      p2_kernel, cluster * (kB3 / kP2Cols), kP2Threads, cluster,
+      (cudaStream_t)stream, (const float*)d, (const float*)y, (float*)out,
+      cluster, rows));
+}
+
+// an empty kernel over `blocks` blocks of `threads` in clusters of
+// `cluster` (blocks a multiple of it)
+int nsfused_probe_floor(int blocks, int threads, int cluster, void* stream) {
+  if (blocks < 1 || threads < 1 || cluster < 1 ||
+      cluster > kP2MaxCluster || blocks % cluster)
+    return (int)cudaErrorInvalidValue;
+  return finish(launch_clustered(floor_kernel, blocks, threads, cluster,
+                                 (cudaStream_t)stream));
 }
 
 // P3: out [M, N] = x [M, K] @ s [K, N] through three bf16 parts of x
@@ -390,28 +445,39 @@ int nsfused_probe_p3(void* x, void* s, void* out, int M, int K, int N,
   return finish(cudaSuccess);
 }
 
-// P4: `inner` iterations of both sweeps: d [Mi, 3, 3, 192, 192] (the rung),
-// ho [3, 3], b [Mi, 3, 192]; scratch t [Mi, 3, 192]; x [Mi, 3, 192] out.
-int nsfused_probe_p4(void* d, void* ho, void* b, void* t, void* x, int Mi,
-                     int inner, void* stream) {
-  if (Mi < 1 || inner < 1) return (int)cudaErrorInvalidValue;
-  int dev = 0, coop = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return (int)cudaErrorNotSupported;
-  P4Params p;
-  p.d = (const float*)d;
+// P4's re-layout: m [Mi, 576, 576] from the rung d [Mi, 3, 3, 192, 192].
+int nsfused_probe_p4_relayout(void* d, void* m, int Mi, void* stream) {
+  if (Mi < 1) return (int)cudaErrorInvalidValue;
+  p4_relayout_kernel<<<dim3(kB3 / kRelTile, kB3 / kRelTile, Mi * kPhi),
+                       kThreads, 0, (cudaStream_t)stream>>>((const float*)d,
+                                                            (float*)m);
+  return finish(cudaSuccess);
+}
+
+// P4's chain: `inner` iterations of both sweeps over the re-laid rung
+// m [Mi, 576, 576] with ho [3, 3] at every knot, from b [Mi, 576] (rows
+// 3c + g) into x [Mi, 576]; vbuf [3, 576] 64-bit scratch; gpb,
+// tile_rows, nslots, resident and smem the plan of
+// ops/nsfused_probe.p4_plan.
+int nsfused_probe_p4(void* m, void* ho, void* b, void* vbuf, void* x, int Mi,
+                     int inner, int gpb, int tile_rows, int nslots,
+                     int resident, int smem, void* stream) {
+  chain::SolveParams<float> p;
+  p.dinv = (const float*)m;
   p.ho = (const float*)ho;
   p.b = (const float*)b;
-  p.t = (float*)t;
+  p.vbuf = (unsigned long long*)vbuf;
   p.x = (float*)x;
+  p.B3 = kB3;
   p.Mi = Mi;
-  p.inner = inner;
-  void* args[] = {&p};
-  return finish(cudaLaunchCooperativeKernel((const void*)p4_kernel,
-                                            dim3(kB3 / 8), dim3(kThreads),
-                                            args, 0, (cudaStream_t)stream));
+  p.phi = kPhi;
+  p.gpb = gpb;
+  p.tile_rows = tile_rows;
+  p.nslots = nslots;
+  p.ho_stride = 0;
+  p.nperiod = inner;
+  p.resident = resident;
+  return chain::launch_solve<float, true, true>(p, smem, (cudaStream_t)stream);
 }
 
 const char* nsfused_probe_error_string(int e) {

@@ -29,7 +29,8 @@
 // (bs = 2304) a stage moves 21.2 MB, ~6.3 us at the HBM rate, and the
 // stream of rows does.
 //
-// K2's design (csrc/chain_ring.cuh): a persistent cooperative grid of
+// K2's design (csrc/chain_ring.cuh; its kernel body, the template
+// csrc/thomas_chain.cuh, also runs T1's P4): a persistent cooperative grid of
 // chain blocks, one per SM at most, block c owning gpb whole row groups of
 // every knot, so its rows of a stage are one contiguous span.  The rows
 // of a stage do not depend on the chain, only the vector does: each block
@@ -69,108 +70,14 @@
 // agents (a 35-knot chunk reads 46.4 MB, 14 us at the HBM rate), the row
 // stream at 256.  Beside the ring a block keeps the vector and its
 // products, no rows of earlier knots (ops/thomas.chunk_plan).
-#include "chain_ring.cuh"
+#include "thomas_chain.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = chain::kThreads;
-constexpr int kMaxPhi = 4;
-
-template <typename T>
-struct Params {
-  const T* dinv;    // [Mi, bs, bs] pivot inverses of the rung
-  const float* ho;  // [Mi-1, phi, phi]
-  const float* b;   // [Mi, bs]
-  unsigned long long* vbuf;  // [2, bs] scratch: tagged vector entries
-  float* x;                  // [Mi, bs] solution
-  int B3, Mi, phi, gpb, tile_rows, nslots;
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) thomas_kernel(const Params<T> p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int phi = p.phi, Mi = p.Mi, bs = p.B3 * phi;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nstage = 2 * Mi - 1;
-  const int rows = p.gpb * phi;
-
-  chain::RowRing<T> ring;
-  ring.dinv = p.dinv;
-  ring.bs = bs;
-  ring.Mi = Mi;
-  ring.r0 = min((int)blockIdx.x * rows, bs);
-  ring.r1 = min(ring.r0 + rows, bs);
-  ring.tile_rows = p.tile_rows;
-  ring.nslots = p.nslots;
-  ring.ntile = (ring.r1 - ring.r0 + p.tile_rows - 1) / p.tile_rows;
-  ring.nstage = nstage;
-  ring.ntiles = (long long)nstage * ring.ntile;
-  ring.aligned = (bs * (int)sizeof(T)) % 16 == 0;
-  float* vec = reinterpret_cast<float*>(ring.carve(smem));  // [bs]
-  float* tv = vec + bs;    // [rows] this stage's products of the block
-  float* ysh = tv + rows;  // [Mi, rows] the block's forward rows y_k
-  const int r0 = ring.r0, nrows = ring.r1 - ring.r0;
-
-  if (tid == 0) ring.start();
-  for (int j = blockIdx.x * kThreads + tid; j < 2 * bs;
-       j += gridDim.x * kThreads)
-    p.vbuf[j] = 0ull;
-  // no entry carries a tag yet, for every block
-  cg::this_grid().sync();
-
-  long long i = 0;  // this block's next tile
-  for (int s = 0; s < nstage; ++s) {
-    const int k = ring.knot_of(s);
-    // ---- the stage's vector: b_0, then what the last stage formed ----
-    if (s == 0) {
-      for (int j = tid; j < bs; j += kThreads) vec[j] = __ldg(p.b + j);
-      __syncthreads();
-    } else {
-      chain::gather_tagged(p.vbuf + (size_t)(s & 1) * bs, vec, bs,
-                           (unsigned)s);
-    }
-    // ---- the block's rows of Dinv_k against it ----
-    for (int t = 0; t < ring.ntile; ++t, ++i) {
-      int row0, nr;
-      const T* A = ring.acquire(i, &row0, &nr);
-      for (int r = warp; r < nr; r += chain::kWarps) {
-        const float v = chain::dot_shared(A + (size_t)r * bs, vec, bs, lane,
-                                          ring.aligned);
-        if (lane == 0) tv[row0 + r] = v;
-      }
-      ring.release(i);
-    }
-    // ---- each owned row: its result, and its entry of the next vector ----
-    const float* H = nullptr;  // the coupling of the next stage's vector
-    if (s < Mi - 1) H = p.ho + (size_t)k * phi * phi;   // Ho_k^T T_k
-    else if (k > 0) H = p.ho + (size_t)(k - 1) * phi * phi;  // Ho_{k-1} x_k
-    for (int e = tid; e < nrows; e += kThreads) {
-      const int a = e % phi;
-      const float* tg = tv + (e - a);  // the row group's results
-      float next = 0.f;
-      if (s < Mi - 1) {  // forward: y_{k+1} = b_{k+1} - (I (x) Ho_k)^T T_k
-        if (k == 0) ysh[e] = vec[r0 + e];  // y_0 = b_0
-        float c = 0.f;
-        for (int q = 0; q < phi; ++q) c = fmaf(H[q * phi + a], tg[q], c);
-        next = __ldg(p.b + (size_t)(k + 1) * bs + r0 + e) - c;
-        ysh[(size_t)(k + 1) * rows + e] = next;
-      } else {  // x_k; then y_{k-1} - (I (x) Ho_{k-1}) x_k
-        p.x[(size_t)k * bs + r0 + e] = tg[a];
-        if (k > 0) {
-          float c = 0.f;
-          for (int q = 0; q < phi; ++q) c = fmaf(H[a * phi + q], tg[q], c);
-          next = ysh[(size_t)(k - 1) * rows + e] - c;
-        }
-      }
-      if (s + 1 < nstage)
-        chain::put_tagged(p.vbuf + (size_t)((s + 1) & 1) * bs + r0 + e, next,
-                          (unsigned)(s + 1));
-    }
-    __syncthreads();  // vec and tv are rewritten by the next stage
-  }
-}
+constexpr int kMaxPhi = chain::kMaxPhi;
 
 // K3a / K3b: one chunk's sweep on the chain ring (the note above)
 struct ChunkParams {
@@ -307,29 +214,13 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // K2 on pivots of type T: the ring plan (gpb, tile_rows, nslots, smem) of
-// ops/thomas.ring_plan, one block per gpb row groups; refused if the plan
-// does not fit the layout the kernel carves or the grid cannot co-reside
+// ops/thomas.ring_plan, one period, Ho per knot (chain::launch_solve
+// refuses what the plan or the card cannot take)
 template <typename T>
 int solve_as(void* dinv, void* ho, void* b, void* vbuf, void* x, int B3,
              int Mi, int phi, int gpb, int tile_rows, int nslots, int smem,
              void* stream) {
-  if (phi < 1 || phi > kMaxPhi || Mi < 1 || B3 < 1 || gpb < 1 ||
-      tile_rows < 1 || tile_rows > gpb * phi || nslots < 1 ||
-      nslots > chain::kMaxSlots)
-    return (int)cudaErrorInvalidValue;
-  const int bs = B3 * phi, rows = gpb * phi;
-  const size_t need = chain::kBarBytes +
-                      nslots * chain::slot_bytes(tile_rows, bs, sizeof(T)) +
-                      sizeof(float) * ((size_t)bs + rows + (size_t)Mi * rows);
-  if ((size_t)smem < need) return (int)cudaErrorInvalidValue;
-  const int want = (B3 + gpb - 1) / gpb;
-  int grid = 0;
-  int e = probe::coop_grid((const void*)thomas_kernel<T>, kThreads, smem,
-                           want, &grid);
-  if (e != 0) return e;
-  // the chain needs every block of the plan resident at once
-  if (grid < want) return (int)cudaErrorCooperativeLaunchTooLarge;
-  Params<T> p;
+  chain::SolveParams<T> p;
   p.dinv = (const T*)dinv;
   p.ho = (const float*)ho;
   p.b = (const float*)b;
@@ -341,12 +232,10 @@ int solve_as(void* dinv, void* ho, void* b, void* vbuf, void* x, int B3,
   p.gpb = gpb;
   p.tile_rows = tile_rows;
   p.nslots = nslots;
-  void* args[] = {&p};
-  cudaError_t c = cudaLaunchCooperativeKernel(
-      (const void*)thomas_kernel<T>, dim3(want), dim3(kThreads), args, smem,
-      (cudaStream_t)stream);
-  if (c != cudaSuccess) return (int)c;
-  return (int)cudaGetLastError();
+  p.ho_stride = phi * phi;
+  p.nperiod = 1;
+  p.resident = 0;
+  return chain::launch_solve<T, false, false>(p, smem, (cudaStream_t)stream);
 }
 
 // K3a / K3b: the ring plan (gpb, tile_rows, nslots, smem) of

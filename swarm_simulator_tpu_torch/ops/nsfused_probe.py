@@ -13,18 +13,26 @@ which replace the four Pallas TPU kernels of the JAX package's
                                     three bf16 parts of x, float32 sums,
                                     one block per 64 x 64 tile of out
   p4_resident_thomas     (P4, :231) ``inner`` iterations of the tile-form
-                                    forward and backward Thomas sweeps
+                                    forward and backward Thomas sweeps:
+                                    p4_relayout (the rung into K2's flat
+                                    row order), then p4_chain (the
+                                    iterations in one launch of K2's chain
+                                    template with P4's back substitution)
 
 Each launches its kernel for CUDA float32 tensors or raises, runs its plain
 version (``*_reference``) for CPU tensors, and counts its launches.
+``launch_floor`` launches an empty kernel (the floor a launch-bound probe
+is timed against; no plain version).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import _build
+from . import thomas
 
 MI, PHI, B3 = 35, 3, 192
 MP, PL = 216, 2048    # pair rows, padded pair lanes
@@ -36,20 +44,26 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.nsfused_probe_p1.restype = ci
     lib.nsfused_probe_p1.argtypes = [vp] * 3
     lib.nsfused_probe_p2.restype = ci
-    lib.nsfused_probe_p2.argtypes = [vp] * 4
+    lib.nsfused_probe_p2.argtypes = [vp] * 3 + [ci] * 2 + [vp]
+    lib.nsfused_probe_floor.restype = ci
+    lib.nsfused_probe_floor.argtypes = [ci] * 3 + [vp]
     lib.nsfused_probe_p3.restype = ci
     lib.nsfused_probe_p3.argtypes = [vp] * 3 + [ci] * 3 + [vp]
+    lib.nsfused_probe_p4_relayout.restype = ci
+    lib.nsfused_probe_p4_relayout.argtypes = [vp] * 2 + [ci] + [vp]
     lib.nsfused_probe_p4.restype = ci
-    lib.nsfused_probe_p4.argtypes = [vp] * 5 + [ci] * 2 + [vp]
+    lib.nsfused_probe_p4.argtypes = [vp] * 5 + [ci] * 7 + [vp]
     lib.nsfused_probe_error_string.restype = ctypes.c_char_p
     lib.nsfused_probe_error_string.argtypes = [ci]
 
 
-def _launch(fname: str, *args) -> None:
-    """Call ``fname`` of the library on the current stream of the first
-    tensor's device; tensors go as pointers, ints as they are."""
+def _launch(fname: str, *args, device=None) -> None:
+    """Call ``fname`` of the library on the current stream of ``device``
+    (default: the first tensor's); tensors go as pointers, ints as they
+    are."""
     lib = _build.load("nsfused_probe", _declare)
-    dev = next(a for a in args if isinstance(a, torch.Tensor)).device
+    dev = device or next(a for a in args
+                         if isinstance(a, torch.Tensor)).device
     with torch.cuda.device(dev):
         cargs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
                  else a for a in args]
@@ -102,23 +116,83 @@ def p2_tile_apply_reference(d6: torch.Tensor, y: torch.Tensor,
     return torch.stack(rows)
 
 
+#: output columns of one P2 cluster (csrc/nsfused_probe.cu: kP2Cols), the
+#: threads sharing a (g, 4 columns) and the rows each takes at most
+#: (kP2Lanes, kP2Steps), and the portable cluster size
+P2_COLS, P2_LANES, P2_STEPS, P2_MAX_CLUSTER = 16, 8, 12, 8
+
+
+class P2Plan(NamedTuple):
+    """P2's launch: ``tiles`` clusters of ``cluster`` blocks, cluster t
+    computing output columns [t * cols, (t + 1) * cols) of every g, block
+    rank q of it summing rows [q * rows, (q + 1) * rows) of the phi * B3
+    rows (f, b); ``threads`` a block."""
+    cols: int
+    tiles: int
+    cluster: int
+    rows: int
+    threads: int
+
+
+def p2_plan(B3: int = B3, phi: int = PHI, sms: int = 132) -> P2Plan:
+    """The cluster tiling of P2 on a card of ``sms`` multiprocessors: a
+    cluster per P2_COLS columns, as many blocks a cluster (at most
+    P2_MAX_CLUSTER) as keep every block on an SM of its own, but no fewer
+    than a block's registers need (P2_LANES * P2_STEPS rows at most), the
+    rows split evenly over a cluster's blocks (the kernel takes phi = 3
+    and B3 = 192).  Raises ValueError where B3 does not split into column
+    tiles or the rows do not fit P2_MAX_CLUSTER blocks."""
+    if B3 % P2_COLS:
+        raise ValueError(f"p2_tile_apply: {B3} columns do not split into "
+                         f"tiles of {P2_COLS}")
+    tiles = B3 // P2_COLS
+    least = -(-phi * B3 // (P2_LANES * P2_STEPS))
+    cluster = min(P2_MAX_CLUSTER, max(least, sms // tiles))
+    rows = -(-phi * B3 // cluster)
+    if rows > P2_LANES * P2_STEPS:
+        raise ValueError(f"p2_tile_apply: {rows} rows a block exceed "
+                         f"{P2_LANES * P2_STEPS}")
+    return P2Plan(cols=P2_COLS, tiles=tiles, cluster=cluster, rows=rows,
+                  threads=phi * (P2_COLS // 4) * P2_LANES)
+
+
 def p2_tile_apply(d6: torch.Tensor, y: torch.Tensor,
                   rho_idx: int) -> torch.Tensor:
     """[3, 192] = knot 3 of rung ``rho_idx`` of d6 [R, 35, 3, 3, 192, 192]
-    applied to y [3, 192] (P2)."""
+    applied to y [3, 192] (P2: p2_plan's clusters, the partial tiles added
+    in the leader's shared memory)."""
     if y.device.type == "cpu":
         return p2_tile_apply_reference(d6, y, rho_idx)
     _rung_ok("p2_tile_apply", d6, rho_idx, d6.shape[1])
     if d6.shape[1] < 4:
         raise ValueError("p2_tile_apply: d6 has no knot 3")
     _build.check_operands("p2_tile_apply", (("y", y, (PHI, B3)),))
+    d = d6[rho_idx, 3]
+    if d.data_ptr() % 16:
+        raise ValueError("p2_tile_apply: d6's knot is not 16-byte aligned")
+    plan = p2_plan(sms=thomas.sm_count(y.device))
     out = torch.empty((PHI, B3), dtype=torch.float32, device=y.device)
-    _launch("nsfused_probe_p2", d6[rho_idx, 3], y, out)
+    _launch("nsfused_probe_p2", d, y, out, plan.cluster, plan.rows)
     p2_tile_apply.launches += 1
     return out
 
 
 p2_tile_apply.launches = 0
+
+
+def launch_floor(blocks: int, threads: int, cluster: int,
+                 device) -> None:
+    """Launch an empty kernel of ``blocks`` blocks of ``threads`` in
+    clusters of ``cluster`` on ``device`` (a CUDA device; there is nothing
+    to run on the CPU): the floor a launch-bound kernel's time stands on."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"launch_floor: {device} is not a CUDA device")
+    _launch("nsfused_probe_floor", blocks, threads, cluster, device=device)
+    launch_floor.launches += 1
+
+
+launch_floor.launches = 0
 
 
 # ---- P3 ----
@@ -225,10 +299,131 @@ def p4_resident_thomas_reference(d6: torch.Tensor, ho: torch.Tensor,
     return x
 
 
+def p4_relayout_reference(d6: torch.Tensor, rho_idx: int) -> torch.Tensor:
+    """Rung ``rho_idx`` of d6 [R, Mi, 3, 3, 192, 192] as flat [576, 576]
+    blocks in K2's row order: m[k, 3c + g, 3b + f] = d6[r, k, f, g, b, c],
+    so that the tile-form apply D(k) v is m[k] @ v in the order 3b + f."""
+    Mi = d6.shape[1]
+    return d6[rho_idx].permute(0, 4, 2, 3, 1).reshape(Mi, PHI * B3,
+                                                      PHI * B3)
+
+
+def p4_relayout(d6: torch.Tensor, rho_idx: int) -> torch.Tensor:
+    """m [Mi, 576, 576] (p4_relayout_reference) from d6 [R, Mi, 3, 3, 192,
+    192]: a tiled transpose through shared memory on the card."""
+    if d6.device.type == "cpu":
+        return p4_relayout_reference(d6, rho_idx)
+    Mi = d6.shape[1]
+    _rung_ok("p4_relayout", d6, rho_idx, Mi)
+    m = torch.empty((Mi, PHI * B3, PHI * B3), dtype=torch.float32,
+                    device=d6.device)
+    _launch("nsfused_probe_p4_relayout", d6[rho_idx], m, Mi)
+    p4_relayout.launches += 1
+    return m
+
+
+p4_relayout.launches = 0
+
+
+def p4_chain_reference(m: torch.Tensor, ho: torch.Tensor, bf: torch.Tensor,
+                       inner: int = INNER) -> torch.Tensor:
+    """The chain kernel's plain twin on the flat layout: ``inner`` times
+    (each recomputes the same x from bf [Mi, 576], rows 3c + g) the
+    forward sweep t_k = m_k y_k, y_{k+1} = bf_{k+1} - (I (x) ho)^T t_k
+    (y_0 = bf_0) and the back substitution x_{Mi-1} = t_{Mi-1},
+    x_k = t_k - m_k (I (x) ho) x_{k+1}.  Returns x [Mi, 576]."""
+    Mi = bf.shape[0]
+    x = torch.empty_like(bf)
+    for _ in range(inner):
+        y, t = bf[0], [None] * Mi
+        for k in range(Mi - 1):
+            t[k] = m[k] @ y
+            y = bf[k + 1] - thomas.ko_t(ho, t[k])
+        x[Mi - 1] = m[Mi - 1] @ y
+        for k in range(Mi - 2, -1, -1):
+            x[k] = t[k] - m[k] @ thomas.ko(ho, x[k + 1])
+    return x
+
+
+def p4_plan(resident: int, Mi: int = MI,
+            sms: int = 132) -> thomas.RingPlan:
+    """The chain's ring plan with each block's rows of the last
+    ``resident`` knots kept in shared memory: K2's plan (ops/thomas.
+    ring_plan, its T rows of Mi knots kept), slots as many as the bytes
+    left allow.  Raises ValueError where fewer than two slots are left."""
+    if not 0 <= resident <= Mi:
+        raise ValueError(f"p4_plan: {resident} resident knots of {Mi}")
+    return thomas.ring_plan(PHI * B3, PHI, 4, hist_knots=Mi, sms=sms,
+                            resident_knots=resident)
+
+
+def p4_max_resident(Mi: int = MI, sms: int = 132) -> int:
+    """The most knots p4_plan can keep resident beside a two-slot ring."""
+    h = 0
+    while h < Mi:
+        try:
+            p4_plan(h + 1, Mi, sms)
+        except ValueError:
+            break
+        h += 1
+    return h
+
+
+def p4_stage_split(resident: int, Mi: int = MI) -> tuple[list, list]:
+    """The stages of one period of the chain (2 Mi - 1: the forward sweep
+    over knots 0..Mi-1, the back over Mi-2..0) as the kernel splits them
+    (csrc/thomas_chain.cuh): (the stages the ring streams, in its order;
+    the stages that read the rows held in shared memory).  The held ones
+    are those of the last ``resident`` knots, stages Mi - resident ..
+    Mi + resident - 2; streamed stage q is stage q, or q + 2 resident - 1
+    from Mi - resident on (RowRing's skipped range)."""
+    nstage = 2 * Mi - 1
+    skip0, nskip = Mi - resident, max(0, 2 * resident - 1)
+    streamed = [q + (nskip if q >= skip0 else 0)
+                for q in range(nstage - nskip)]
+    return streamed, list(range(skip0, skip0 + nskip))
+
+
+def p4_chain(m: torch.Tensor, ho: torch.Tensor, b: torch.Tensor,
+             inner: int = INNER, resident: int | None = None
+             ) -> torch.Tensor:
+    """x [Mi, 3, 192] after ``inner`` iterations of both sweeps over the
+    re-laid rung m [Mi, 576, 576] (p4_relayout) with ho [3, 3], from
+    b [Mi, 3, 192]: one launch of the chain (counted in
+    p4_resident_thomas.launches), each block keeping its rows of the last
+    ``resident`` knots in shared memory (p4_plan; None: as many as fit,
+    p4_max_resident, which tools/chain_bench --p4 measured faster than
+    none, PERF.md); CPU tensors run p4_chain_reference."""
+    Mi, n = b.shape[0], PHI * B3
+    bf = b.transpose(1, 2).reshape(Mi, n)    # rows 3c + g
+    if b.device.type == "cpu":
+        xf = p4_chain_reference(m, ho, bf, inner)
+    else:
+        _build.check_operands("p4_chain", (("m", m, (Mi, n, n)),
+                                           ("ho", ho, (PHI, PHI)),
+                                           ("b", b, (Mi, PHI, B3))))
+        if inner < 1:
+            raise ValueError(f"p4_chain: inner = {inner} < 1")
+        sms = thomas.sm_count(b.device)
+        if resident is None:
+            resident = p4_max_resident(Mi, sms)
+        plan = p4_plan(resident, Mi, sms)
+        xf = torch.empty((Mi, n), dtype=torch.float32, device=b.device)
+        # the chain's vector entries, 64 bits each, over the three buffers
+        # of a periodic chain (csrc/thomas_chain.cuh)
+        vbuf = torch.empty((3, n), dtype=torch.int64, device=b.device)
+        _launch("nsfused_probe_p4", m, ho, bf.contiguous(), vbuf, xf, Mi,
+                inner, plan.groups, plan.tile_rows, plan.slots, resident,
+                plan.smem)
+        p4_resident_thomas.launches += 1
+    return xf.reshape(Mi, B3, PHI).transpose(1, 2).contiguous()
+
+
 def p4_resident_thomas(d6: torch.Tensor, ho: torch.Tensor, b: torch.Tensor,
                        rho_idx: int = 0, inner: int = INNER) -> torch.Tensor:
     """x [Mi, 3, 192] after ``inner`` iterations of both sweeps over rung
-    ``rho_idx`` of d6 [R, Mi, 3, 3, 192, 192] with ho [3, 3] (P4)."""
+    ``rho_idx`` of d6 [R, Mi, 3, 3, 192, 192] with ho [3, 3] (P4): the
+    re-layout, then the chain with as many knots resident as fit."""
     if b.device.type == "cpu":
         return p4_resident_thomas_reference(d6, ho, b, rho_idx, inner)
     Mi = b.shape[0]
@@ -237,11 +432,7 @@ def p4_resident_thomas(d6: torch.Tensor, ho: torch.Tensor, b: torch.Tensor,
                                                  ("b", b, (Mi, PHI, B3))))
     if inner < 1:
         raise ValueError(f"p4_resident_thomas: inner = {inner} < 1")
-    t = torch.empty_like(b)
-    x = torch.empty_like(b)
-    _launch("nsfused_probe_p4", d6[rho_idx], ho, b, t, x, Mi, inner)
-    p4_resident_thomas.launches += 1
-    return x
+    return p4_chain(p4_relayout(d6, rho_idx), ho, b, inner)
 
 
 p4_resident_thomas.launches = 0

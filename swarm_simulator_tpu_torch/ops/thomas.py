@@ -181,7 +181,7 @@ def slot_bytes(tile_rows: int, bs: int, itemsize: int) -> int:
 
 
 def ring_plan(bs: int, phi: int, itemsize: int, hist_knots: int = 0,
-              sms: int = 132) -> RingPlan:
+              sms: int = 132, resident_knots: int = 0) -> RingPlan:
     """The ring plan of a chain over [bs, bs] pivot blocks of ``itemsize``
     bytes (4 float32, 2 bf16), row groups of ``phi`` rows, on a card of
     ``sms`` multiprocessors.  The row groups spread over as many chain
@@ -190,7 +190,9 @@ def ring_plan(bs: int, phi: int, itemsize: int, hist_knots: int = 0,
     stream (at 256), which outweighs the wider vector exchange
     (PERF.md).
     A block keeps its rows of ``hist_knots`` knots in shared memory
-    beside the ring (K2's forward rows y_k; K1, K3a and K3b keep none).
+    beside the ring (K2's forward rows y_k, P4's T_k; K1, K3a and K3b keep
+    none), and T1's P4 its pivot rows of ``resident_knots`` knots
+    (csrc/thomas_chain.cuh).
     Whole stages go in a slot when two of them fit, else tiles of at most
     TILE_BYTES; as many slots as the rest of the block's shared memory
     holds, up to MAX_SLOTS."""
@@ -199,7 +201,8 @@ def ring_plan(bs: int, phi: int, itemsize: int, hist_knots: int = 0,
     B3 = bs // phi
     groups = -(-B3 // sms)
     rows = groups * phi
-    fixed = BAR_BYTES + 4 * (bs + rows + hist_knots * rows)
+    fixed = (BAR_BYTES + 4 * (bs + rows + hist_knots * rows)
+             + resident_knots * rows * bs * itemsize)
     room = SMEM_PER_BLOCK - fixed
     if room >= 2 * slot_bytes(rows, bs, itemsize):
         tile_rows = rows

@@ -1,11 +1,13 @@
 """Time the chain kernels K2 and K1 (with --k3 the chunk sweeps K3a and
 K3b, with --t3 the staged probe T3, with --p3 T1's pair product P3, with
---t2 the chain-primitive bench T2) of this checkout against other
-checkouts of the port, in one process on one CUDA card.
+--t2 the chain-primitive bench T2, with --p4 and --p2 T1's resident
+Thomas probe and tile apply) of this checkout against other checkouts of
+the port, in one process on one CUDA card; with --floor also an empty
+kernel's launch.
 
     python3 -m swarm_simulator_tpu_torch.tools.chain_bench
         [--against ROOT ...] [--reps 20] [--no-256] [--k3] [--t3] [--p3]
-        [--t2]
+        [--t2] [--p4] [--p2] [--floor]
 
 Run from the repository root (it takes the 64-agent problem from
 chip_smoke.py).  Each ROOT is a directory holding a
@@ -36,7 +38,18 @@ the pivots the planning paths give the kernel:
   Mi 35; bs 2304, Mi 71; the last skipped with --no-256), on each
   checkout's many-block grid (the last of its ``GRIDS``: "ring" here,
   "k2" in checkouts before it) at REPS 20 and on one block at REPS 2
-  (not at bs 2304), microseconds per step over REPS x Mi.
+  (not at bs 2304), microseconds per step over REPS x Mi;
+  P4 (--p4): the 50-iteration call on tools/nsfused_probe's inputs,
+  here with 0 knots resident, with the most beside a full ring of
+  MAX_SLOTS slots and with the most beside a two-slot ring
+  (ops/nsfused_probe.p4_plan), each checkout's p4_resident_thomas beside
+  them; then this checkout's chain alone on the re-laid rung at the same
+  residencies, and its re-layout beside the PyTorch copy of the permuted
+  rung (held to be bit-equal);
+  P2 (--p2): the tile apply on tools/nsfused_probe's inputs (rung 1)
+  with ``torch.einsum`` in turns;
+  the floor (--floor): an empty kernel on 1 block of 256 threads and on
+  P2's grid (ops/nsfused_probe.p2_plan) with and without its clusters.
 Each variant's result is held against this checkout's float32 twin (the
 largest error relative to the result's scale is printed; K1's is the
 worst over the parts of the state).  Times are CUDA events after the
@@ -196,6 +209,105 @@ def p3_in_turns(variants: dict, reps: int, dev, out: dict) -> None:
         torch.set_float32_matmul_precision(prec)
 
 
+def p4_in_turns(variants: dict, reps: int, dev, out: dict) -> None:
+    """T1's P4 into ``out``: "call" (every checkout's p4_resident_thomas
+    and this checkout's at each residency), "chain" (this checkout's
+    chain alone on the re-laid rung) and "relayout" (its re-layout beside
+    the PyTorch copy), each in turns; x held against this checkout's
+    plain version (one iteration: each recomputes the same x)."""
+    from swarm_simulator_tpu_torch.ops import nsfused_probe as npb
+    from swarm_simulator_tpu_torch.ops import thomas
+    from swarm_simulator_tpu_torch.tools import nsfused_probe as t1
+
+    d6, ho, b = (torch.from_numpy(a).to(dev)
+                 for a in t1.probe_inputs((4,))[4])
+    want = npb.p4_resident_thomas_reference(d6, ho, b, 0, 1)
+    sms = thomas.sm_count(dev)
+    hmax = npb.p4_max_resident(npb.MI, sms)
+    full = max(h for h in range(hmax + 1)
+               if npb.p4_plan(h, npb.MI, sms).slots == thomas.MAX_SLOTS)
+    hs = sorted({0, full, hmax})
+    out["resident"] = {"full_ring": full, "max": hmax}
+    m = npb.p4_relayout(d6, 0)
+
+    def whole(h):  # p4_resident_thomas at h resident knots
+        return npb.p4_chain(npb.p4_relayout(d6, 0), ho, b, npb.INNER, h)
+
+    calls = {}
+    for v, mods in variants.items():
+        if v == "this":
+            for h in hs:
+                calls[f"this h={h}"] = functools.partial(whole, h)
+        else:
+            calls[v] = functools.partial(mods[3].p4_resident_thomas, d6, ho,
+                                         b, 0, npb.INNER)
+    chains = {f"chain h={h}": functools.partial(npb.p4_chain, m, ho, b,
+                                                npb.INNER, h) for h in hs}
+    relayouts = {"relayout": functools.partial(npb.p4_relayout, d6, 0),
+                 "torch permute copy": functools.partial(
+                     t1.relayout_library, d6, 0)}
+    want_m = npb.p4_relayout_reference(d6, 0)
+    for key, group, check in (
+            ("call", calls, lambda got: thomas.rel_error(got, want)),
+            ("chain", chains, lambda got: thomas.rel_error(got, want)),
+            ("relayout", relayouts, lambda got: float(
+                (got.reshape(want_m.shape) - want_m).abs().max()))):
+        out[key] = res = in_turns(group, max(1, reps // 4),
+                                  lambda v: group[v](), check)
+        log(f"P4 {key}: " + ", ".join(
+            f"{v} {e['ms']} ms (err {e['err']:.1e})"
+            for v, e in res.items()))
+    del d6, m, want_m
+    torch.cuda.empty_cache()
+
+
+def p2_in_turns(variants: dict, reps: int, dev, out: dict) -> None:
+    """T1's P2 of every checkout and ``torch.einsum`` in turns into
+    ``out``, each held against this checkout's plain version."""
+    from swarm_simulator_tpu_torch.ops import nsfused_probe as npb
+    from swarm_simulator_tpu_torch.tools import nsfused_probe as t1
+
+    d6, y = (torch.from_numpy(a).to(dev) for a in t1.probe_inputs((2,))[2])
+    want = npb.p2_tile_apply_reference(d6, y, 1)
+    calls = {v: functools.partial(mods[3].p2_tile_apply, d6, y, 1)
+             for v, mods in variants.items()}
+    calls["torch.einsum"] = functools.partial(t1.LIBRARY[2], d6, y, 1)
+    prec = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        out.update(in_turns(
+            calls, reps, lambda v: calls[v](),
+            lambda got: float((got - want).abs().max())
+            / float(want.abs().max())))
+    finally:
+        torch.set_float32_matmul_precision(prec)
+    log("P2: " + ", ".join(f"{v} {e['ms']} ms (err {e['err']:.1e})"
+                           for v, e in out.items()))
+    del d6
+    torch.cuda.empty_cache()
+
+
+def floor_in_turns(reps: int, dev, out: dict) -> None:
+    """An empty kernel's launch in turns into ``out``: one block, and P2's
+    grid with and without its clusters (this checkout's kernel)."""
+    from swarm_simulator_tpu_torch.ops import nsfused_probe as npb
+    from swarm_simulator_tpu_torch.ops import thomas
+
+    plan = npb.p2_plan(sms=thomas.sm_count(dev))
+    blocks = plan.tiles * plan.cluster
+    calls = {
+        "1 block x 256": (1, 256, 1),
+        f"P2 grid {blocks} x {plan.threads}, clusters of {plan.cluster}":
+            (blocks, plan.threads, plan.cluster),
+        f"P2 grid {blocks} x {plan.threads}, no cluster":
+            (blocks, plan.threads, 1)}
+    out.update(in_turns(
+        calls, reps, lambda v: npb.launch_floor(*calls[v], dev),
+        lambda got: 0.0))
+    log("launch floor: " + ", ".join(f"{v} {e['ms']} ms"
+                                     for v, e in out.items()))
+
+
 def t3_in_turns(variants: dict, reps: int, dev, out: dict) -> None:
     """T3's stages of every variant in turns, at 64 and 256 agents, into
     ``out`` ({"bs stage": in_turns' result}); each output held against
@@ -270,6 +382,13 @@ def main() -> int:
                     help="also time T1's P3 beside torch.matmul")
     ap.add_argument("--t2", action="store_true",
                     help="also time T2's modes at phase 14's shapes")
+    ap.add_argument("--p4", action="store_true",
+                    help="also time T1's P4 at each residency, its chain "
+                         "and its re-layout")
+    ap.add_argument("--p2", action="store_true",
+                    help="also time T1's P2 beside torch.einsum")
+    ap.add_argument("--floor", action="store_true",
+                    help="also time an empty kernel's launch")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chain_bench: needs a CUDA card", file=sys.stderr)
@@ -293,8 +412,9 @@ def main() -> int:
                                 ).build("thomas", "nsfused",
                                         *(("thomas_probe",) if args.t3
                                           else ()),
-                                        *(("nsfused_probe",) if args.p3
-                                          else ()),
+                                        *(("nsfused_probe",)
+                                          if args.p3 or args.p4 or args.p2
+                                          or args.floor else ()),
                                         *(("thomas_prim",) if args.t2
                                           else ()))
 
@@ -309,7 +429,8 @@ def main() -> int:
     cases, (data, host) = inputs(dev, not args.no_256)
 
     out = {"card": card(), "torch": torch.__version__, "k2": {}, "k1": {},
-           "k3": {}, "t3": {}, "p3": {}, "t2": {}}
+           "k3": {}, "t3": {}, "p3": {}, "t2": {}, "p4": {}, "p2": {},
+           "floor": {}}
     gen = torch.Generator().manual_seed(0)
     for case, (dinv, ho) in cases.items():
         Mi, bs = dinv.shape[1], dinv.shape[-1]
@@ -348,6 +469,12 @@ def main() -> int:
         p3_in_turns(variants, args.reps, dev, out["p3"])
     if args.t2:
         t2_in_turns(variants, args.reps, dev, not args.no_256, out["t2"])
+    if args.p4:
+        p4_in_turns(variants, args.reps, dev, out["p4"])
+    if args.p2:
+        p2_in_turns(variants, args.reps, dev, out["p2"])
+    if args.floor:
+        floor_in_turns(args.reps, dev, out["floor"])
     print(json.dumps(out), flush=True)
     return 0
 

@@ -14,8 +14,10 @@ warm-up) beside the plain version and, where one PyTorch call computes the
 same function, that call (``LIBRARY``: P1 one ``torch.add`` on views of
 x, P2 ``torch.einsum``, P3 ``torch.matmul`` at "highest" precision);
 P4's 50 iterations against the plain version and timed, milliseconds per
-launch and per iteration, beside K1's 0.24 ms per ADMM iteration at 64
-agents on an H100 (PERF.md).  ``--cpu`` runs the
+call and per iteration, and its re-layout of the rung alone beside the
+PyTorch copy that computes it (``relayout_library``); ``run(...,
+k1_ms=)`` also reports P4 per iteration beside K1's chunk time measured
+by the caller (chip_smoke.py's phase 2).  ``--cpu`` runs the
 plain versions on the CPU and reports their errors, no time.  Lines go to
 stderr, one JSON line to stdout; no file is written.  Without a card and
 without ``--cpu`` it exits non-zero.
@@ -29,11 +31,6 @@ import sys
 import numpy as np
 import torch
 
-#: K1's milliseconds per ADMM iteration at 64 agents (12.0 ms per
-#: 50-iteration chunk on an H100 80GB HBM3 at 700 W, chip_smoke phase 2)
-K1_MS_PER_ITER = 0.24
-
-
 def _p1_library(x: torch.Tensor) -> torch.Tensor:
     x4 = x.view(36, 6, -1)
     return torch.add(x4[:, 0:3], x4[:, 3:6], alpha=2.0).view(108, -1)
@@ -44,6 +41,11 @@ def _p1_library(x: torch.Tensor) -> torch.Tensor:
 LIBRARY = {1: _p1_library,
            2: lambda d6, y, r: torch.einsum("fgbc,fb->gc", d6[r, 3], y),
            3: lambda x, s: torch.matmul(x, s)}
+
+
+def relayout_library(d6: torch.Tensor, r: int) -> torch.Tensor:
+    """P4's re-layout as one PyTorch copy of the permuted rung."""
+    return d6[r].permute(0, 4, 2, 3, 1).contiguous()
 
 
 def log(*a):
@@ -87,9 +89,10 @@ def rel(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1.0)
 
 
-def run(probes, dev, timed: bool) -> dict:
+def run(probes, dev, timed: bool, k1_ms: float | None = None) -> dict:
     """Each probe through its wrapper on ``dev`` against its plain version
-    (and P3 against float64); on the card also the times."""
+    (and P3 against float64); on the card also the times, P4's beside
+    ``k1_ms``, K1's milliseconds per 50-iteration chunk, where given."""
     from swarm_simulator_tpu_torch.ops import nsfused_probe as npb
 
     if timed:
@@ -127,7 +130,18 @@ def run(probes, dev, timed: bool) -> dict:
                                    if lib else None)
                 if p == 4:
                     r["ms_per_iter"] = r["ms"] / npb.INNER
-                    r["k1_ms_per_iter"] = K1_MS_PER_ITER
+                    if k1_ms is not None:
+                        r["k1_ms_per_iter"] = k1_ms / npb.INNER
+                    d6 = args[0]
+                    m = npb.p4_relayout(d6, 0)
+                    r["relayout_max_abs_err"] = float(
+                        (m - npb.p4_relayout_reference(d6, 0)).abs().max())
+                    r["relayout_ms"] = median_ms(
+                        lambda: npb.p4_relayout(d6, 0), 20)
+                    r["relayout_plain_ms"] = median_ms(
+                        lambda: npb.p4_relayout_reference(d6, 0), 5)
+                    r["relayout_library_ms"] = median_ms(
+                        lambda: relayout_library(d6, 0), 20)
             out[f"P{p}"] = r
             log(f"P{p}: " + ", ".join(f"{k} {v:.4g}" if isinstance(v, float)
                                       else f"{k} {v}" for k, v in r.items()))

@@ -540,12 +540,14 @@ def test_probe_kernel_matches_plain_on_cuda(stage, bs, Mi):
 
 
 @pytest.mark.parametrize("probe, M", [(1, 216), (2, 216), (3, 216),
-                                      (3, 100), (4, 216)])
+                                      (3, 100), (4, 9), (4, 35)])
 def test_nsfused_probe_kernels_match_plain_on_cuda(probe, M):
-    """T1's P1-P4 at their fixed sizes (P4 over 9 knots, 2 iterations; P3
-    also at M = 100 rows, its 64-row tiles' masked edge): within 1e-5 of
-    the plain version's scale; P3 also within 3e-6 of a float64
-    product."""
+    """T1's P1-P4 at their fixed sizes (P3 also at M = 100 rows, its
+    64-row tiles' masked edge; P4, 2 iterations, over M = 9 knots and the
+    full 35, its chain also at 0 knots resident and at the most, all 9 of
+    9, 14 of 35, with the re-layout bit-equal to the plain permute):
+    within 1e-5 of the plain version's scale; P3 also within 3e-6 of a
+    float64 product."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -566,9 +568,21 @@ def test_nsfused_probe_kernels_match_plain_on_cuda(probe, M):
         plain = npb.p3_split_pair_product_reference
     else:
         wrapper, args = npb.p4_resident_thomas, (
-            r(1, 9, 3, 3, 192, 192, scale=0.1), r(3, 3, scale=0.1),
-            r(9, 3, 192), 0, 2)
+            r(1, M, 3, 3, 192, 192, scale=0.1), r(3, 3, scale=0.1),
+            r(M, 3, 192), 0, 2)
         plain = npb.p4_resident_thomas_reference
+        want = plain(*args)
+        before = npb.p4_relayout.launches
+        m = npb.p4_relayout(args[0], 0)
+        assert npb.p4_relayout.launches == before + 1
+        assert torch.equal(m, npb.p4_relayout_reference(args[0], 0))
+        most = npb.p4_max_resident(M, thomas.sm_count(dev))
+        assert most == min(M, 14)
+        for h in (0, most):
+            before = wrapper.launches
+            got = npb.p4_chain(m, args[1], args[2], 2, h)
+            assert wrapper.launches == before + 1
+            assert _rel(got, want) <= 1e-5, h
     before = wrapper.launches
     got = wrapper(*args)
     assert wrapper.launches == before + 1
@@ -577,6 +591,18 @@ def test_nsfused_probe_kernels_match_plain_on_cuda(probe, M):
         ref = args[0].double() @ args[1].double()
         assert float((got.double() - ref).abs().max()) <= \
             3e-6 * max(float(ref.abs().max()), 1.0)
+
+
+def test_launch_floor_on_cuda():
+    """The empty kernel launches on one block and on P2's clustered
+    grid."""
+    plan = npb.p2_plan(sms=thomas.sm_count(torch.device("cuda")))
+    before = npb.launch_floor.launches
+    npb.launch_floor(1, 256, 1, "cuda")
+    npb.launch_floor(plan.tiles * plan.cluster, plan.threads, plan.cluster,
+                     "cuda")
+    torch.cuda.synchronize()
+    assert npb.launch_floor.launches == before + 2
 
 
 def test_row_pattern_kernel_matches_plain_on_cuda():

@@ -300,6 +300,115 @@ def test_t1_plain_matches_pallas(t1_calls, probe):
         assert np.abs(got - ref).max() <= 3e-6 * max(np.abs(ref).max(), 1)
 
 
+def _p4_through_chain(d6, ho, b, rho_idx):
+    """P4 as the card runs it, in plain versions: the rung re-laid into
+    K2's row order, then one iteration of the chain with P4's back
+    substitution (each iteration recomputes the same x)."""
+    return npb.p4_chain(npb.p4_relayout(d6, rho_idx), ho, b, 1)
+
+
+@pytest.mark.parametrize("Mi", [4, 9])
+def test_t1_p4_relayout_chain_matches_tile_form(Mi):
+    """The re-layout and the flat chain give the tile-form sweeps' x
+    (p4_resident_thomas_reference) on seeded inputs of the probe's scales,
+    rung 1 of two, within 1e-5 of x's scale."""
+    rng = np.random.default_rng(Mi)
+    d6 = (rng.standard_normal((2, Mi, 3, 3, 192, 192)) * 0.1).astype(
+        np.float32)
+    ho = (rng.standard_normal((3, 3)) * 0.1).astype(np.float32)
+    b = rng.standard_normal((Mi, 3, 192)).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (d6, ho, b)]
+    want = npb.p4_resident_thomas_reference(*t, 1, 1).numpy()
+    got = _p4_through_chain(*t, 1).numpy()
+    assert got.shape == want.shape
+    assert within(got, want, 1e-5)
+    m = npb.p4_relayout(t[0], 1).numpy()
+    k, c, g, bb, f = 2, 17, 1, 101, 2
+    assert m[k, 3 * c + g, 3 * bb + f] == d6[1, k, f, g, bb, c]
+
+
+def test_t1_p4_relayout_chain_matches_pallas(t1_calls):
+    """The same at the probe's full size (35 knots) against the JAX
+    kernel's output after its fifty iterations, in interpret mode."""
+    args, want = t1_calls[4]
+    t = [torch.from_numpy(a) for a in args[1:]]
+    got = _p4_through_chain(*t, int(args[0][0])).numpy()
+    assert got.shape == want.shape
+    assert within(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("which", ["none", "full ring", "most"])
+def test_t1_p4_plan_fits_and_streams_or_holds_every_stage_once(which):
+    """P4's plan at 0 resident knots, at the most beside a full ring and at
+    the most beside two slots: 96 chain blocks of 2 row groups, the
+    kernel's shared memory (ring, resident rows, vector, products, T rows)
+    within 227 KB; each stage of a period streamed or held exactly once,
+    the ring's stages in chain order, each knot's span read twice a
+    period (the last knot once) and held exactly for the resident ones;
+    one knot more than the most does not fit."""
+    hmax = npb.p4_max_resident()
+    full = max(h for h in range(hmax + 1)
+               if npb.p4_plan(h).slots == thomas.MAX_SLOTS)
+    h = {"none": 0, "full ring": full, "most": hmax}[which]
+    assert (full, hmax) == (8, 14)
+    plan = npb.p4_plan(h)
+    bs, rows, Mi = 576, plan.groups * 3, npb.MI
+    assert plan.groups == 2 and -(-192 // plan.groups) == 96
+    assert plan.tile_rows == rows and plan.slots >= 2
+    assert plan.smem == (thomas.BAR_BYTES + plan.slots * plan.slot_bytes
+                         + h * rows * bs * 4 + 4 * (bs + rows + Mi * rows))
+    assert plan.smem <= npb.SMEM_PER_BLOCK
+    streamed, held = npb.p4_stage_split(h)
+    assert sorted(streamed + held) == list(range(2 * Mi - 1))
+    assert streamed == sorted(streamed) and len(held) == max(0, 2 * h - 1)
+
+    def knot(s):
+        return s if s < Mi else 2 * Mi - 2 - s
+
+    assert sorted({knot(s) for s in held}) == list(range(Mi - h, Mi))
+    reads = np.bincount([knot(s) for s in streamed + held], minlength=Mi)
+    assert list(reads) == [2] * (Mi - 1) + [1]
+    with pytest.raises(ValueError, match="two-slot ring"):
+        npb.p4_plan(hmax + 1)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 48, 12])
+def test_t1_p2_plan_covers_every_row_and_output_once(sms):
+    """P2's clusters on cards of several SM counts: at most 8 blocks a
+    cluster and 132 in all, one an SM where the card has SMs enough for
+    the clusters a block's registers allow, every output column (all
+    three g) in exactly one cluster, every (f, b) row in exactly one
+    block of each cluster, a block's rows within the kernel's registers;
+    on an H100 12 clusters of 8 blocks of 72 rows."""
+    plan = npb.p2_plan(192, 3, sms)
+    blocks = plan.tiles * plan.cluster
+    assert 1 <= plan.cluster <= npb.P2_MAX_CLUSTER and blocks <= 132
+    assert blocks <= max(sms, 6 * plan.tiles)
+    cols = np.zeros(192, int)
+    for t in range(plan.tiles):
+        cols[t * plan.cols:(t + 1) * plan.cols] += 1
+    assert (cols == 1).all()
+    rows = np.zeros(3 * 192, int)
+    for q in range(plan.cluster):
+        rows[q * plan.rows:min((q + 1) * plan.rows, 576)] += 1
+    assert (rows == 1).all()
+    assert plan.rows <= npb.P2_LANES * npb.P2_STEPS
+    assert plan.threads == 3 * plan.cols // 4 * npb.P2_LANES
+    if sms == 132:
+        assert (plan.tiles, plan.cluster, plan.rows) == (12, 8, 72)
+
+
+def test_t1_p2_plan_refuses_ragged_columns():
+    with pytest.raises(ValueError, match="tiles of 16"):
+        npb.p2_plan(200, 3)
+
+
+def test_launch_floor_needs_a_card():
+    with pytest.raises(ValueError, match="CUDA"):
+        npb.launch_floor(1, 32, 1, "cpu")
+    assert npb.launch_floor.launches == 0
+
+
 @pytest.mark.parametrize("probe", sorted(t1_tool.LIBRARY))
 def test_t1_library_call_matches_plain(probe):
     ins = [torch.from_numpy(a) for a in t1_tool.probe_inputs((probe,))[probe]]
@@ -463,10 +572,14 @@ def _wrapper_calls():
          lambda f: npb.p4_resident_thomas(f(d6[:1]), f(ho), f(bt), 0, 1)),
         (rp.row_pattern, lambda f: rp.row_pattern(
             "P1b lane concat 2x[8,192] -> [8,384]", f(x1[:8, :192]))),
+        (npb.p4_relayout, lambda f: npb.p4_relayout(f(d6), 1)),
+        (npb.p4_resident_thomas,
+         lambda f: npb.p4_chain(f(d6[0]).reshape(4, 576, 576), f(ho), f(bt),
+                                1)),
     ]
 
 
-@pytest.mark.parametrize("i", range(7))
+@pytest.mark.parametrize("i", range(9))
 def test_wrapper_runs_plain_version_only_on_cpu(i):
     wrapper, call = _wrapper_calls()[i]
     before = wrapper.launches
