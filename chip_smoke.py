@@ -113,7 +113,24 @@ Phases (any failure raises and exits non-zero):
  17. the row-assembly patterns T5 (tools/row_patterns.py): all fourteen
      against their plain versions (bit-equal; P8's sum within 1e-6), and
      timed beside the one PyTorch call that computes each, where there is
-     one (held to the plain version too), one line a pattern.
+     one (held to the plain version too), one line a pattern;
+ 18. the sequential-batch ADMM path (``Param.solver="admm"``, which runs no
+     hand-written kernel, in the JAX package too) through
+     ``plan(..., device=card)`` on the 64-agent forest, in the three modes
+     of SEQ_RUNS: Gauss-Seidel batches of 4 (16 dense batch QPs), Jacobi
+     with two rounds (the 16 stacked through solve_qp_batched) and
+     ``Param()``'s one joint batch (cg KKT); each mode in float32, then in
+     float64 as its witness; each run's stage seconds, per-batch iters,
+     max r_prim and objectives, and evaluate()'s metrics; each float32
+     plan held to tests/test_pipeline.py's acceptance, to the JAX
+     package's float32 CPU plan of the same mode (JAX_CPU_FOREST64: the
+     safety ratio no more than 1e-3 below its own, continuity and endpoint
+     errors no more than twice its own), to the JAX package's float64 CPU
+     plan (JAX_CPU_FOREST64_F64: the safety ratio within 1e-3, the flight
+     distance within 1%, the dynamic margin within 0.01), and to its
+     witness (the safety ratio within 1e-3, the control points within
+     SEQ_CTRL_GAP); the kernels' and twins' counts read around the float32
+     runs (all 0); the Jacobi run's QP solves per second.
 The line before the last is the kernels' JSON record (each kernel's
 launches on its own path, errors, times of kernel and plain twin, and its
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
@@ -146,6 +163,64 @@ OBJ_PIN = 4.0
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+#: phase 18's runs of the 64-agent forest: Param overrides by name (the
+#: same as tests/test_torch_seqbatch.py's FOREST64_RUNS)
+SEQ_RUNS = {
+    "gauss-seidel": dict(sequential=True, batch_size=4, batch_iter=-1),
+    "jacobi": dict(sequential=True, batch_size=4, batch_iter=-1,
+                   parallel_mode="jacobi", iteration=2),
+    "default": dict(),
+}
+#: the JAX package's plans of the same three runs on a CPU host
+#: (``PYTHONPATH=. python tests/test_torch_seqbatch.py --dtype DTYPE``,
+#: x64 on for float64 only, as its CLI; PERF.md): the evaluate() metrics
+#: that phase 18 holds the port's float32 plans to
+JAX_CPU_FOREST64 = {
+    "gauss-seidel": dict(min_safety_ratio=1.0179721117019653,
+                         flight_distance=817.0714721679688,
+                         knot_continuity_err=0.0008441507816314697,
+                         dynamic_violation=-0.6484875202178955,
+                         start_err=3.814697265625e-06,
+                         goal_err=4.291534423828125e-06),
+    "jacobi": dict(min_safety_ratio=1.0132229328155518,
+                   flight_distance=817.931396484375,
+                   knot_continuity_err=0.0005767643451690674,
+                   dynamic_violation=-1.037071657180786,
+                   start_err=5.245208740234375e-06,
+                   goal_err=4.76837158203125e-06),
+    "default": dict(min_safety_ratio=1.0159355401992798,
+                    flight_distance=794.4036865234375,
+                    knot_continuity_err=0.0003867573104798794,
+                    dynamic_violation=-1.0787240386009216,
+                    start_err=7.152557373046875e-06,
+                    goal_err=1.0967254638671875e-05),
+}
+JAX_CPU_FOREST64_F64 = {
+    "gauss-seidel": dict(min_safety_ratio=1.0196210145512858,
+                         flight_distance=806.2179333781313,
+                         knot_continuity_err=1.1245064441278707e-05,
+                         dynamic_violation=-0.652523565244169,
+                         start_err=4.425265043295212e-09,
+                         goal_err=3.3527109977171676e-09),
+    "jacobi": dict(min_safety_ratio=1.0218912856739872,
+                   flight_distance=798.132934129574,
+                   knot_continuity_err=1.3010205804353525e-06,
+                   dynamic_violation=-1.047696409685242,
+                   start_err=3.0488491731262e-09,
+                   goal_err=1.0261742566797238e-09),
+    "default": dict(min_safety_ratio=1.0160191087237063,
+                    flight_distance=794.4808964293383,
+                    knot_continuity_err=1.2445377495784449e-06,
+                    dynamic_violation=-1.0777517432519512,
+                    start_err=3.746026600026653e-09,
+                    goal_err=2.7848163774990553e-09),
+}
+#: the largest |ctrl32 - ctrl64| (m) a float32 plan may sit from its
+#: float64 witness: the dense modes' float32 plans sit within 6 mm of it
+#: (their inverse applied in float64), 0.4-0.75 m with the inverse applied
+#: in float32 (the JAX package's operator); the cg mode's within 0.11 m,
+#: the JAX package's float32 plan too (PERF.md)
+SEQ_CTRL_GAP = {"gauss-seidel": 0.05, "jacobi": 0.05, "default": 0.25}
 
 
 def bound(nbytes: float, flops: float,
@@ -1355,6 +1430,109 @@ def row_pattern_probes(dev):
                 bound=bound(nbytes, 2 * 3 * 192 * 192))
 
 
+def accept_seq(label: str, m: dict, f32: dict, f64: dict,
+               witness: dict) -> None:
+    """A float32 plan's metrics ``m``: tests/test_pipeline.py's acceptance
+    (_check); then against the JAX package's float32 plan ``f32`` the
+    safety ratio no more than 1e-3 below it and the continuity and
+    endpoint errors no more than twice its own; against the JAX
+    package's float64 plan ``f64`` the safety ratio within 1e-3, the
+    flight distance within 1% and the dynamic margin within 0.01; against
+    the port's float64 ``witness`` on the card the safety ratio within
+    1e-3.  (The JAX float32 plans sit 0.28-0.46 m from its float64 ones
+    in the dense modes, their ratios 1.6e-3 and 8.7e-3 below: the float32
+    rounding floor, PERF.md; the float64 plans are the converged ones.)"""
+    check(m["min_safety_ratio"] >= 1.0 - 1e-3, f"{label}: ratio {m}")
+    check(m["knot_continuity_err"] < 1e-3, f"{label}: continuity {m}")
+    check(max(m["start_err"], m["goal_err"]) < 1e-3, f"{label}: ends {m}")
+    check(m["dynamic_violation"] < 1e-2, f"{label}: dynamics {m}")
+    check(m["min_safety_ratio"] >= f32["min_safety_ratio"] - 1e-3,
+          f"{label}: ratio {m['min_safety_ratio']} more than 1e-3 below "
+          f"the JAX package's float32 {f32['min_safety_ratio']}")
+    for k in ("knot_continuity_err", "start_err", "goal_err"):
+        check(m[k] <= 2 * f32[k], f"{label}: {k} {m[k]} more than twice "
+              f"the JAX package's float32 {f32[k]}")
+    for k, tol in (("min_safety_ratio", 1e-3), ("dynamic_violation", 1e-2),
+                   ("flight_distance", 1e-2 * f64["flight_distance"])):
+        check(abs(m[k] - f64[k]) <= tol, f"{label}: {k} {m[k]} not within "
+              f"{tol} of the JAX package's float64 {f64[k]}")
+    check(abs(m["min_safety_ratio"] - witness["min_safety_ratio"]) <= 1e-3,
+          f"{label}: ratio {m['min_safety_ratio']} not within 1e-3 of the "
+          f"float64 witness's {witness['min_safety_ratio']}")
+
+
+def seqbatch_plan(port, mission, world, dev, name: str, dtype: str):
+    """One phase-18 plan of the 64-agent forest: (result, times, wall s,
+    metrics), its lines logged and its output's shape checked."""
+    from swarm_simulator_tpu_torch import Param
+
+    param = Param(world_z_min=0.3, grid_xy_res=0.5, grid_z_res=1.0,
+                  solver_dtype=dtype, **SEQ_RUNS[name])
+    label = f"seq {name} {dtype}"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result, times = port.plan(mission, param, world, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    info = result.solver_info
+    check(bool(np.isfinite(result.ctrl).all()),
+          f"{label}: non-finite control points")
+    check(result.ctrl.shape == (mission.qn, result.M, param.n + 1, 3),
+          f"{label}: control points of shape {result.ctrl.shape}")
+    check(info["solved"].all(), f"{label}: agents left unsolved")
+    metrics = port.evaluate(result, mission, param, device=dev)
+    log(f"{label} ({info['mode']}, {info['problem_size']}): wall "
+        f"{wall:.3f} s: esdf {times.esdf:.3f} search {times.init_traj:.3f}"
+        f" corridor {times.corridor:.3f} qp {times.qp:.3f} timescale "
+        f"{times.timescale:.3f}")
+    log(f"{label}: iters {info['iters']} max r_prim "
+        f"{max(info['r_prim']):.3e} obj "
+        f"{[round(v, 4) for v in info['obj']]}")
+    log(f"{label} evaluate: " + json.dumps(metrics))
+    return result, times, metrics
+
+
+def seqbatch_runs(dev, smi: str) -> dict:
+    """Phase 18: the sequential-batch ADMM path through plan() on the card
+    for the 64-agent forest, the three SEQ_RUNS in float32, each followed
+    by its float64 witness."""
+    import swarm_simulator_tpu_torch as port
+
+    _, mission, _, world = build_problem(SEED)
+    out = {}
+    counts = {}
+    for name in SEQ_RUNS:
+        reset_counts()
+        result, times, metrics = seqbatch_plan(port, mission, world, dev,
+                                               name, "float32")
+        for k, v in read_counts().items():
+            counts[k] = counts.get(k, 0) + v
+        r64, _, m64 = seqbatch_plan(port, mission, world, dev, name,
+                                    "float64")
+        gap = float(np.abs(result.ctrl - r64.ctrl).max())
+        log(f"seq {name}: max |ctrl32 - ctrl64| {gap:.3e} m (at most "
+            f"{SEQ_CTRL_GAP[name]})")
+        log(f"seq {name} JAX package (CPU) float32: "
+            + json.dumps(JAX_CPU_FOREST64[name]))
+        log(f"seq {name} JAX package (CPU) float64: "
+            + json.dumps(JAX_CPU_FOREST64_F64[name]))
+        accept_seq(f"seq {name}", metrics, JAX_CPU_FOREST64[name],
+                   JAX_CPU_FOREST64_F64[name], m64)
+        check(gap <= SEQ_CTRL_GAP[name], f"seq {name}: the float32 plan "
+              f"{gap} m from its float64 witness")
+        out[name] = dict(result=result, times=times, metrics=metrics)
+    log(f"seq kernel launches and twin calls on CUDA: {counts}")
+    check(not any(counts.values()),
+          f"the sequential-batch path ran a kernel or a twin: {counts}")
+
+    jac = out["jacobi"]
+    n_solves = len(jac["result"].solver_info["iters"])
+    log(f"seq jacobi: {n_solves} QP solves ({n_solves // 2} batches x 2 "
+        f"rounds) in {jac['times'].qp:.3f} s of qp: "
+        f"{n_solves / jac['times'].qp:.2f} QP solves/s on {smi}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the "
@@ -1471,6 +1649,9 @@ def main() -> int:
     t3 = probe_stages(dev)
     t1 = nsfused_probes(dev, k1["ms"])
     t5 = row_pattern_probes(dev)
+
+    # ---- phase 18: the sequential-batch ADMM path ----
+    seqbatch_runs(dev, smi)
 
     def entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
               bnd, library_ms=None):

@@ -22,7 +22,7 @@ group and couples them with the helpers below.
 
 ``global_mesh``, ``scenario_shard`` and ``stack_across_processes`` of the
 JAX module serve the scenario-replicated Jacobi path, which is not ported
-yet (ROADMAP queue 1, item 10).
+yet (ROADMAP queue 1, item 7).
 """
 from __future__ import annotations
 

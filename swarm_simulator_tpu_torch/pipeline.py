@@ -1,12 +1,9 @@
 """End-to-end RBP planning pipeline (PyTorch port).
 
-  occupancy world -> ESDF -> ECBS initial paths -> SFC/RSFC corridors
-  -> joint knot-state ADMM QP on the device -> time scaling
-  -> coefficients + metrics
-
-Only the joint solver (``Param.solver="nullspace"``) and the RBP
-corridors are ported; ``solver="admm"`` (still the ``Param`` default) and
-``corridor_mode="flat"`` raise NotImplementedError.
+  occupancy world -> ESDF -> ECBS initial paths -> SFC/RSFC (or flat)
+  corridors -> QP on the device: the batched ADMM of sequential batch
+  planning (``Param.solver="admm"``, the default) or the joint knot-state
+  ADMM (``"nullspace"``) -> time scaling -> coefficients + metrics
 """
 from __future__ import annotations
 
@@ -21,7 +18,8 @@ from .core.device import resolve_device as _resolve_device
 from .core.types import Mission, Param, PlanResult
 from .corridor.times import build_corridors
 from .eval import safety, sample
-from .qp import joint, timescale
+from .parallel import seqbatch
+from .qp import admm, joint, timescale
 from .search.planner import plan_initial_trajectories
 from .world.esdf import ESDF
 from .world.voxel import OccupancyGrid
@@ -43,20 +41,14 @@ def plan(
     param: Param,
     world: OccupancyGrid | None = None,
     *,
+    settings: admm.ADMMSettings | None = None,
     search_backend: str = "auto",
     ns_phases: tuple | None = None,
     device: torch.device | str | None = None,
 ) -> tuple[PlanResult, StageTimes]:
     """Plan the mission; the QP solve runs on ``device`` (None = the card;
-    raises without one: pass ``device="cpu"`` for the CPU)."""
-    if param.solver != "nullspace":
-        raise NotImplementedError(
-            f"Param.solver={param.solver!r}: only the joint 'nullspace' "
-            "solver is ported (the sequential-batch path is ROADMAP queue "
-            "1, item 10)")
-    if param.corridor_mode == "flat":
-        raise NotImplementedError(
-            "corridor_mode='flat' is not ported (ROADMAP queue 1, item 10)")
+    raises without one: pass ``device="cpu"`` for the CPU).  ``settings``
+    overrides the ADMM settings of ``solver="admm"``."""
     device = _resolve_device(device)
     times = StageTimes()
     t_all = time.perf_counter()
@@ -75,19 +67,27 @@ def plan(
     times.init_traj = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    build_corridors(esdf, result, mission.radius, param)
+    if param.corridor_mode == "flat":
+        from .corridor.flat import build_flat_corridors
+        build_flat_corridors(esdf, result, mission, param)
+    else:
+        build_corridors(esdf, result, mission.radius, param)
     times.corridor = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    joint.solve_trajectories(result, mission, param, phases=ns_phases,
-                             polish_rounds=param.polish_rounds,
-                             replan_budgets=param.replan_budgets,
-                             replan_polish=param.replan_polish,
-                             replan_prep=param.replan_prep,
-                             cold_prep=param.cold_prep,
-                             exact_polish=param.exact_polish,
-                             device=device)
-    times.extra["ns_prep"] = result.solver_info["prep_s"]
+    if param.solver == "nullspace":
+        joint.solve_trajectories(result, mission, param, phases=ns_phases,
+                                 polish_rounds=param.polish_rounds,
+                                 replan_budgets=param.replan_budgets,
+                                 replan_polish=param.replan_polish,
+                                 replan_prep=param.replan_prep,
+                                 cold_prep=param.cold_prep,
+                                 exact_polish=param.exact_polish,
+                                 device=device)
+        times.extra["ns_prep"] = result.solver_info["prep_s"]
+    else:
+        seqbatch.solve_trajectories(result, mission, param, settings,
+                                    device=device)
     times.qp = time.perf_counter() - t0
 
     if param.time_scale:

@@ -40,8 +40,10 @@ KNOT_FACE_GUARD = 2e-3
 
 @dataclass(frozen=True)
 class QPData:
-    """One joint QP.  Leaves are host numpy arrays after assembly and
-    torch tensors after ``to(device)``."""
+    """One batch QP (the joint solve's batch is every agent).  Leaves are
+    host numpy arrays after assembly and torch tensors after
+    ``to(device)``; a stack of batch QPs (seqbatch._stack_qpdata) carries
+    a leading batch axis on every leaf."""
 
     Qseg: object  # [M, n+1, n+1] per-segment cost blocks
     Aeq: object  # [Re, D]
@@ -67,6 +69,36 @@ class QPData:
                      else torch.as_tensor(getattr(self, f.name),
                                           device=device))
             for f in dataclasses.fields(self)})
+
+
+def refresh_from_dummy(data: QPData, dummy: torch.Tensor) -> QPData:
+    """Recompute the dummy-dependent pieces of a batch QP on its device.
+
+    dummy: [N, M, n+1, 3] global control points of all agents, a tensor on
+    the device of ``data``'s leaves.  Rebuilds pair_rhs (one-sided
+    constraints against fixed agents, rbp_planner.hpp:645-666) and the
+    warm start x0, so that a Gauss-Seidel sweep needs no host round trip.
+    A padded agent (id past the last agent, seqbatch._pad_agents) takes
+    the last agent's row, as the JAX package's clamped gather does.
+    """
+    N, M, npp, _ = dummy.shape
+    D = M * npp
+    dd = dummy.to(data.pair_rhs.dtype)
+    # [N, 3, D]
+    dd = dd.permute(0, 3, 1, 2).reshape(N, 3, D).contiguous()
+    n_d = data.pair_n.repeat_interleave(npp, dim=1).permute(0, 2, 1)
+    dj = dd[data.pair_qj.long().clamp(min=0)]  # [P, 3, D]
+    di = dd[data.pair_qi.long().clamp(min=0)]
+    ndj = (n_d * dj).sum(1)  # [P, D]
+    ndi = (n_d * di).sum(1)
+    j_fixed = (data.pair_bj < 0).to(ndj.dtype)[:, None]
+    i_fixed = (data.pair_bi < 0).to(ndi.dtype)[:, None]
+    rhs = data.pair_rsum[:, None] - j_fixed * ndj + i_fixed * ndi
+    rhs = torch.where(data.pair_mask[:, None] > 0, rhs,
+                      torch.full((), -BIG, dtype=rhs.dtype,
+                                 device=rhs.device))
+    x0 = dd[data.agents.long().clamp(max=N - 1)]  # [B, 3, D]
+    return dataclasses.replace(data, pair_rhs=rhs, x0=x0)
 
 
 def build_aeq(T: np.ndarray, n: int, phi: int) -> np.ndarray:
@@ -141,13 +173,16 @@ def assemble_batch(
     param: Param,
     batch_agents: np.ndarray,
     dummy: np.ndarray,  # [N, M, n+1, 3]
+    pad_pairs: int | None = None,
 ) -> QPData:
     """Build the host QPData for one batch of agents (the joint solve
     passes every agent).
 
     Pairs with exactly one batch member enter as one-sided constraints
     against the fixed agent's ``dummy`` control points
-    (populatebyrow, rbp_planner.hpp:638-684).  Float leaves are cast to
+    (populatebyrow, rbp_planner.hpp:638-684).  ``pad_pairs`` pads the
+    pair rows with masked rows to that count, so that every batch QP of
+    a sweep has the same shapes.  Float leaves are cast to
     ``param.solver_dtype``.
     """
     n, phi = param.n, param.phi
@@ -187,14 +222,15 @@ def assemble_batch(
     else:
         idx = np.zeros(0, dtype=int)
     P = len(idx)
-    pair_bi = np.full(P, -1, dtype=np.int32)
-    pair_bj = np.full(P, -1, dtype=np.int32)
-    pair_n = np.zeros((P, M, 3), dtype=np.float64)
-    pair_rhs = np.full((P, D), -BIG, dtype=np.float64)
-    pair_mask = np.zeros(P, dtype=np.float64)
-    pair_qi = np.zeros(P, dtype=np.int32)
-    pair_qj = np.zeros(P, dtype=np.int32)
-    pair_rsum = np.zeros(P, dtype=np.float64)
+    P_pad = pad_pairs if pad_pairs is not None else P
+    pair_bi = np.full(P_pad, -1, dtype=np.int32)
+    pair_bj = np.full(P_pad, -1, dtype=np.int32)
+    pair_n = np.zeros((P_pad, M, 3), dtype=np.float64)
+    pair_rhs = np.full((P_pad, D), -BIG, dtype=np.float64)
+    pair_mask = np.zeros(P_pad, dtype=np.float64)
+    pair_qi = np.zeros(P_pad, dtype=np.int32)
+    pair_qj = np.zeros(P_pad, dtype=np.int32)
+    pair_rsum = np.zeros(P_pad, dtype=np.float64)
     if P:
         qi_a = pi_all[idx, 0]
         qj_a = pi_all[idx, 1]
@@ -212,14 +248,14 @@ def assemble_batch(
         if mi.any():
             rhs_a[mi] += np.einsum("pmk,pmik->pmi", npm_a[mi],
                                    dummy[qi_a[mi]])
-        pair_bi[:] = bi_a
-        pair_bj[:] = bj_a
-        pair_n[:] = npm_a
-        pair_rhs[:] = rhs_a.reshape(P, D)
-        pair_mask[:] = 1.0
-        pair_qi[:] = qi_a
-        pair_qj[:] = qj_a
-        pair_rsum[:] = rsum_a
+        pair_bi[:P] = bi_a
+        pair_bj[:P] = bj_a
+        pair_n[:P] = npm_a
+        pair_rhs[:P] = rhs_a.reshape(P, D)
+        pair_mask[:P] = 1.0
+        pair_qi[:P] = qi_a
+        pair_qj[:P] = qj_a
+        pair_rsum[:P] = rsum_a
 
     x0 = dummy[batch_agents].reshape(B, D, 3).transpose(0, 2, 1).copy()
 

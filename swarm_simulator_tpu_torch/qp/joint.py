@@ -98,7 +98,7 @@ def rescue_box_batches(plan, mission, param, ctrl, tol: float = 1e-3):
     needs the host IPM oracle, which is not ported yet."""
     raise NotImplementedError(
         "rescue_box_batches (the f64 IPM box rescue) is not ported "
-        "(ROADMAP queue 1, item 9)")
+        "(ROADMAP queue 1, item 2)")
 
 
 def assemble_joint(plan: PlanResult, mission: Mission, param: Param,
@@ -169,7 +169,7 @@ def solve_trajectories(plan: PlanResult, mission: Mission, param: Param,
     if exact_polish:
         raise NotImplementedError(
             "exact_polish (the host active-set polish) is not ported "
-            "(ROADMAP queue 1, item 9)")
+            "(ROADMAP queue 1, item 2)")
     device = resolve_device(device)
     if polish_rounds is None:
         polish_rounds = polish_rounds_for_swarm(mission.qn)

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..core import bernstein
+from ..core.device import pin_ieee_fp32
 from ..ops import nsfused, thomas
 from .admm import PairOp, SolveInfo, _build_coupling, _pair_op
 from .assemble import BIG, KNOT_FACE_GUARD, QPData
@@ -129,14 +130,6 @@ def check_precond(s: NSSettings) -> None:
             "precond_dtype='bfloat16' is only a PRECONDITIONER: it requires "
             "kkt_refine >= 1 (fresh-operator PCG absorbs the ~8-bit "
             "mantissa)")
-
-
-def pin_ieee_fp32() -> None:
-    """Full-precision float32 products: the rung inverses have condition
-    numbers near 1/rho_min, and TF32's ~10-bit mantissa wrecks them."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
 
 
 def knot_maps(dt: np.ndarray, n: int, phi: int):

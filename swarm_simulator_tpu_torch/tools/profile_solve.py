@@ -1,7 +1,7 @@
 """Profile the phased solve of the 64-agent forest on one CUDA card.
 
     python3 -m swarm_simulator_tpu_torch.tools.profile_solve [--seed 0]
-        [--refine | --sharded | --scatter AGENTS]
+        [--refine | --sharded | --scatter AGENTS | --seqbatch MODE]
 
 Run from the repository root (it takes the problem from chip_smoke.py).
 Builds the problem and its rung inventory once, runs the production
@@ -13,8 +13,9 @@ second run; one stream, so kernels do not overlap), the shares of the
 device time of the fused chunk kernel (K1), the Thomas solve kernel
 (K2), the chunked sweeps K3a and K3b and the rest (torch operations and
 copies), the device spans of the NCCL collectives, the host time per
-iteration (wall time over iterations), and the tables of the costliest
-device and host entries.
+iteration (wall time over iterations), the device entries (kernels and
+copies) per iteration, and the tables of the costliest device and host
+entries.
 
 Without an option: the cold solve (host-f64 prep, kkt_refine=0, one K1
 launch per chunk).  With ``--refine``: the refine path of replans and
@@ -27,11 +28,19 @@ on the scatter problem of tools/budget256_study.py (device prep, float32
 pivots): first the median CUDA-event time of one refine iteration and of
 its parts (the PCG w-update, one inventory solve through K2, A x and
 A^T y of the constraint rows), printed as they are measured, then the
-profile of a 150-iteration schedule, budgets (50, 50, 50).
+profile of a 150-iteration schedule, budgets (50, 50, 50).  With
+``--seqbatch MODE``: the sequential-batch ADMM solve
+(parallel/seqbatch.solve_trajectories, ``Param.solver="admm"``) of the
+64-agent forest in one of chip_smoke.py's SEQ_RUNS modes (gauss-seidel,
+jacobi, default) in float32, each batch solve capped at 200 iterations;
+its iterations are those run one after another (a Jacobi round's stacked
+batches count once, at the most any of them ran).
 """
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import sys
 import time
 
@@ -52,6 +61,10 @@ def main() -> int:
     mode.add_argument("--scatter", type=int, metavar="AGENTS",
                       help="profile the refine solve of the AGENTS-agent "
                            "scatter problem (tools/budget256_study.py)")
+    mode.add_argument("--seqbatch",
+                      choices=["gauss-seidel", "jacobi", "default"],
+                      help="profile the sequential-batch ADMM solve in "
+                           "this mode of chip_smoke.SEQ_RUNS")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_solve: needs a CUDA card", file=sys.stderr)
@@ -71,6 +84,8 @@ def main() -> int:
         sched = ns.schedule_arrays(bud.phases(base, (50, 50, 50)))
         return profile_run(lambda: timed_solve(d, o, sched))
     plan, mission, param, _ = chip_smoke.build_problem(args.seed)
+    if args.seqbatch:
+        return profile_run(lambda: seq_solve(plan, mission, args.seqbatch))
     phases = joint.production_phases(kkt_refine=int(args.refine))
     s0, it_k, lo_k, hi_k = ns.schedule_arrays(phases)
     data, _ = joint.assemble_joint(plan, mission, param)
@@ -147,6 +162,30 @@ def timed_solve(d, o, sched):
     return time.perf_counter() - t0, int(info.iters)
 
 
+def seq_solve(plan, mission, mode: str, max_iter: int = 200):
+    """One sequential-batch solve of ``plan`` in chip_smoke.SEQ_RUNS's
+    ``mode`` (float32, each batch solve capped at ``max_iter``): (host
+    seconds ending in a device sync, iterations run one after another)."""
+    import chip_smoke
+    from swarm_simulator_tpu_torch import Param
+    from swarm_simulator_tpu_torch.parallel import seqbatch
+
+    param = Param(world_z_min=0.3, grid_xy_res=0.5, grid_z_res=1.0,
+                  solver_dtype="float32", **chip_smoke.SEQ_RUNS[mode])
+    settings = dataclasses.replace(
+        seqbatch.default_settings(plan, mission, param), max_iter=max_iter)
+    t0 = time.perf_counter()
+    result = seqbatch.solve_trajectories(copy.deepcopy(plan), mission,
+                                         param, settings, device="cuda")
+    torch.cuda.synchronize()
+    iters = result.solver_info["iters"]
+    if mode == "jacobi":
+        per_round = len(iters) // param.iteration
+        iters = [max(iters[i:i + per_round])
+                 for i in range(0, len(iters), per_round)]
+    return time.perf_counter() - t0, sum(iters)
+
+
 def profile_run(solve) -> int:
     """Run ``solve() -> (seconds, iterations)`` once to warm up (first-use
     costs in), once unprofiled and once under torch.profiler; print the
@@ -162,6 +201,7 @@ def profile_run(solve) -> int:
     on_dev = [e for e in avg if e.device_type == DeviceType.CUDA
               and not e.is_user_annotation]
     dev_us = sum(e.self_device_time_total for e in on_dev)
+    dev_n = sum(e.count for e in on_dev)
     k1_us = sum(e.self_device_time_total for e in on_dev
                 if "nsfused" in e.key)
     k2_us = sum(e.self_device_time_total for e in on_dev
@@ -199,7 +239,8 @@ def profile_run(solve) -> int:
                           ("the rest (torch ops, copies)",
                            dev_us - k1_us - k2_us - k3a_us - k3b_us)))
           + f" of the device time; the NCCL collectives' device spans "
-          f"{nccl_us / 1e3:.1f} ms = {100 * nccl_us / dev_us:.1f}%")
+          f"{nccl_us / 1e3:.1f} ms = {100 * nccl_us / dev_us:.1f}%; "
+          f"{dev_n / max(iters_p, 1):.1f} device entries per iteration")
     print(avg.table(sort_by="self_device_time_total", row_limit=12))
     # a solve whose card idles is bound by the host: what it spends there
     print(avg.table(sort_by="self_cpu_time_total", row_limit=15))

@@ -4,7 +4,9 @@ sweeps (K3a/K3b), the pivot-stream kernel (T4) and the probe kernels
 (T1, T2, T3, T5) against their plain twins, and the planning paths
 through them: the cold plan through K1, the
 corridor replan and the device-prep cold plan through K2, and the sharded
-joint solve on a 1-rank NCCL group through K3a/K3b.
+joint solve on a 1-rank NCCL group through K3a/K3b; and the
+sequential-batch ADMM path (no kernel of its own) in float64 on the card
+against the CPU.
 
 These tests import torch and the port only (no jax), so they also run on
 a machine with a card and no JAX:
@@ -630,3 +632,39 @@ def test_row_pattern_p8_split_matches_plain_on_cuda():
     got = rp.row_pattern(rp.SUM_PATTERN, g, col)
     assert rp.row_pattern.launches == before + 1
     assert _rel(got, rp.PATTERNS[rp.SUM_PATTERN].plain(g, col)) <= 1e-6
+
+
+def test_seqbatch_sequential_swap_float64_on_cuda_matches_cpu():
+    """The sequential-batch ADMM path (no kernel of its own) on the card:
+    the 8-agent swap in Gauss-Seidel batches of 4, float64, against the
+    same plan on the CPU: the same iters, ctrl within 1e-9."""
+    from swarm_simulator_tpu_torch.io.mission_json import swap_mission
+
+    param = st.Param(world_z_min=0.0, solver_dtype="float64",
+                     grid_xy_res=0.5, grid_z_res=0.5, sequential=True,
+                     batch_size=4, batch_iter=-1)
+    mission = swap_mission(8, z=1.0, span=4.0, radius=0.12)
+    out = {dev: st.plan(mission, param, device=dev)[0]
+           for dev in ("cuda", "cpu")}
+    assert out["cuda"].solver_info["device"].startswith("cuda")
+    assert out["cuda"].solver_info["iters"] == out["cpu"].solver_info["iters"]
+    assert np.abs(out["cuda"].ctrl - out["cpu"].ctrl).max() <= 1e-9
+
+
+@pytest.mark.parametrize("kkt", ["dense", "cg"])
+def test_solve_qp_float64_on_cuda_matches_cpu(kkt):
+    """admm.solve_qp of the 8-agent forest's first 4-agent batch QP (the
+    CPU tests' problem, their early-stopping dual tolerance) in float64 on
+    the card against the CPU: the same iters, x within 1e-9."""
+    from swarm_simulator_tpu_torch.qp import admm, assemble
+
+    plan, mission, param = _corridors(8)
+    param = dataclasses.replace(param, solver_dtype="float64")
+    dummy = assemble.build_dummy(plan.init_traj, param.n, plan.M)
+    data = assemble.assemble_batch(plan, mission, param, np.arange(4),
+                                   dummy)
+    s = admm.ADMMSettings(kkt_solver=kkt, eps_dual_abs=0.5, max_iter=300)
+    (xg, ig), (xc, ic) = (admm.solve_qp(data, s, device=dev)
+                          for dev in ("cuda", "cpu"))
+    assert ig.iters == ic.iters < s.max_iter
+    assert float((xg.cpu() - xc).abs().max()) <= 1e-9

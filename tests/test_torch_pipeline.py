@@ -1,6 +1,7 @@
 """PyTorch port, the slice as a whole: plan + evaluate against the JAX
-package on the same 8-agent forest, in float64 on the CPU, and the modes
-that are not ported yet raise instead of degrading."""
+package on the same 8-agent forest, in float64 on the CPU, the admm
+solver and the flat corridors on a 4-agent swap, and the joint modes that
+are not ported yet raise instead of degrading."""
 import sys
 from pathlib import Path
 
@@ -18,14 +19,17 @@ from swarm_simulator_tpu_torch.io.mission_json import \
 from swarm_simulator_tpu_torch.qp import joint as joint_t
 from swarm_simulator_tpu_torch.world.forest import generate_forest as forest_t
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+sys.path[:0] = [str(Path(__file__).parent),
+                str(Path(__file__).resolve().parents[1])]
 
 import bench  # noqa: E402
+from test_torch_seqbatch import one_thread  # noqa: E402,F401
 
 KW = dict(world_z_min=0.3, grid_xy_res=0.5, grid_z_res=1.0,
           solver="nullspace", solver_dtype="float64")
 FOREST = dict(obs_num=6, r_min=0.3, r_max=0.3, h_min=0.0, h_max=2.5,
               margin=0.5, seed=1)
+
 
 
 @pytest.fixture(scope="module")
@@ -73,16 +77,58 @@ def test_evaluate_and_gate_match_jax(both):
 @pytest.mark.parametrize("change", [
     {"solver": "admm"}, {"corridor_mode": "flat"}])
 def test_plan_rejects_unported_modes(change):
-    param = st.Param(**{**KW, **change})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        st.plan(mission_t(4), param, device="cpu")
+    """The two modes this test once held to NotImplementedError are ported
+    (the sequential-batch ADMM and the flat corridors): the port's plan()
+    of the 4-agent swap matches the JAX package's, the same iters and
+    every evaluate() metric within 1e-6 of max(1, |value|)."""
+    out = []
+    for pkg, mission_fn in ((sj, mission_j), (st, mission_t)):
+        param = pkg.Param(**{**KW, **change})
+        kw = {"device": "cpu"} if pkg is st else {}
+        result, _ = pkg.plan(mission_fn(4), param, **kw)
+        out.append((result, pkg.evaluate(result, mission_fn(4), param,
+                                         **kw)))
+    (rj, ej), (rt, et) = out
+    assert rt.solver_info["iters"] == rj.solver_info["iters"]
+    assert ej.keys() == et.keys()
+    for k in ej:
+        assert abs(et[k] - ej[k]) <= 1e-6 * max(1.0, abs(ej[k])), k
+
+
+#: the port's citations of ROADMAP queue 1 items: (source, the cited
+#: item's number, a word the item's text holds)
+CITED = [("qp/joint.py", 2, "exact_polish"),
+         ("qp/joint.py", 2, "rescue_box_batches"),
+         ("qp/joint.py", 4, "solve_ns_phases"),
+         ("qp/nullspace_shard.py", 4, "solve_ns_phases"),
+         ("parallel/distributed.py", 7, "stack_across_processes"),
+         ("cli/plan.py", 6, "qp/scp")]
+
+
+@pytest.mark.parametrize("source,item,word", CITED)
+def test_roadmap_citations_name_their_items(source, item, word):
+    """Each "ROADMAP queue 1, item N" the port cites is an item of
+    ROADMAP.md's queue 1 that names what the citing code leaves out, and
+    the source cites no other item."""
+    import re
+
+    root = Path(__file__).resolve().parents[1]
+    text = (root / "ROADMAP.md").read_text()
+    queue = text[text.index("### 1. "):text.index("### 2. ")]
+    items = dict(re.findall(r"^(\d+)\. (.*?)(?=^\d+\. |\Z)", queue,
+                            re.M | re.S))
+    assert word in items[str(item)]
+    src = (root / "swarm_simulator_tpu_torch" / source).read_text()
+    cited = set(re.findall(r"ROADMAP queue 1,\s+item (\d+)", src))
+    assert str(item) in cited
+    assert cited <= {str(i) for s, i, _ in CITED if s == source}
 
 
 @pytest.mark.parametrize("kw", [{"exact_polish": True}])
 def test_joint_rejects_unported_modes(kw):
     param = st.Param(**KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 2"):
         joint_t.solve_trajectories(None, mission_t(4), param,
                                    device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 2"):
         joint_t.rescue_box_batches(None, mission_t(4), param, None)
