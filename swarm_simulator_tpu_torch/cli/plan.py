@@ -98,7 +98,9 @@ def build_argparser() -> argparse.ArgumentParser:
                         "on the card, fresh host prep on the CPU)")
     p.add_argument("--exact-polish", action="store_true",
                    help="finish each joint solve/replan round with the "
-                        "host-f64 active-set polish (not ported yet)")
+                        "host-f64 active-set polish (qp/activeset.py); "
+                        "prints each round's accepted / kkt_optimal / "
+                        "passes / n_active")
     p.add_argument("--dtype", choices=["float32", "float64"],
                    default="float32")
     p.add_argument("--max-iter", type=int, default=2000)
@@ -231,9 +233,12 @@ def main(argv=None) -> int:
                           result.init_traj, downwash=param.downwash,
                           path=str(d / "playback.gif"))
 
+    polish = result.solver_info.get("exact_polish_rounds")
     if args.json:
-        print(json.dumps({"metrics": metrics,
-                          "times": dataclasses.asdict(times)}))
+        out = {"metrics": metrics, "times": dataclasses.asdict(times)}
+        if polish is not None:
+            out["exact_polish"] = polish
+        print(json.dumps(out))
     else:
         print(f"agents={mission.qn} M={result.M} makespan={result.T[-1]:.2f}s")
         print(f"stage runtimes [s]: esdf={times.esdf:.3f} "
@@ -242,6 +247,11 @@ def main(argv=None) -> int:
               f"total={times.total:.3f}")
         for k, v in metrics.items():
             print(f"  {k}: {v:.6f}")
+        for r, a in enumerate(polish or ()):
+            print(f"exact polish round {r}: accepted={a['accepted']} "
+                  f"kkt_optimal={a['kkt_optimal']} passes={a['passes']} "
+                  f"n_active={a['n_active']} obj_in={a['obj_in']} "
+                  f"obj_out={a['obj_out']}")
         ok = metrics["min_safety_ratio"] >= 1.0
         print("RESULT:", "collision-free" if ok else "COLLISION")
         return 0 if ok else 1

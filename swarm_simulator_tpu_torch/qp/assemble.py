@@ -38,6 +38,29 @@ BIG = 1e8  # reference uses 1e7 placeholders (rbp_planner.hpp:480-481)
 KNOT_FACE_GUARD = 2e-3
 
 
+def relax_thin_knot_rows(lb: np.ndarray, ub: np.ndarray, n: int,
+                         interior: float = 5e-4):
+    """Relax zero/near-zero-width duplicated knot rows of host [B, 3, D]
+    bounds by ``interior``, for barrier consumers (qp/ipm.py) that need
+    strictly positive slack on every inequality.  First-order paths must
+    not use this (nullspace._bounds handles thin rows tighten-aware); the
+    5e-4 excursion stays under the 1e-3 acceptance-gate bound.  Returns
+    new (lb, ub) copies."""
+    B, K3, D = lb.shape
+    npp = n + 1
+    M = D // npp
+    lbv = lb.reshape(B, K3, M, npp).copy()
+    ubv = ub.reshape(B, K3, M, npp).copy()
+    ilo = np.maximum(lbv[:, :, :-1, n], lbv[:, :, 1:, 0])
+    ihi = np.minimum(ubv[:, :, :-1, n], ubv[:, :, 1:, 0])
+    thin = (ihi - ilo) < 2 * KNOT_FACE_GUARD
+    lbv[:, :, :-1, n] = np.where(thin, ilo - interior, lbv[:, :, :-1, n])
+    lbv[:, :, 1:, 0] = np.where(thin, ilo - interior, lbv[:, :, 1:, 0])
+    ubv[:, :, :-1, n] = np.where(thin, ihi + interior, ubv[:, :, :-1, n])
+    ubv[:, :, 1:, 0] = np.where(thin, ihi + interior, ubv[:, :, 1:, 0])
+    return lbv.reshape(B, K3, D), ubv.reshape(B, K3, D)
+
+
 @dataclass(frozen=True)
 class QPData:
     """One batch QP (the joint solve's batch is every agent).  Leaves are
@@ -69,6 +92,22 @@ class QPData:
                      else torch.as_tensor(getattr(self, f.name),
                                           device=device))
             for f in dataclasses.fields(self)})
+
+
+def host_f64(data: QPData) -> QPData:
+    """Every leaf as a host numpy array, floating leaves in float64 (the
+    host oracles' input: qp/ipm, qp/activeset)."""
+    def leaf(v):
+        if v is None:
+            return None
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        v = np.asarray(v)
+        return (v.astype(np.float64, copy=False) if v.dtype.kind == "f"
+                else v)
+    return dataclasses.replace(data, **{
+        f.name: leaf(getattr(data, f.name))
+        for f in dataclasses.fields(data)})
 
 
 def refresh_from_dummy(data: QPData, dummy: torch.Tensor) -> QPData:

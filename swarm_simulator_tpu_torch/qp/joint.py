@@ -16,9 +16,10 @@ block-tridiagonal banded KKT (qp/nullspace.py).  The recipe:
 
 Outer corridor iteration (param.iteration > 1): each replan round
 rebuilds the RSFC separating planes from the previous round's solution
-and re-solves warm-started from it.  exact_polish and the box rescue
-need the host oracles, which are not ported yet: they raise
-NotImplementedError naming their ROADMAP queue item.
+and re-solves warm-started from it.  exact_polish finishes every round
+with the host f64 active-set polish (qp/activeset.py), and
+rescue_box_batches re-solves box-stalled agent batches with the host f64
+IPM (qp/ipm.py).
 """
 from __future__ import annotations
 
@@ -32,12 +33,17 @@ import torch
 from ..core.device import resolve_device
 from ..core.types import Mission, Param, PlanResult
 from ..corridor.rsfc import build_rsfc
-from . import assemble, convert, nullspace
+from ..parallel import seqbatch
+from . import activeset, assemble, convert, ipm, nullspace
 
 #: phase budgets tuned on the canonical 64-agent forest
 PRODUCTION_BUDGETS = (200, 600, 100)
 
-#: warm polish-extension budgets (escalation_phases)
+#: margin-triggered escalation: when a solution's objective margin
+#: against the IPM best-response oracle (eval/gate) exceeds
+#: ESCALATION_TRIGGER, it is re-solved warm-started from itself with the
+#: warm polish-extension budgets ESCALATION_BUDGETS (escalation_phases)
+ESCALATION_TRIGGER = 1.15
 ESCALATION_BUDGETS = (100, 400, 100)
 
 #: short per-round replan budgets for big swarms (>= 128 agents),
@@ -94,11 +100,46 @@ def production_phases(budgets: tuple[int, int, int] = PRODUCTION_BUDGETS,
 
 
 def rescue_box_batches(plan, mission, param, ctrl, tol: float = 1e-3):
-    """The f64 interior-point best-response rescue of box-stalled agents
-    needs the host IPM oracle, which is not ported yet."""
-    raise NotImplementedError(
-        "rescue_box_batches (the f64 IPM box rescue) is not ported "
-        "(ROADMAP queue 1, item 2)")
+    """f64 IPM best-response rescue for box-stalled agents.
+
+    SFC boxes can be degenerate (a 1-cell corridor minus the agent
+    clearance collapses to a zero-width slot).  The instance stays
+    feasible, and CPLEX/IPM solve it exactly (rbp_planner.hpp:158), but
+    first-order ADMM converges sublinearly against a measure-zero face.
+    The fallback is the reference's own sequential-batch architecture:
+    find agents violating their boxes beyond ``tol``, re-solve only their
+    batches' best-response QPs with the exact host f64 interior-point
+    solver (everyone else fixed at ``ctrl``: the one-sided pair rows of
+    rbp_planner.hpp:638-684), splice, and let the caller re-gate.
+
+    Returns (ctrl, rescued_batch_indices)."""
+    boxes = np.asarray(plan.seg_boxes)
+    dm = np.asarray(ctrl, np.float64)
+    viol = np.maximum(boxes[:, :, None, :3] - dm,
+                      dm - boxes[:, :, None, 3:]).max(axis=(1, 2, 3))
+    bad = np.where(viol > tol)[0]
+    if bad.size == 0:
+        return dm, []
+    batches, _ = seqbatch.make_batches(mission.qn, param)
+    bad_b = sorted({i for i, b in enumerate(batches)
+                    if np.intersect1d(np.asarray(b), bad).size})
+    out = dm.copy()
+    for bi in bad_b:
+        agents = np.asarray(batches[bi])
+        data_b = assemble.host_f64(assemble.assemble_batch(
+            plan, mission, param, agents, out))
+        # relax zero-width duplicated knot rows by 5e-4 (the IPM needs
+        # positive slack on every inequality; the residual face excursion
+        # stays under the 1e-3 gate bound).  No other row is relaxed or
+        # tightened: a blanket lb+t/ub-t collides with the equality-pinned
+        # endpoints sitting on box faces and the IPM diverges
+        lb_r, ub_r = assemble.relax_thin_knot_rows(data_b.lb, data_b.ub,
+                                                   param.n)
+        data_b = dataclasses.replace(data_b, lb=lb_r, ub=ub_r)
+        res = ipm.solve_ipm_reduced(data_b)
+        ipm.verify_optimal(data_b, res, tol=1e-5)
+        out[agents] = convert.x_to_ctrl(res.x, plan.M, param.n)
+    return out, bad_b
 
 
 def assemble_joint(plan: PlanResult, mission: Mission, param: Param,
@@ -165,11 +206,14 @@ def solve_trajectories(plan: PlanResult, mission: Mission, param: Param,
     take ``precond_dtype`` from ``phases`` (bf16 pivots need the refine).
 
     dummy: the warm start and x0 seed (None = the initTraj midpoint
-    interpolation)."""
-    if exact_polish:
-        raise NotImplementedError(
-            "exact_polish (the host active-set polish) is not ported "
-            "(ROADMAP queue 1, item 2)")
+    interpolation).
+
+    exact_polish: finish every round (the cold solve after its warm polish
+    extensions, and each replan round) with the host f64 active-set polish
+    (qp/activeset.polish_ctrl): the exact QP optimum when its KKT
+    certificate holds, else the best feasible improvement, else the round's
+    solution unchanged.  solver_info["exact_polish"] holds the last
+    round's diagnostics, ["exact_polish_rounds"] every round's, in order."""
     device = resolve_device(device)
     if polish_rounds is None:
         polish_rounds = polish_rounds_for_swarm(mission.qn)
@@ -215,6 +259,15 @@ def solve_trajectories(plan: PlanResult, mission: Mission, param: Param,
         return dataclasses.replace(
             data_h, x0=np.asarray(x0, np.asarray(data_h.x0).dtype))
 
+    as_rounds = []
+
+    def run_exact_polish(data_h, ctrl_in):
+        ctrl_out, ainfo = activeset.polish_ctrl(data_h, ctrl_in)
+        as_rounds.append({k: ainfo.get(k) for k in (
+            "accepted", "kkt_optimal", "passes", "n_active", "obj_in",
+            "obj_out", "worst_slack_out", "pinned_box_viol", "t_s")})
+        return np.asarray(ctrl_out, np.float64)
+
     ctrl, info, solve_s = run(data, op_dev, phases)
 
     polish_s = 0.0
@@ -223,6 +276,8 @@ def solve_trajectories(plan: PlanResult, mission: Mission, param: Param,
         for _ in range(polish_rounds):
             ctrl, info, dt = run(with_x0(data, ctrl), op_dev, pphases)
             polish_s += dt
+    if exact_polish:
+        ctrl = run_exact_polish(data, ctrl)
 
     replan_prep_s, replan_solve_s, replan_iters = [], [], []
     if param.iteration > 1:
@@ -280,6 +335,8 @@ def solve_trajectories(plan: PlanResult, mission: Mission, param: Param,
                 dt += dt_p
             replan_solve_s.append(dt)
             replan_iters.append(int(info.iters))
+            if exact_polish:
+                ctrl = run_exact_polish(data, ctrl)
 
     plan.ctrl = ctrl
     plan.coef = convert.ctrl_to_coef(ctrl, plan.T, n)
@@ -312,4 +369,7 @@ def solve_trajectories(plan: PlanResult, mission: Mission, param: Param,
         "replan_iters": replan_iters,
         "problem_size": problem_size,
     }
+    if exact_polish:
+        plan.solver_info["exact_polish"] = as_rounds[-1]
+        plan.solver_info["exact_polish_rounds"] = as_rounds
     return plan

@@ -6,7 +6,8 @@ through them: the cold plan through K1, the
 corridor replan and the device-prep cold plan through K2, and the sharded
 joint solve on a 1-rank NCCL group through K3a/K3b; and the
 sequential-batch ADMM path (no kernel of its own) in float64 on the card
-against the CPU.
+against the CPU; the oracle gate (the host f64 IPM's objective criterion)
+and the exact polish on plans made on the card.
 
 These tests import torch and the port only (no jax), so they also run on
 a machine with a card and no JAX:
@@ -27,6 +28,7 @@ import swarm_simulator_tpu_torch as st
 from swarm_simulator_tpu_torch.corridor.times import build_corridors
 from swarm_simulator_tpu_torch.io.mission_json import (
     perimeter_swap_mission, scatter_mission)
+from swarm_simulator_tpu_torch.eval import gate
 from swarm_simulator_tpu_torch.eval.gate import gate_quality
 from swarm_simulator_tpu_torch.ops import nsfused, thomas
 from swarm_simulator_tpu_torch.ops import nsfused_probe as npb
@@ -668,3 +670,55 @@ def test_solve_qp_float64_on_cuda_matches_cpu(kkt):
                           for dev in ("cuda", "cpu"))
     assert ig.iters == ic.iters < s.max_iter
     assert float((xg.cpu() - xc).abs().max()) <= 1e-9
+
+
+#: bench.py's oracle batches: sequential groups of 4 (the joint solve
+#: ignores these fields)
+ORACLE_BATCHES = dict(sequential=True, batch_size=4, batch_iter=-1,
+                      time_scale=False)
+
+
+def test_oracle_gate_on_cuda():
+    """The 8-agent forest planned on the card through K1 (no twin on CUDA)
+    passes the full gate with the IPM objective criterion at obj_tol 1.25
+    on both of its batches of 4."""
+    mission, param, world = _forest()
+    param = dataclasses.replace(param, **ORACLE_BATCHES)
+    _reset_counts()
+    result, _ = st.plan(mission, param, world, device="cuda")
+    assert nsfused.nsfused_chunk.launches > 0
+    assert nsfused.nsfused_chunk_reference.cuda_calls == 0
+    for b_idx in range(2):
+        obj_b0, _ = gate.batch0_objective(result.ctrl, result, mission,
+                                          param, b_idx)
+        obj_ref, _ = gate.ipm_best_response_batch0(result, mission, param,
+                                                   result.ctrl, b_idx)
+        ok, m = gate_quality(result.ctrl, result, mission, param, obj_ref,
+                             obj_b0, device="cuda")
+        assert ok, m
+
+
+def test_exact_polish_on_cuda():
+    """Param(exact_polish=True) on the card: K1 launched and no twin on
+    CUDA, the polish accepted without raising the objective, and the
+    polished plan passes the full gate at a margin <= 1.01 on batch 0
+    (the oracle's pair rows lowered by 1e-6: an exact optimum leaves
+    them at zero slack)."""
+    mission, param, world = _forest()
+    param = dataclasses.replace(param, exact_polish=True, **ORACLE_BATCHES)
+    _reset_counts()
+    result, _ = st.plan(mission, param, world, device="cuda")
+    assert nsfused.nsfused_chunk.launches > 0
+    assert nsfused.nsfused_chunk_reference.cuda_calls == 0
+    info = result.solver_info["exact_polish"]
+    assert info["accepted"] is True, info
+    assert info["obj_out"] <= info["obj_in"] + 1e-9
+    assert result.solver_info["exact_polish_rounds"] == [info]
+    obj_b0, _ = gate.batch0_objective(result.ctrl, result, mission, param, 0)
+    obj_ref, _ = gate.ipm_best_response_batch0(result, mission, param,
+                                               result.ctrl, 0,
+                                               pair_relax=1e-6)
+    assert obj_b0 <= 1.01 * obj_ref
+    ok, m = gate_quality(result.ctrl, result, mission, param, obj_ref,
+                         obj_b0, device="cuda")
+    assert ok, m

@@ -1,7 +1,8 @@
 """PyTorch port, the slice as a whole: plan + evaluate against the JAX
 package on the same 8-agent forest, in float64 on the CPU, the admm
-solver and the flat corridors on a 4-agent swap, and the joint modes that
-are not ported yet raise instead of degrading."""
+solver and the flat corridors on a 4-agent swap, and each ROADMAP item
+that the port's NotImplementedError messages cite names what they leave
+out."""
 import sys
 from pathlib import Path
 
@@ -16,7 +17,6 @@ from swarm_simulator_tpu.world.forest import generate_forest as forest_j
 from swarm_simulator_tpu_torch.eval.gate import gate_quality as gate_t
 from swarm_simulator_tpu_torch.io.mission_json import \
     perimeter_swap_mission as mission_t
-from swarm_simulator_tpu_torch.qp import joint as joint_t
 from swarm_simulator_tpu_torch.world.forest import generate_forest as forest_t
 
 sys.path[:0] = [str(Path(__file__).parent),
@@ -97,9 +97,7 @@ def test_plan_rejects_unported_modes(change):
 
 #: the port's citations of ROADMAP queue 1 items: (source, the cited
 #: item's number, a word the item's text holds)
-CITED = [("qp/joint.py", 2, "exact_polish"),
-         ("qp/joint.py", 2, "rescue_box_batches"),
-         ("qp/joint.py", 4, "solve_ns_phases"),
+CITED = [("qp/joint.py", 4, "solve_ns_phases"),
          ("qp/nullspace_shard.py", 4, "solve_ns_phases"),
          ("parallel/distributed.py", 7, "stack_across_processes"),
          ("cli/plan.py", 6, "qp/scp")]
@@ -122,13 +120,3 @@ def test_roadmap_citations_name_their_items(source, item, word):
     cited = set(re.findall(r"ROADMAP queue 1,\s+item (\d+)", src))
     assert str(item) in cited
     assert cited <= {str(i) for s, i, _ in CITED if s == source}
-
-
-@pytest.mark.parametrize("kw", [{"exact_polish": True}])
-def test_joint_rejects_unported_modes(kw):
-    param = st.Param(**KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 2"):
-        joint_t.solve_trajectories(None, mission_t(4), param,
-                                   device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 2"):
-        joint_t.rescue_box_batches(None, mission_t(4), param, None)
