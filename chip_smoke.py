@@ -144,6 +144,29 @@ Phases (any failure raises and exits non-zero):
      the full gate, and the margin within 1e-6 of the unpolished one or
      below and <= 1.01 (the polished plan's oracle with every pair rhs
      lowered by 1e-6, a stricter reading); the host's BLAS threads.
+ 20. the scenario axis, the per-phase solve and SCP: run_monte_carlo of
+     forest seeds 0-7 (64 agents, float32, cg) two-phase and pipelined
+     (chunks of 4), each scenario's bucket, rounds, iterations and stage
+     seconds, held to no kernel or twin run, pipelined coefficients within
+     MC_PIPE_TOL of the two-phase ones, safety ratio >= 1 - 1e-3, and the
+     control points within phase 18's cg bar of a float64 run on the
+     card; the knot-state Jacobi sweep (16 groups of 4, two rounds) banded
+     (K1 a group a chunk, no twin) and dense (no kernel) in float32 and
+     dense in float64, each time-scaled plan held to
+     tests/test_pipeline.py:_check but for its safety ratio, which is
+     printed beside the JAX package's (below 1 there too:
+     JAX_CPU_JACOBI64) and held to it in float64; K1 at one group's
+     shapes against its twins (phase 2's rule) and timed, and the banded
+     sweep at a short schedule through K1 and its float32 twin held to
+     K1's tolerance against a float64 twin's; plan() with per-phase
+     production phases (restore tightened by RESTORE_TIGHTEN) through K1
+     with the full oracle gate, its margin beside phase 19's; the sweep
+     CLI (``python -m swarm_simulator_tpu_torch.cli.sweep``, two
+     subprocesses, admm and nullspace) over forests 0-2 written as .bt:
+     exit 0, ``# success 3/3``, each ratio equal to the library plan's;
+     ``cli.plan --preset scp --alg scp`` on the 8-agent swap with the
+     reference's start noise in float32 and float64: exit 0 and the
+     costs within SCP_COST_TOL.
 The line before the last is the kernels' JSON record (each kernel's
 launches on its own path, errors, times of kernel and plain twin, and its
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
@@ -314,16 +337,15 @@ def on_device(data, op, dev, dtype):
     d = dataclasses.replace(d, **{
         f.name: getattr(d, f.name).to(dtype) for f in dataclasses.fields(d)
         if torch.is_floating_point(getattr(d, f.name))})
-    return d, ns.NSOp(*(v.to(dtype) for v in op.to(dev)))
+    return d, ns.NSOp(*(None if v is None else v.to(dtype)
+                        for v in op.to(dev)))
 
 
 def kernel_vs_twin(plan, mission, param, dev):
     """Phase 2: one chunk per rung through the kernel, the float32 twin and
     a float64 twin, all from the same cold state.  Returns the errors, the
     times, and the host problem and operator for phase 4."""
-    from swarm_simulator_tpu_torch.ops import nsfused
     from swarm_simulator_tpu_torch.qp import joint, nullspace as ns
-    from swarm_simulator_tpu_torch.tools._timing import event_ms
 
     s = joint.production_phases()[0]
     data, _ = joint.assemble_joint(plan, mission, param)
@@ -331,6 +353,18 @@ def kernel_vs_twin(plan, mission, param, dev):
     op = ns.prepare_ns_np(data, s)
     log(f"host f64 prep: {time.perf_counter() - t0:.3f} s, pivots "
         f"{tuple(op.Dinvs.shape)} {op.Dinvs.dtype}")
+    return dict(chunk_vs_twins(data, op, s, dev, ""), data=data, op=op)
+
+
+def chunk_vs_twins(data, op, s, dev, label: str) -> dict:
+    """One chunk per rung of the host problem ``data`` and its host-prep
+    operator ``op`` through the kernel, the float32 twin and a float64
+    twin, all from the same cold state: the errors (the kernel's against
+    the float64 twin held to ops/nsfused.twin_gap_use), the median times
+    of kernel and float32 twin, and the chunk's bound."""
+    from swarm_simulator_tpu_torch.ops import nsfused
+    from swarm_simulator_tpu_torch.qp import nullspace as ns
+    from swarm_simulator_tpu_torch.tools._timing import event_ms
 
     ops32, st32 = ns.cold_chunk_inputs(*on_device(data, op, dev,
                                                   torch.float32), s)
@@ -359,7 +393,7 @@ def kernel_vs_twin(plan, mission, param, dev):
             *a32, n_inner=N_INNER), 3, warmup=0)
         t_ms += event_ms(lambda: nsfused.nsfused_chunk_reference(
             *a32, n_inner=N_INNER), 1, warmup=0)
-        log(f"rung {r} (rho {float(op.ladder[r]):.3g}) rel err "
+        log(f"{label}rung {r} (rho {float(op.ladder[r]):.3g}) rel err "
             + " ".join(f"{n}: k-t32 {a:.1e} k-t64 {b:.1e} t32-t64 {c:.1e};"
                        for n, a, b, c in zip(nsfused.STATE_PARTS,
                                              errs["k32"][-1],
@@ -367,13 +401,14 @@ def kernel_vs_twin(plan, mission, param, dev):
                                              errs["t64"][-1]))
             + f" kernel {np.median(k_ms[-3:]):.3f} ms twin {t_ms[-1]:.3f} ms")
     use = nsfused.twin_gap_use(errs["k64"], errs["t64"])
-    log("share of the tolerance used per part (worst kernel vs float64 "
+    log(f"{label}share of the tolerance used per part (worst kernel vs "
+        "float64 "
         f"twin over {nsfused.TWIN_GAP_FACTOR} x worst float32 twin vs "
         f"float64 twin + {nsfused.TWIN_GAP_FLOOR}; limit 1): "
         + " ".join(f"{n} {v:.2f}" for n, v in use.items()))
     for name, v in use.items():
-        check(v <= 1.0, f"{name}: the kernel is less accurate than the "
-              f"float32 twin allows ({v:.2f} of the tolerance)")
+        check(v <= 1.0, f"{label}{name}: the kernel is less accurate than "
+              f"the float32 twin allows ({v:.2f} of the tolerance)")
     worst = {key: max(max(e) for e in rows) for key, rows in errs.items()}
     # the bound of one chunk: one rung of pivots and every other operand
     # read once, the state written once; the operations are the chunk's
@@ -391,7 +426,7 @@ def kernel_vs_twin(plan, mission, param, dev):
                        + 2 * 4 * d["P"] * 3 * d["D"])
     return dict(worst=worst, use=max(use.values()), max_abs_err=max_abs,
                 ms=float(np.median(k_ms)), plain_ms=float(np.median(t_ms)),
-                bound=bound(nbytes, flops), data=data, op=op)
+                bound=bound(nbytes, flops))
 
 
 def solve_kernel_vs_twin(data, op, dev):
@@ -1460,6 +1495,17 @@ def row_pattern_probes(dev):
                 bound=bound(nbytes, 2 * 3 * 192 * 192))
 
 
+def accept_plan(label: str, m: dict, ratio: bool = True) -> None:
+    """tests/test_pipeline.py's acceptance (_check) of a time-scaled
+    plan's evaluate() metrics ``m``; ``ratio=False`` leaves out its safety
+    ratio clause (phase 20's Jacobi sweeps: JAX_CPU_JACOBI64)."""
+    if ratio:
+        check(m["min_safety_ratio"] >= 1.0 - 1e-3, f"{label}: ratio {m}")
+    check(m["knot_continuity_err"] < 1e-3, f"{label}: continuity {m}")
+    check(max(m["start_err"], m["goal_err"]) < 1e-3, f"{label}: ends {m}")
+    check(m["dynamic_violation"] < 1e-2, f"{label}: dynamics {m}")
+
+
 def accept_seq(label: str, m: dict, f32: dict, f64: dict,
                witness: dict) -> None:
     """A float32 plan's metrics ``m``: tests/test_pipeline.py's acceptance
@@ -1472,10 +1518,7 @@ def accept_seq(label: str, m: dict, f32: dict, f64: dict,
     1e-3.  (The JAX float32 plans sit 0.28-0.46 m from its float64 ones
     in the dense modes, their ratios 1.6e-3 and 8.7e-3 below: the float32
     rounding floor, PERF.md; the float64 plans are the converged ones.)"""
-    check(m["min_safety_ratio"] >= 1.0 - 1e-3, f"{label}: ratio {m}")
-    check(m["knot_continuity_err"] < 1e-3, f"{label}: continuity {m}")
-    check(max(m["start_err"], m["goal_err"]) < 1e-3, f"{label}: ends {m}")
-    check(m["dynamic_violation"] < 1e-2, f"{label}: dynamics {m}")
+    accept_plan(label, m)
     check(m["min_safety_ratio"] >= f32["min_safety_ratio"] - 1e-3,
           f"{label}: ratio {m['min_safety_ratio']} more than 1e-3 below "
           f"the JAX package's float32 {f32['min_safety_ratio']}")
@@ -1606,8 +1649,8 @@ def escalate(result, mission, param, dev):
     N, M, npp, _ = result.ctrl.shape
     x0 = result.ctrl.reshape(N, M * npp, 3).transpose(0, 2, 1)
     data = dataclasses.replace(data, x0=np.asarray(x0, data.x0.dtype))
-    x, info = joint._run_schedule(data.to(dev), op_dev,
-                                  joint.escalation_phases(phases))
+    x, info = ns.solve_ns_phases(data, joint.escalation_phases(phases),
+                                 op=op_dev, device=dev)
     result.ctrl = convert.x_to_ctrl(x.double().cpu().numpy(), M, param.n)
     return info
 
@@ -1706,6 +1749,443 @@ def oracle_gates(port, cold, dev) -> dict:
     gate(result, mission, oparam, dev, "exact polish", obj_ref, obj_b0)
     out["polish"] = dict(plan_s=plan_s, margin=margin, oracle_s=ipm_s,
                          k1=counts["k1"], **pinfo)
+    return out
+
+
+#: phase 20's Monte-Carlo: the canonical forest's seeds 0..7, two-phase
+#: and pipelined in chunks of MC_PIPELINE scenarios
+MC_SCENARIOS = 8
+MC_PIPELINE = 4
+#: the pipelined path's coefficients against the two-phase path's
+#: (float32: each scenario's problem is solved alone in both, padded to
+#: other pair counts)
+MC_PIPE_TOL = 1e-4
+#: phase 20's knot-state Jacobi sweep: batches of 4, tighten, and the
+#: short schedule of its kernel-against-twin comparison
+JACOBI_TIGHTEN = 2e-3
+JACOBI_CMP_ITERS = (50, 50)
+#: the JAX package's knot-state Jacobi sweep of phase 20's problem (the
+#: 64-agent forest of seed 0, 16 groups of 4, two rounds, tighten 2e-3) on
+#: a CPU host: the safety ratio of its time-scaled plan by (mode, dtype)
+#: (``PYTHONPATH=. python tests/test_torch_jacobi.py --package jax --mode
+#: MODE --dtype DTYPE``, x64 only for float64 as the JAX CLI; PERF.md).
+#: Every one is below 1: each group keeps the others at their previous
+#: round's positions, and the groups' simultaneous moves collide across
+#: groups (ROADMAP queue 3).  So phase 20 holds the float32 sweeps to
+#: tests/test_pipeline.py:_check's other clauses, prints their ratios
+#: beside these (float32 rounding moves the banded sweep's ratio by ~0.15
+#: between the card and a CPU), and holds the dense sweep in float64 to
+#: the float64 value within JACOBI_RATIO_TOL
+JAX_CPU_JACOBI64 = {("banded", "float32"): 0.5795884728431702,
+                    ("banded", "float64"): 0.5660554629706032,
+                    ("dense", "float32"): 0.5524252653121948,
+                    ("dense", "float64"): 0.5660554629884789}
+JACOBI_RATIO_TOL = 1e-3
+#: phase 20's per-phase joint solve: the restore phase tightens by this
+#: (the production phases' 2e-3 elsewhere), which schedule_arrays refuses
+RESTORE_TIGHTEN = 3e-3
+#: the SCP run on float32 against the same run in float64: the cost's
+#: relative gap
+SCP_COST_TOL = 1e-3
+#: the reference's start and goal noise of the SCP node
+#: (swarm_traj_planner_scp.cpp, applyNoise 0.01; seeded here): without it
+#: the antipodal swap sends every pair through the centre at one step, the
+#: linearized separation direction of a coinciding pair is 0 and the QP
+#: asks 0 >= R (in float64 the SCP then stops at ratio 0.58)
+SCP_NOISE = 0.01
+
+
+def plan_metrics(plan, mission, param, ctrl, dev) -> dict:
+    """evaluate() of ``plan`` with control points ``ctrl``, time-scaled as
+    plan() scales a solution."""
+    import copy
+
+    import swarm_simulator_tpu_torch as port
+    from swarm_simulator_tpu_torch.qp import convert, timescale
+
+    res = copy.copy(plan)
+    res.ctrl = ctrl
+    res.coef = convert.ctrl_to_coef(ctrl, plan.T, param.n)
+    if param.time_scale:
+        scale = timescale.compute_time_scale(
+            res.coef, res.T, mission.max_vel, mission.max_acc, param.n,
+            param.phi)
+        res.coef, res.T = timescale.apply_time_scale(res.coef, res.T, scale,
+                                                     param.n)
+    return port.evaluate(res, mission, param, device=dev)
+
+
+def monte_carlo(dev) -> dict:
+    """Phase 20, Monte-Carlo: run_monte_carlo of the canonical forest's
+    seeds 0..MC_SCENARIOS-1 (64 agents, 20 obstacles, float32, the
+    module's cg settings) two-phase and pipelined, then the two-phase
+    plans again in float64 (solve_scenarios) as the witness; each
+    scenario's bucket, rounds, iterations and stage seconds; checks: no
+    kernel and no twin ran, every scenario solved, pipelined coefficients
+    within MC_PIPE_TOL of the two-phase ones, each plan's safety ratio >=
+    1 - 1e-3, its control points within phase 18's cg bar of the
+    witness's."""
+    import copy
+
+    import swarm_simulator_tpu_torch as port
+    from swarm_simulator_tpu_torch.parallel import scenarios as scn
+
+    mission, param, _ = forest(SEED)
+    runs = {}
+    reset_counts()
+    for label, pipe in (("two-phase", None),
+                        (f"pipeline={MC_PIPELINE}", MC_PIPELINE)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = scn.run_monte_carlo(mission, param, n_scenarios=MC_SCENARIOS,
+                                  seed0=SEED, pipeline=pipe, device=dev)
+        torch.cuda.synchronize()
+        runs[label] = (out, time.perf_counter() - t0)
+    counts = read_counts()
+    check(not any(counts.values()),
+          f"the Monte-Carlo path ran a kernel or a twin: {counts}")
+    (two, two_s), (pipe, pipe_s) = runs.values()
+    for a, b in zip(two, pipe):
+        check(a.error is None and b.error is None,
+              f"a Monte-Carlo scenario failed: {a.error} / {b.error}")
+    wit = [scn.Scenario(sc.mission, sc.world, copy.deepcopy(sc.plan))
+           for sc in two]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scn.solve_scenarios(wit, dataclasses.replace(param,
+                                                 solver_dtype="float64"),
+                        device=dev)
+    torch.cuda.synchronize()
+    wit_s = time.perf_counter() - t0
+    prep = {k: sum(sc.times[k] for sc in two)
+            for k in ("esdf", "search", "corridor")}
+    solves = {}
+    for label, out in (("two-phase", two), ("pipelined", pipe)):
+        # one solve a stack: count each stack once
+        seen = {}
+        for sc in out:
+            info = sc.plan.solver_info
+            seen[(info["M"], info["solve_s"])] = (info["assemble_s"]
+                                                  + info["solve_s"])
+        solves[label] = sum(seen.values())
+    for i, (a, b, w) in enumerate(zip(two, pipe, wit)):
+        m = port.evaluate(a.plan, mission, param, device=dev)
+        dcoef = float(np.abs(a.plan.coef - b.plan.coef).max())
+        gap = float(np.abs(a.plan.ctrl - w.plan.ctrl).max())
+        ia, ib = a.plan.solver_info, b.plan.solver_info
+        log(f"mc seed {SEED + i}: M bucket {ia['M']} rounds {ia['rounds']} "
+            f"iters {ia['iters']} (pipelined {ib['iters']}, stack "
+            f"{ib['stack']}); prep s " + json.dumps(
+                {k: round(v, 4) for k, v in a.times.items()})
+            + f"; two-phase stack of {ia['stack']}: assemble "
+            f"{ia['assemble_s']:.3f} s solve {ia['solve_s']:.3f} s; "
+            f"ratio {m['min_safety_ratio']:.6f}; max |coef pipelined - "
+            f"two-phase| {dcoef:.3e}; max |ctrl32 - ctrl64| {gap:.3e} m")
+        check(dcoef <= MC_PIPE_TOL, f"mc seed {SEED + i}: pipelined "
+              f"coefficients {dcoef} from the two-phase ones")
+        check(m["min_safety_ratio"] >= 1.0 - 1e-3,
+              f"mc seed {SEED + i}: safety ratio {m['min_safety_ratio']}")
+        check(gap <= SEQ_CTRL_GAP["default"], f"mc seed {SEED + i}: the "
+              f"float32 plan {gap} m from its float64 witness")
+    log(f"mc {MC_SCENARIOS} scenarios x {mission.qn} agents: two-phase "
+        f"{two_s:.3f} s ({two_s / MC_SCENARIOS:.3f} s a scenario), "
+        f"pipelined {pipe_s:.3f} s ({pipe_s / MC_SCENARIOS:.3f} s a "
+        f"scenario); host prep (thread seconds, summed) " + json.dumps(
+            {k: round(v, 3) for k, v in prep.items()})
+        + f"; assemble + solve: two-phase {solves['two-phase']:.3f} s, "
+        f"pipelined {solves['pipelined']:.3f} s; two-phase prep wall "
+        f"{two_s - solves['two-phase']:.3f} s; pipelined wall minus its "
+        f"solves {pipe_s - solves['pipelined']:.3f} s; float64 witness "
+        f"solve {wit_s:.3f} s")
+    return dict(two_s=two_s, pipe_s=pipe_s, wit_s=wit_s, prep=prep,
+                solves=solves)
+
+
+def jacobi_stack(plan, mission, param):
+    """The 64-agent forest's batch QPs of ORACLE_BATCHES (16 groups of 4)
+    on the host, stacked and padded to one pair count, and the dummy."""
+    from swarm_simulator_tpu_torch.parallel import seqbatch
+    from swarm_simulator_tpu_torch.qp import assemble
+
+    batches, _ = seqbatch.make_batches(
+        mission.qn, dataclasses.replace(param, **ORACLE_BATCHES))
+    dummy = assemble.build_dummy(plan.init_traj, param.n, plan.M)
+    pairs = np.asarray(plan.pair_idx)
+    pad = max(int(np.isin(pairs, b).any(axis=1).sum()) for b in batches)
+    return seqbatch._stack_qpdata([
+        assemble.assemble_batch(plan, mission, param, b, dummy, pad)
+        for b in batches]), dummy
+
+
+def jacobi_knot_state(plan, mission, param, dev) -> dict:
+    """Phase 20, the knot-state Jacobi sweep (mesh.jacobi_sweep) of the
+    64-agent forest's 16 groups of 4, two rounds, in both KKT modes:
+    banded in float32 (each chunk one K1 launch a group) and dense in
+    float64 (no kernel, no float32 rounding to amplify), each plan
+    time-scaled and held to tests/test_pipeline.py:_check as
+    JAX_CPU_JACOBI64 says; K1 at one
+    group's shapes against its twins (K1's tolerance, phase 2's rule) and
+    timed; then the banded sweep at the short schedule JACOBI_CMP_ITERS
+    through K1, the float32 twin and a float64 twin in K1's place, the
+    kernel's sweep held to K1's tolerance against the float64 twin's."""
+    from unittest import mock
+
+    from swarm_simulator_tpu_torch.ops import nsfused, thomas
+    from swarm_simulator_tpu_torch.parallel import mesh
+    from swarm_simulator_tpu_torch.qp import nullspace as ns
+
+    stacked, dummy = jacobi_stack(plan, mission, param)
+    out = {}
+    for mode, dtype in (("banded", np.float32), ("dense", np.float64)):
+        label = f"jacobi knot-state {mode} {np.dtype(dtype).name}"
+        s = ns.NSSettings(kkt_mode=mode, tighten=JACOBI_TIGHTEN)
+        st = dataclasses.replace(stacked, **{
+            f.name: np.asarray(getattr(stacked, f.name), dtype)
+            for f in dataclasses.fields(stacked)
+            if np.asarray(getattr(stacked, f.name)).dtype.kind == "f"})
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctrl, info = mesh.jacobi_sweep(st, dummy.astype(dtype), s, rounds=2,
+                                       device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        m = plan_metrics(plan, mission, param,
+                         ctrl.double().cpu().numpy(), dev)
+        ref = JAX_CPU_JACOBI64[mode, np.dtype(dtype).name]
+        log(f"{label}: 2 rounds {secs:.3f} s, last round iters "
+            f"{info.iters.tolist()}, K1 launches {counts['k1']}, twin "
+            f"calls on CUDA {counts['twin1']}; evaluate (time-scaled): "
+            + json.dumps(m) + f"; the JAX package's ratio (CPU) {ref}")
+        accept_plan(label, m, ratio=False)
+        if dtype == np.float64:
+            check(abs(m["min_safety_ratio"] - ref) <= JACOBI_RATIO_TOL,
+                  f"{label}: ratio {m['min_safety_ratio']} not within "
+                  f"{JACOBI_RATIO_TOL} of the JAX package's {ref}")
+        if mode == "banded":
+            check(counts["k1"] > 0, "the banded Jacobi sweep launched K1 "
+                  "0 times")
+            check(all(counts[t] == 0 for t in TWINS),
+                  f"the banded Jacobi sweep ran a twin on CUDA ({counts})")
+        else:
+            check(not any(counts.values()), "the dense Jacobi sweep ran a "
+                  f"kernel or a twin: {counts}")
+        out[mode, np.dtype(dtype).name] = dict(s=secs, counts=counts,
+                                               metrics=m)
+
+    # K1 at one group's shapes, on its host-prep operator
+    s = ns.NSSettings(kkt_mode="banded", tighten=JACOBI_TIGHTEN)
+    g0 = dataclasses.replace(stacked, **{
+        f.name: np.asarray(getattr(stacked, f.name))[0]
+        for f in dataclasses.fields(stacked)
+        if getattr(stacked, f.name) is not None})
+    grp = chunk_vs_twins(g0, ns.prepare_ns_np(g0, s), s, dev, "K1 group: ")
+    log(f"K1 on one group of 4 (bs {3 * 4 * param.phi}): median chunk "
+        f"kernel {grp['ms']:.4f} ms, twin {grp['plain_ms']:.3f} ms, bound "
+        f"{grp['bound'][0]:.5f} ms ({grp['bound'][1]}); banded sweep "
+        f"{out['banded', 'float32']['counts']['k1']} launches")
+
+    # the whole sweep through K1, the float32 twin, the float64 twin
+    def sweep(dtype):
+        st = dataclasses.replace(stacked, **{
+            f.name: np.asarray(getattr(stacked, f.name), dtype)
+            for f in dataclasses.fields(stacked)
+            if np.asarray(getattr(stacked, f.name)).dtype.kind == "f"})
+        c, _ = mesh.jacobi_sweep(st, dummy.astype(dtype), s, rounds=2,
+                                 iters_schedule=JACOBI_CMP_ITERS,
+                                 device=dev)
+        return c.double()
+
+    ck = sweep(np.float32)
+    with mock.patch.object(nsfused, "nsfused_chunk",
+                           nsfused.nsfused_chunk_reference):
+        ct = sweep(np.float32)
+        c64 = sweep(np.float64)
+    ek, et = thomas.rel_error(ck, c64), thomas.rel_error(ct, c64)
+    use = thomas.twin_gap_use([ek], [et])
+    log(f"jacobi banded sweep at {JACOBI_CMP_ITERS}: ctrl rel err kernel "
+        f"vs float64 twin {ek:.3e}, float32 twin vs float64 twin "
+        f"{et:.3e}, kernel vs float32 twin {thomas.rel_error(ck, ct):.3e};"
+        f" tolerance used {use:.2f}")
+    check(use <= 1.0, f"the Jacobi sweep through K1 is less accurate than "
+          f"the float32 twin's allows ({use:.2f} of the tolerance)")
+    out["group"] = grp
+    return out
+
+
+def per_phase_joint(port, phase19, dev) -> dict:
+    """Phase 20, the per-phase joint solve: plan() of forest seed 0 with
+    the production phases whose restore phase tightens by
+    RESTORE_TIGHTEN (a tuple that schedule_arrays refuses): K1 launched,
+    no twin, the full gate with the IPM oracle on phase 19's batch, its
+    margin beside phase 19's schedule-path margin of the same seed."""
+    from swarm_simulator_tpu_torch.qp import joint, nullspace as ns
+
+    mission, param, world = forest(SEED)
+    param = dataclasses.replace(param, time_scale=False)
+    oparam = dataclasses.replace(param, **ORACLE_BATCHES)
+    ph = joint.production_phases()
+    ph = ph[:2] + (dataclasses.replace(ph[2], tighten=RESTORE_TIGHTEN),)
+    check(ns.schedule_arrays(ph) is None, "the per-phase tuple is "
+          "schedule-compatible")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result, times = port.plan(mission, param, world, ns_phases=ph,
+                              device=dev)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["k1"] > 0, "per-phase joint solve: K1 launched 0 times")
+    check(all(counts[t] == 0 for t in TWINS),
+          f"per-phase joint solve: a plain twin ran on CUDA ({counts})")
+    b_idx = phase19[SEED]["batch"]
+    obj_b0, obj_ref, ipm_s = oracle_pair(result, mission, oparam, b_idx)
+    margin = obj_b0 / obj_ref
+    info = result.solver_info
+    log(f"per-phase joint solve {plan_s:.3f} s (prep {info['prep_s']:.3f} "
+        f"solve {info['solve_s']:.3f}), iters {info['iters'][0]}, K1 "
+        f"launches {counts['k1']}; margin {margin:.6f} against the "
+        f"schedule path's {phase19[SEED]['first_margin']:.6f} (phase 19), "
+        f"oracle {ipm_s:.3f} s")
+    gate(result, mission, oparam, dev, "per-phase joint", obj_ref, obj_b0)
+    return dict(plan_s=plan_s, margin=margin, k1=counts["k1"])
+
+
+def sweep_cli(dev) -> dict:
+    """Phase 20, the sweep CLI: forest seeds 0-2 written as map1-3.bt
+    (world/btree.write_bt) and the 64-agent mission as JSON in a
+    temporary directory, ``python -m swarm_simulator_tpu_torch.cli.sweep``
+    run as two subprocesses (the admm default and --solver nullspace)
+    while this process plans the same maps through the library with the
+    CLI's Param; checks: exit 0, ``# success 3/3``, each row's ratio equal
+    to the library plan's."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import swarm_simulator_tpu_torch as port
+    from swarm_simulator_tpu_torch.cli import sweep
+    from swarm_simulator_tpu_torch.io.mission_json import (load_mission,
+                                                           write_mission)
+    from swarm_simulator_tpu_torch.world.btree import load_bt_world, write_bt
+
+    d = Path(tempfile.mkdtemp(prefix="chip_smoke_sweep_"))
+    procs = {}
+    try:
+        for i in range(3):
+            mission, param, world = forest(i)
+            write_bt(d / f"map{i + 1}.bt", world)
+        write_mission(d / "mission.json", mission)
+        base = ["--mission", str(d / "mission.json"), "--worlds-dir", str(d),
+                "--maps", "1-3", "--world-min", "-5", "-5",
+                str(param.world_z_min), "--device", str(dev), "--json"]
+        t0 = time.perf_counter()
+        for solver in ("admm", "nullspace"):
+            procs[solver] = subprocess.Popen(
+                [sys.executable, "-m", "swarm_simulator_tpu_torch.cli.sweep",
+                 *base, "--solver", solver], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True,
+                cwd=Path(__file__).resolve().parent)
+        lib = {}
+        mission = load_mission(d / "mission.json")
+        for solver in procs:
+            sparam = sweep.sweep_param(sweep.build_argparser().parse_args(
+                [*base, "--solver", solver]))
+            for mi in (1, 2, 3):
+                world = load_bt_world(d / f"map{mi}.bt", sparam.world_min,
+                                      sparam.world_max)
+                result, _ = port.plan(mission, sparam, world, device=dev)
+                m = port.evaluate(result, mission, sparam, device=dev)
+                lib[solver, mi] = round(m["min_safety_ratio"], 4)
+        out = {}
+        for solver, p in procs.items():
+            stdout, stderr = p.communicate(timeout=600)
+            lines = stdout.strip().splitlines()
+            log(f"sweep cli --solver {solver} (rc {p.returncode}, "
+                f"{time.perf_counter() - t0:.1f} s since start):")
+            for ln in lines:
+                log("  " + ln)
+            check(p.returncode == 0, f"sweep cli {solver}: exit "
+                  f"{p.returncode}: {stderr[-2000:]}")
+            check(lines[-1] == "# success 3/3",
+                  f"sweep cli {solver}: {lines[-1]!r}")
+            rows = [json.loads(ln) for ln in lines[:-1]]
+            for r in rows:
+                check(r["ratio"] == lib[solver, r["map"]],
+                      f"sweep cli {solver} map {r['map']}: ratio "
+                      f"{r['ratio']}, the library plan's "
+                      f"{lib[solver, r['map']]}")
+            out[solver] = rows
+        log("sweep cli: every row's ratio equals the library plan's: "
+            + json.dumps({f"{k[0]} map{k[1]}": v for k, v in lib.items()}))
+        return out
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def scp_cli(dev) -> dict:
+    """Phase 20, SCP: ``cli.plan --preset scp --alg scp`` (time_step 0.5)
+    on the card for the 8-agent swap as a mission JSON with the
+    reference's SCP_NOISE, in float32 and in float64; checks: exit 0 (min
+    ratio >= 0.99, goal error < 1e-2) and the float32 cost within
+    SCP_COST_TOL of the float64 one."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from unittest import mock
+
+    from swarm_simulator_tpu_torch.cli.plan import main as plan_main
+    from swarm_simulator_tpu_torch.io.mission_json import (swap_mission,
+                                                           write_mission)
+    from swarm_simulator_tpu_torch.qp import scp
+
+    d = Path(tempfile.mkdtemp(prefix="chip_smoke_scp_"))
+    out = {}
+    results = []
+    orig = scp.plan_scp
+
+    def plan_scp(*a, **k):
+        # the CLI prints the cost to 4 decimals: keep the result itself
+        results.append(orig(*a, **k))
+        return results[-1]
+
+    try:
+        write_mission(d / "m.json", swap_mission(8, z=1.0, span=2.0,
+                                                 radius=0.2))
+        for dtype in ("float32", "float64"):
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf), mock.patch.object(
+                    scp, "plan_scp", plan_scp):
+                rc = plan_main(["--preset", "scp", "--mission",
+                                str(d / "m.json"), "--alg", "scp",
+                                "--noise", str(SCP_NOISE), "--dtype", dtype,
+                                "--device", str(dev)])
+            secs = time.perf_counter() - t0
+            lines = buf.getvalue().strip().splitlines()
+            res = results[-1]
+            log(f"scp {dtype} ({secs:.3f} s, rc {rc}): " + " | ".join(lines)
+                + f"; cost {res.cost!r}, inner iterations "
+                f"{[i.iters for i in res.infos]}")
+            check(rc == 0, f"scp {dtype}: exit {rc}")
+            out[dtype] = dict(s=secs, cost=res.cost, lines=lines)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    gap = abs(out["float32"]["cost"] - out["float64"]["cost"]) / abs(
+        out["float64"]["cost"])
+    log(f"scp cost float32 {out['float32']['cost']} float64 "
+        f"{out['float64']['cost']}: relative gap {gap:.3e}")
+    check(gap <= SCP_COST_TOL, f"scp: float32 cost {gap:.3e} from float64")
     return out
 
 
@@ -1830,7 +2310,16 @@ def main() -> int:
     seqbatch_runs(dev, smi)
 
     # ---- phase 19: the oracle gate on seeds 0-4, the exact polish ----
-    oracle_gates(port, (result, times), dev)
+    og = oracle_gates(port, (result, times), dev)
+
+    # ---- phase 20: the scenario axis, the per-phase solve, SCP ----
+    t20 = time.perf_counter()
+    monte_carlo(dev)
+    jac = jacobi_knot_state(plan0, mission, param, dev)
+    per_phase_joint(port, og, dev)
+    sweep_cli(dev)
+    scp_cli(dev)
+    log(f"phase 20: {time.perf_counter() - t20:.1f} s")
 
     def entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
               bnd, library_ms=None):
@@ -1855,6 +2344,12 @@ def main() -> int:
         entry("nsfused_chunk", "nsfused.cu",
               "swarm_simulator_tpu/ops/pallas_nsfused.py:506", launches,
               k1["max_abs_err"], k1["ms"], k1["plain_ms"], k1["bound"]),
+        entry("nsfused_chunk_jacobi_group", "nsfused.cu",
+              "swarm_simulator_tpu/ops/pallas_nsfused.py:506",
+              jac["banded", "float32"]["counts"]["k1"],
+              jac["group"]["max_abs_err"],
+              jac["group"]["ms"], jac["group"]["plain_ms"],
+              jac["group"]["bound"]),
         entry("thomas_solve", "thomas.cu",
               "swarm_simulator_tpu/ops/pallas_thomas.py:359",
               rp["replan"]["counts"]["k2"],

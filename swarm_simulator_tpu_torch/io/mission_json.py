@@ -140,3 +140,19 @@ def scatter_mission(n_agents: int, *, half: float = 9.5, z: float = 1.0,
         max_acc=np.full((n_agents, 3), max_acc),
         names=["default"] * n_agents,
     )
+
+
+def write_mission(path: str | Path, mission: Mission) -> None:
+    """Write ``mission`` as a JSON file of the schema above, one quadrotor
+    type an agent (load_mission reads the same mission back)."""
+    names = mission.names or [f"agent{qi}" for qi in range(mission.qn)]
+    doc = {"quadrotors": {}, "agents": []}
+    for qi, name in enumerate(names):
+        doc["quadrotors"][name] = {"max_vel": mission.max_vel[qi].tolist(),
+                                   "max_acc": mission.max_acc[qi].tolist()}
+        doc["agents"].append({"name": name,
+                              "start": mission.start[qi].tolist(),
+                              "goal": mission.goal[qi].tolist(),
+                              "radius": float(mission.radius[qi]),
+                              "speed": float(mission.speed[qi])})
+    Path(path).write_text(json.dumps(doc))

@@ -1,8 +1,13 @@
-"""The Gauss-Seidel sweep of sequential batch planning on one device.
+"""The sweeps of sequential batch planning on one device.
 
-The JAX module also places stacked problems on a (scenario, batch) device
-mesh and runs the Jacobi sweeps there; the port has only the sweep that
-the planning path runs (``seqbatch.solve_trajectories``'s default mode).
+``gauss_seidel_sweep`` solves the agent groups in order, each against the
+latest dummy; ``jacobi_sweep`` solves every group of a round against the
+previous round's dummy, with the ADMM or the knot-state solver.  Scenario
+batching (parallel/scenarios) folds (scenario, group) into the one
+leading axis of ``stacked_sweep``, each scenario's agents offset into one
+stacked dummy.  The JAX module also places the stacks on a (scenario,
+batch) device mesh (``make_mesh``, ``shard_stacked``); the port runs on
+one card.
 """
 from __future__ import annotations
 
@@ -10,8 +15,21 @@ import dataclasses
 
 import torch
 
-from ..core.device import pin_ieee_fp32
+from ..core.device import pin_ieee_fp32, resolve_device
 from ..qp import admm, assemble
+
+
+def _with_refreshed(sd: assemble.QPData, d: assemble.QPData, scal):
+    """The equilibrated problem ``sd`` with the coupling rhs and warm start
+    of the refreshed problem ``d``, rescaled by ``scal`` (None: unscaled);
+    leading stack axes, if any, on every leaf."""
+    if scal is None:
+        return dataclasses.replace(sd, pair_rhs=d.pair_rhs, x0=d.x0)
+    rhs = torch.where(d.pair_mask[..., None] > 0, d.pair_rhs * scal.pair_row,
+                      torch.full((), -assemble.BIG, dtype=d.pair_rhs.dtype,
+                                 device=d.pair_rhs.device))
+    return dataclasses.replace(sd, pair_rhs=rhs,
+                               x0=d.x0 / scal.d[..., None, None, :])
 
 
 def gauss_seidel_sweep(stacked: assemble.QPData, dummy: torch.Tensor,
@@ -47,15 +65,7 @@ def gauss_seidel_sweep(stacked: assemble.QPData, dummy: torch.Tensor,
             data_l, sd, scal, op = (pick(stacked), pick(sdatas),
                                     pick(scals), pick(ops))
             d = assemble.refresh_from_dummy(data_l, dummy)
-            if scal is not None:
-                rhs = torch.where(
-                    d.pair_mask[:, None] > 0, d.pair_rhs * scal.pair_row,
-                    torch.full((), -assemble.BIG, dtype=d.pair_rhs.dtype,
-                               device=d.pair_rhs.device))
-                sd = dataclasses.replace(sd, pair_rhs=rhs,
-                                         x0=d.x0 / scal.d)
-            else:
-                sd = dataclasses.replace(sd, pair_rhs=d.pair_rhs, x0=d.x0)
+            sd = _with_refreshed(sd, d, scal)
             x, info = admm._iterate(
                 *(admm._tree_map(lambda a: a[None], t)
                   for t in (d, sd, scal, op)), settings)
@@ -64,3 +74,139 @@ def gauss_seidel_sweep(stacked: assemble.QPData, dummy: torch.Tensor,
             ext[data_l.agents.long().clamp(max=N)] = ctrl.to(ext.dtype)
             infos.append(info)
     return dummy, admm._tree_map(lambda *v: torch.cat(v), *infos)
+
+
+def jacobi_sweep(stacked: assemble.QPData, dummy, settings,
+                 rounds: int = 1, kkt_chunk: int = 4,
+                 iters_schedule: tuple[int, ...] | None = None,
+                 carry_state: bool = False,
+                 tighten_schedule: tuple[float, ...] | None = None,
+                 device=None):
+    """Jacobi sequential-batch planning on ``device`` (None = the card;
+    raises without one: pass ``device="cpu"`` for the CPU).
+
+    stacked: QPData with a leading group axis [L] on every leaf (host
+    numpy or tensors); dummy: [N, M, n+1, 3] global control points.  Each
+    round refreshes every group's coupling rhs from the previous round's
+    dummy, solves all groups, and writes their solutions back (padded
+    agents dropped).  ``settings`` picks the solver: admm.ADMMSettings
+    (the groups' KKT operators and equilibration prepared once, every
+    round rescaling the refreshed rhs and warm-starting x0, the groups
+    iterated as one stack) or nullspace.NSSettings (one operator per group
+    by prepare_ns, each group solved alone: in banded mode each chunk is
+    one launch of the fused kernel K1 a group).
+
+    iters_schedule: per-round max_iter, one entry a round.  carry_state
+    (needs iters_schedule): carry each group's solver state (x, z, y in
+    the scaled space, or the knot-state (w, z, y, rho_idx)) across
+    rounds.  tighten_schedule (knot-state solver and iters_schedule):
+    per-round constraint tightening.
+
+    Returns (ctrl [N, M, n+1, 3], SolveInfo of the last round, [L])."""
+    device = resolve_device(device)
+    dummy = torch.as_tensor(dummy, device=device)
+    stacked = stacked.to(device)
+    scen = torch.zeros(stacked.lb.shape[0], dtype=torch.long, device=device)
+    ctrl, info = stacked_sweep(stacked, scen, dummy[None], settings, rounds,
+                               kkt_chunk, iters_schedule, carry_state,
+                               tighten_schedule)
+    return ctrl[0], info
+
+
+def stacked_sweep(stacked: assemble.QPData, scen: torch.Tensor,
+                  dummy: torch.Tensor, settings, rounds: int = 1,
+                  kkt_chunk: int = 4,
+                  iters_schedule: tuple[int, ...] | None = None,
+                  carry_state: bool = False,
+                  tighten_schedule: tuple[float, ...] | None = None):
+    """jacobi_sweep of S scenarios at once: ``stacked`` [G, ...] holds
+    every scenario's groups (tensors on one device), ``scen`` [G] the
+    scenario of each group and ``dummy`` [S, N, M, n+1, 3] the scenarios'
+    dummies.  Each group reads and writes only its scenario's dummy (its
+    agent ids offset by scen * N into the stacked [S * N] rows), and every
+    group stops on its own residuals, so a scenario's result does not
+    depend on what it is stacked with.  Returns (ctrl [S, N, M, n+1, 3],
+    SolveInfo of the last round, [G])."""
+    from ..qp import nullspace
+
+    S, N, M, npp, _ = dummy.shape
+    if iters_schedule is not None and len(iters_schedule) != rounds:
+        raise ValueError(
+            f"iters_schedule has {len(iters_schedule)} entries for "
+            f"{rounds} rounds")
+    if carry_state and iters_schedule is None:
+        raise ValueError("carry_state requires iters_schedule")
+    is_ns = isinstance(settings, nullspace.NSSettings)
+    if iters_schedule is not None and tighten_schedule is not None and (
+            not is_ns or len(tighten_schedule) != rounds):
+        raise ValueError("tighten_schedule needs the knot-state solver and "
+                         "one entry per round")
+    if dummy.is_cuda:
+        pin_ieee_fp32()
+
+    G = stacked.lb.shape[0]
+    off = (scen * N)[:, None]
+    agents = stacked.agents.long()
+    # the refresh reads the stacked dummy rows of each group's scenario
+    # (a padded agent, id >= N, its scenario's last agent, as the JAX
+    # package's per-scenario clamped gather); the write-back drops
+    # padded agents into one spare row
+    ids = dataclasses.replace(
+        stacked, pair_qi=stacked.pair_qi.long() + off,
+        pair_qj=stacked.pair_qj.long() + off,
+        agents=agents.clamp(max=N - 1) + off)
+    dst = torch.where(agents < N, agents + off,
+                      torch.full_like(agents, S * N)).reshape(-1)
+    ext = torch.cat([dummy.reshape(S * N, M, npp, 3),
+                     dummy.new_zeros((1, M, npp, 3))])
+
+    def schedule(r):
+        s = settings
+        if iters_schedule is not None:
+            s = dataclasses.replace(s, max_iter=iters_schedule[r])
+            if tighten_schedule is not None:
+                s = dataclasses.replace(s, tighten=tighten_schedule[r])
+        return s
+
+    def refresh(dm):
+        fresh = assemble.refresh_from_dummy(ids, dm)
+        return dataclasses.replace(stacked, pair_rhs=fresh.pair_rhs,
+                                   x0=fresh.x0)
+
+    with torch.no_grad():
+        if is_ns:
+            def pick(tree, g):
+                return admm._tree_map(lambda a: a[g], tree)
+
+            ops = [nullspace.prepare_ns(pick(stacked, g), settings)
+                   for g in range(G)]
+            states = [None] * G
+        else:
+            sdatas, scals, kops = admm._prepare_stack(stacked, settings,
+                                                      kkt_chunk)
+            state = None
+        for r in range(rounds):
+            s_round = schedule(r)
+            d = refresh(ext[:S * N])
+            if is_ns:
+                outs = [nullspace._iterate_ns(
+                    pick(d, g), ops[g], s_round, init=states[g],
+                    return_state=True) for g in range(G)]
+                xs = torch.stack([o[0] for o in outs])
+                info = admm.SolveInfo(*(torch.stack([torch.as_tensor(
+                    getattr(o[1], f), device=xs.device) for o in outs])
+                    for f in admm.SolveInfo._fields))
+                if carry_state:
+                    states = [o[2] for o in outs]
+            else:
+                xs, info, st = admm._iterate(
+                    d, _with_refreshed(sdatas, d, scals), scals, kops,
+                    s_round, init=state, return_state=True)
+                if carry_state:
+                    state = st
+            # xs [G, B, 3, D] -> control points [G * B, M, npp, 3]
+            B = xs.shape[1]
+            ctrl = xs.permute(0, 1, 3, 2).reshape(G * B, M, npp, 3)
+            ext = ext.clone()
+            ext[dst] = ctrl.to(ext.dtype)
+    return ext[:S * N].reshape(S, N, M, npp, 3), info

@@ -378,9 +378,15 @@ def _prepare_stack(data: QPData, s: ADMMSettings, kkt_chunk: int):
 
 
 def _iterate(orig: QPData, data: QPData, scal, op: KKTOperator,
-             s: ADMMSettings):
+             s: ADMMSettings, init=None, return_state: bool = False):
     """Run the ADMM loop on a stack of L problems (a leading axis on every
     leaf of ``orig``, ``data``, ``scal`` and ``op``).
+
+    init: optional (x [L, B, 3, D], z [L, rows], y [L, rows]) in the
+    solver's scaled space, the state a previous call returned with
+    return_state=True (z is re-clipped to this call's bounds).  The
+    equilibration depends only on the problem's structure, not on its
+    coupling rhs, so the state carries verbatim across Jacobi rounds.
 
     Every ``check_every`` iterations the residuals decide, per problem,
     whether it is done; the loop runs while any problem is not done and
@@ -487,9 +493,13 @@ def _iterate(orig: QPData, data: QPData, scal, op: KKTOperator,
         a = active.reshape(-1, *([1] * (old.dim() - 1)))
         return torch.where(a, new, old)
 
-    x = data.x0.contiguous()
-    z = torch.clamp(flat(A_matvec(data, x, pop)), lf, uf)
-    y = torch.zeros_like(z)
+    if init is None:
+        x = data.x0.contiguous()
+        z = torch.clamp(flat(A_matvec(data, x, pop)), lf, uf)
+        y = torch.zeros_like(z)
+    else:
+        x, z, y = init
+        z = torch.clamp(z, lf, uf)
     x_t = x
     it = torch.zeros(L, dtype=torch.long, device=dev)
     done = torch.zeros(L, dtype=torch.bool, device=dev)
@@ -545,7 +555,10 @@ def _iterate(orig: QPData, data: QPData, scal, op: KKTOperator,
     r_prim, r_dual, _, _ = residuals(x, z, y)
     xu = unscale_x(x)
     obj = 0.5 * _dot(xu, P_matvec(orig, xu))
-    return xu, SolveInfo(iters=it, r_prim=r_prim, r_dual=r_dual, obj=obj)
+    info = SolveInfo(iters=it, r_prim=r_prim, r_dual=r_dual, obj=obj)
+    if return_state:
+        return xu, info, (x, z, y)
+    return xu, info
 
 
 def _on_device(data: QPData, device) -> QPData:

@@ -119,24 +119,26 @@ def refresh_from_dummy(data: QPData, dummy: torch.Tensor) -> QPData:
     warm start x0, so that a Gauss-Seidel sweep needs no host round trip.
     A padded agent (id past the last agent, seqbatch._pad_agents) takes
     the last agent's row, as the JAX package's clamped gather does.
+    ``data`` may carry leading axes (a stack of batch QPs, all reading
+    the one dummy).
     """
     N, M, npp, _ = dummy.shape
     D = M * npp
     dd = dummy.to(data.pair_rhs.dtype)
     # [N, 3, D]
     dd = dd.permute(0, 3, 1, 2).reshape(N, 3, D).contiguous()
-    n_d = data.pair_n.repeat_interleave(npp, dim=1).permute(0, 2, 1)
-    dj = dd[data.pair_qj.long().clamp(min=0)]  # [P, 3, D]
+    n_d = data.pair_n.repeat_interleave(npp, dim=-2).transpose(-1, -2)
+    dj = dd[data.pair_qj.long().clamp(min=0)]  # [..., P, 3, D]
     di = dd[data.pair_qi.long().clamp(min=0)]
-    ndj = (n_d * dj).sum(1)  # [P, D]
-    ndi = (n_d * di).sum(1)
-    j_fixed = (data.pair_bj < 0).to(ndj.dtype)[:, None]
-    i_fixed = (data.pair_bi < 0).to(ndi.dtype)[:, None]
-    rhs = data.pair_rsum[:, None] - j_fixed * ndj + i_fixed * ndi
-    rhs = torch.where(data.pair_mask[:, None] > 0, rhs,
+    ndj = (n_d * dj).sum(-2)  # [..., P, D]
+    ndi = (n_d * di).sum(-2)
+    j_fixed = (data.pair_bj < 0).to(ndj.dtype)[..., None]
+    i_fixed = (data.pair_bi < 0).to(ndi.dtype)[..., None]
+    rhs = data.pair_rsum[..., None] - j_fixed * ndj + i_fixed * ndi
+    rhs = torch.where(data.pair_mask[..., None] > 0, rhs,
                       torch.full((), -BIG, dtype=rhs.dtype,
                                  device=rhs.device))
-    x0 = dd[data.agents.long().clamp(max=N - 1)]  # [B, 3, D]
+    x0 = dd[data.agents.long().clamp(max=N - 1)]  # [..., B, 3, D]
     return dataclasses.replace(data, pair_rhs=rhs, x0=x0)
 
 

@@ -41,7 +41,7 @@ def from_numpy(data, op, *, device=None):
     """(QPData, NSOp or SpikeOp) on ``device`` (None = the card, raising
     without one; pass ``device="cpu"`` for the CPU) from objects carrying
     the JAX package's field names with numpy (or array-like) leaves.
-    Extra fields of the source (the dense-mode ``Kinvs``) are ignored."""
+    A dense-mode operator (``Kinvs``, no pivots) comes across as one."""
     device = resolve_device(device)
     data_t = QPData(**{
         f.name: (None if getattr(data, f.name, None) is None
@@ -55,17 +55,20 @@ def from_numpy(data, op, *, device=None):
         return data_t, SpikeOp(base, *(
             torch.as_tensor(np.asarray(getattr(op, k)), device=device)
             for k in ("Dloc", "Ssch", "Soff")))
-    leaves = {k: np.asarray(getattr(op, k)) for k in NSOp._fields}
-    if leaves["Dinvs"].ndim == 5:
-        leaves["Dinvs"] = flat_pivots(leaves["Dinvs"])
-    B, K3, _ = leaves["x_pin"].shape
-    bs = B * K3 * leaves["F0"].shape[1]
-    if leaves["Dinvs"].shape[-1] != bs:
-        leaves["Dinvs"] = np.ascontiguousarray(
-            leaves["Dinvs"][..., :bs, :bs])
-    out = {k: torch.as_tensor(v, device=device) for k, v in leaves.items()
-           if k != "Dinvs"}
-    return data_t, NSOp(Dinvs=_pivots(leaves["Dinvs"], device), **out)
+    leaves = {k: (None if getattr(op, k, None) is None
+                  else np.asarray(getattr(op, k))) for k in NSOp._fields}
+    dinv = leaves.pop("Dinvs")
+    if dinv is not None:
+        if dinv.ndim == 5:
+            dinv = flat_pivots(dinv)
+        B, K3, _ = leaves["x_pin"].shape
+        bs = B * K3 * leaves["F0"].shape[1]
+        if dinv.shape[-1] != bs:
+            dinv = np.ascontiguousarray(dinv[..., :bs, :bs])
+        dinv = _pivots(dinv, device)
+    out = {k: None if v is None else torch.as_tensor(v, device=device)
+           for k, v in leaves.items()}
+    return data_t, NSOp(Dinvs=dinv, **out)
 
 
 def _pivots(d: np.ndarray, device) -> torch.Tensor:

@@ -7,7 +7,8 @@ block-tridiagonal banded KKT (qp/nullspace.py).  The recipe:
   2. the KKT rung inventory: host-f64 (prepare_ns_np, rounded once to the
      solver dtype) or, for cold_prep="device" and corridor replans, on
      the device in the solver dtype (prepare_ns),
-  3. phased rho schedule (feasibility -> polish -> restore) on the
+  3. phased rho schedule (feasibility -> polish -> restore, or any
+     other phase tuple, phase by phase: nullspace.solve_ns_phases) on the
      device the data lives on.  Host-prepped rounds run each
      check_every chunk as one launch of the fused kernel
      (ops/nsfused); device-prepped and stale rounds refine every
@@ -74,13 +75,15 @@ def escalation_phases(base_phases) -> tuple:
 
 def production_settings(max_iter: int = 1500,
                         check_every: int = 50) -> nullspace.NSSettings:
-    """The production joint-solver settings: banded KKT, 5-rung rho ladder
+    """The production joint-solver settings: banded KKT (spelled out: the
+    NSSettings default is dense, as in the JAX package), 5-rung rho ladder
     logspace(1e-5, 1e-2), tighten margin for first-order residual
     infeasibility at the strict ratio >= 1 gate."""
     return nullspace.NSSettings(
         max_iter=max_iter, check_every=check_every,
         eps_abs=2e-4, eps_rel=2e-4, eps_dual_abs=5e-3, tighten=2e-3,
-        warm_start="x0", rho_min=1e-5, rho_max=1e-2, n_rungs=5)
+        warm_start="x0", kkt_mode="banded", rho_min=1e-5, rho_max=1e-2,
+        n_rungs=5)
 
 
 def production_phases(budgets: tuple[int, int, int] = PRODUCTION_BUDGETS,
@@ -152,17 +155,6 @@ def assemble_joint(plan: PlanResult, mission: Mission, param: Param,
     data = assemble.assemble_batch(plan, mission, param,
                                    np.arange(mission.qn), dummy)
     return data, dummy
-
-
-def _run_schedule(data_dev, op_dev, phases):
-    sched = nullspace.schedule_arrays(phases)
-    if sched is None:
-        raise NotImplementedError(
-            "phase tuples that differ in more than max_iter/rho_lo/rho_hi "
-            "(the per-phase solve) are not ported (ROADMAP queue 1, item 4)")
-    s0, it_k, lo_k, hi_k = sched
-    return nullspace.solve_ns_schedule(data_dev, op_dev, s0, it_k, lo_k,
-                                       hi_k)
 
 
 def solve_trajectories(plan: PlanResult, mission: Mission, param: Param,
@@ -246,11 +238,13 @@ def solve_trajectories(plan: PlanResult, mission: Mission, param: Param,
         op = nullspace.prepare_ns_np(data, phases[0])   # host f64, once
         op_dev = op.to(device)      # pivot inventory uploaded ONCE
     prep_s = time.perf_counter() - t0
-    inventory_bytes = op_dev.Dinvs.numel() * op_dev.Dinvs.element_size()
+    inv = op_dev.Dinvs if op_dev.Dinvs is not None else op_dev.Kinvs
+    inventory_bytes = inv.numel() * inv.element_size()
 
     def run(data_h, op_d, ph):
         t0 = time.perf_counter()
-        x, info = _run_schedule(data_h.to(device), op_d, ph)
+        x, info = nullspace.solve_ns_phases(data_h, ph, op=op_d,
+                                            device=device)
         ctrl = convert.x_to_ctrl(x.double().cpu().numpy(), M, n)
         return ctrl, info, time.perf_counter() - t0
 

@@ -16,17 +16,24 @@ rung, or the device prep (prepare_ns) in the data's dtype on its device,
 and the ADMM loop only applies the stored pivot inverses.
 
 What is ported: NSSettings/NSOp, the knot maps, the host-f64 and the
-device banded preps (flat pivots), the host refresh of a replan's
-endpoint leaves (refresh_ns_op_np), the constraint applies and bounds,
-the banded Thomas solve (make_kinv_apply over ops/thomas), and the phased
-schedule loop (solve_ns_schedule).  A chunk of check_every iterations runs
-one of two ways, both reaching a hand-written CUDA kernel for CUDA
-tensors and a plain twin otherwise:
-  kkt_refine == 0  one ops/nsfused chunk (the fused kernel);
+device preps in both KKT modes (banded: flat pivots; dense: one K(rho)^-1
+a rung), the host refresh of a replan's endpoint leaves
+(refresh_ns_op_np), the constraint applies and bounds, the KKT solves
+(make_kinv_apply: the banded Thomas solve over ops/thomas, or the dense
+inverse's matvec), the phased schedule loop (solve_ns_schedule) and the
+per-phase loop of any other phase tuple (solve_ns_phases), and the
+one-problem and stacked solves (solve_single_ns, solve_ns,
+solve_ns_batched).  A chunk of check_every iterations runs one of three
+ways:
+  banded, kkt_refine == 0  one ops/nsfused chunk (the fused kernel K1 for
+                   CUDA tensors, its plain twin on the CPU);
   kkt_refine >= 1  check_every torch ADMM steps whose w-update is a PCG
                    against the FRESH operator (K_fresh), preconditioned by
-                   the rung inventory: 2 + kkt_refine ops/thomas solves
-                   per step.
+                   the rung inventory: 2 + kkt_refine KKT solves per step
+                   (ops/thomas's kernel K2 in banded mode);
+  dense            check_every torch ADMM steps, each w-update one matvec
+                   with the rung's K(rho)^-1 (no kernel: the JAX package
+                   reaches none in this mode either).
 The loop is a Python loop; the termination test after each chunk is one
 host sync.
 
@@ -36,7 +43,7 @@ at the multiply); legal only with kkt_refine >= 1, where the PCG against
 the float32 K_fresh absorbs the ~8-bit mantissa.  The fused chunk (K1)
 refuses such an inventory.
 
-Not ported yet: the dense KKT mode and Anderson acceleration.
+Not ported yet: Anderson acceleration (NSSettings.aa_depth > 0 raises).
 """
 from __future__ import annotations
 
@@ -48,7 +55,7 @@ import numpy as np
 import torch
 
 from ..core import bernstein
-from ..core.device import pin_ieee_fp32
+from ..core.device import pin_ieee_fp32, resolve_device
 from ..ops import nsfused, thomas
 from .admm import PairOp, SolveInfo, _build_coupling, _pair_op
 from .assemble import BIG, KNOT_FACE_GUARD, QPData
@@ -91,6 +98,17 @@ class NSSettings:
     # stream of every Thomas solve (K2 reads bf16 pivots); legal ONLY as a
     # preconditioner, with kkt_refine >= 1 (checked at prep)
     precond_dtype: str = "float32"
+    # KKT linear-system strategy:
+    #   "dense":  K(rho)^-1 materialized per rung [3B nw, 3B nw], one
+    #             matvec a w-update; right for small agent batches
+    #   "banded": block-tridiagonal Thomas factorization over knots
+    #             ([3B phi]^2 pivot blocks, memory O(M (3B phi)^2)); right
+    #             for JOINT solves (the 64-agent joint KKT would be a
+    #             20160^2 dense inverse, 1.6 GB a rung in float32)
+    kkt_mode: str = "dense"
+    # Anderson acceleration depth of the JAX package (chunk-level AA-II);
+    # 0 = off.  Not ported: any other value raises
+    aa_depth: int = 0
 
 
 class NSConstr(NamedTuple):
@@ -108,20 +126,29 @@ class NSOp(NamedTuple):
     FT: object       # [M, phi, phi] ctrl -> knot state (right)
     c_s: object      # scalar cost normalization
     ladder: object   # [R] rho rungs
+    # banded mode (None in dense mode):
     Dinvs: object    # [R, Mi, bs, bs] pivot-block inverses (flat)
     # off-diagonal blocks are I_B3 (x) Ho with Ho [phi, phi] per knot
     Kos: object      # [Mi-1, phi, phi]
+    # dense mode (None in banded mode):
+    Kinvs: object = None  # [R, 3B nw, 3B nw] KKT inverse per rung
 
     def to(self, device) -> "NSOp":
-        return NSOp(*(v.to(device) if isinstance(v, torch.Tensor)
+        return NSOp(*(None if v is None
+                      else v.to(device) if isinstance(v, torch.Tensor)
                       else torch.as_tensor(np.asarray(v), device=device)
                       for v in self))
 
 
 def check_precond(s: NSSettings) -> None:
-    """The conditions of NSSettings.precond_dtype: "float32" or
-    "bfloat16", and bf16 pivots only as a preconditioner (kkt_refine >= 1:
-    the refine chunks solve through ops/thomas, whose K2 reads them)."""
+    """The conditions of NSSettings.kkt_mode ("dense" or "banded") and
+    precond_dtype: "float32" or "bfloat16", and bf16 pivots only as a
+    preconditioner (kkt_refine >= 1: the refine chunks solve through
+    ops/thomas, whose K2 reads them; a dense inventory stays in the
+    problem's dtype)."""
+    if s.kkt_mode not in ("dense", "banded"):
+        raise ValueError(f"kkt_mode {s.kkt_mode!r}: expected 'dense' or "
+                         "'banded'")
     if s.precond_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"precond_dtype {s.precond_dtype!r}: expected "
                          "'float32' or 'bfloat16'")
@@ -334,19 +361,52 @@ def _host_prep_ctx_np(data: QPData, s: NSSettings) -> dict:
     return dict(Qseg=Qseg, M=M, npp=npp, phi=phi, D=D, B=B, B3=B3,
                 dt_=dt_, L=L, R=R, F0=F0, FT=FT, Mi=Mi, nw=nw, N=N,
                 x_pin=x_pin, c_s=c_s, g=g, ladder=ladder, C=C,
-                n_workers=n_workers)
+                n_workers=n_workers, H_raw=H_raw)
+
+
+def _dense_kinvs_np(ctx: dict, s: NSSettings) -> np.ndarray:
+    """The dense mode's rung inventory in host float64: K(rho) = K0 + rho
+    K1 [nx, nx], nx = 3B nw, with K0 = I_3B (x) (c_s N^T Q N + sigma I)
+    and K1 = I_3B (x) N^T N + the knot-block pair coupling sandwich, each
+    rung inverted through its Cholesky factor (one rung per thread)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    N, C, ladder = ctx["N"], ctx["C"], ctx["ladder"]
+    M, npp, nw, B3 = ctx["M"], ctx["npp"], ctx["nw"], ctx["B3"]
+    H = ctx["c_s"] * ctx["H_raw"] + s.sigma * np.eye(nw)
+    K0 = np.einsum("ab,de->adbe", np.eye(B3), H)
+    K1 = np.einsum("ab,de->adbe", np.eye(B3), N.T @ N)
+    # the pair normals are constant per segment, so the coupling
+    # contracts over (segment, control point)
+    Nm = N.reshape(M, npp, nw)
+    W = np.einsum("mda,mdb->mab", Nm, Nm)
+    K1 = K1 + np.einsum("mab,mij->iajb", W, C)
+    nx = B3 * nw
+    Ks = (K0.reshape(nx, nx)[None]
+          + ladder[:, None, None] * K1.reshape(nx, nx)[None])
+    Kinvs = np.empty_like(Ks)
+
+    def fill_kinv(r):
+        Kinvs[r] = _inv_spd_np(Ks[r])
+
+    with _blas_single_threaded():
+        with ThreadPoolExecutor(max_workers=ctx["n_workers"]) as ex:
+            list(ex.map(fill_kinv, range(len(ladder))))
+    return Kinvs
 
 
 def prepare_ns_np(data: QPData, s: NSSettings) -> NSOp:
-    """Host float64 banded-KKT prep; leaves cast once to the problem dtype.
+    """Host float64 KKT prep; leaves cast once to the problem dtype.
 
-    The rung pivot inverses are the one prep quantity whose float32
-    computation measurably degrades solution quality, so the Schur chain
-    runs in float64 and each block is rounded once.  Pivots stay FLAT
-    [R, Mi, bs, bs], row index (agent*3 + axis)*phi + derivative order.
-    With s.precond_dtype="bfloat16" the pivots are rounded once more, from
-    the problem dtype to bf16 (round to nearest even, as the JAX package's
-    two casts do), into a CPU torch tensor (numpy has no bf16)."""
+    The rung inverses are the one prep quantity whose float32 computation
+    measurably degrades solution quality, so they are computed in float64
+    and each rounded once: in banded mode the Schur chain's pivots, FLAT
+    [R, Mi, bs, bs], row index (agent*3 + axis)*phi + derivative order; in
+    dense mode one K(rho)^-1 a rung (_dense_kinvs_np).  With
+    s.precond_dtype="bfloat16" the banded pivots are rounded once more,
+    from the problem dtype to bf16 (round to nearest even, as the JAX
+    package's two casts do), into a CPU torch tensor (numpy has no
+    bf16)."""
     from concurrent.futures import ThreadPoolExecutor
 
     check_precond(s)
@@ -356,6 +416,15 @@ def prepare_ns_np(data: QPData, s: NSSettings) -> NSOp:
     L, R, F0, FT = ctx["L"], ctx["R"], ctx["F0"], ctx["FT"]
     N, x_pin, c_s, g = ctx["N"], ctx["x_pin"], ctx["c_s"], ctx["g"]
     ladder, C, n_workers = ctx["ladder"], ctx["C"], ctx["n_workers"]
+
+    def cast(v):
+        return np.asarray(v).astype(dt_, copy=False)
+
+    if s.kkt_mode == "dense":
+        return NSOp(N=cast(N), x_pin=cast(x_pin), g=cast(g), F0=cast(F0),
+                    FT=cast(FT), c_s=cast(c_s), ladder=cast(ladder),
+                    Dinvs=None, Kos=None,
+                    Kinvs=cast(_dense_kinvs_np(ctx, s)))
 
     make_Kd, Ho, bs = _banded_kd_builder_np(Qseg, L, R, C, c_s, s.sigma)
     Dinvs = np.zeros((len(ladder), Mi, bs, bs), dtype=dt_)
@@ -380,9 +449,6 @@ def prepare_ns_np(data: QPData, s: NSSettings) -> NSOp:
     with _blas_single_threaded():
         with ThreadPoolExecutor(max_workers=rung_workers) as ex:
             list(ex.map(fill_rung, range(len(ladder))))
-
-    def cast(v):
-        return np.asarray(v).astype(dt_, copy=False)
 
     if s.precond_dtype == "bfloat16":
         Dinvs = torch.from_numpy(Dinvs).to(torch.bfloat16)
@@ -431,11 +497,13 @@ def refresh_ns_op_np(op: NSOp, data: QPData) -> NSOp:
 
 
 def prepare_ns(data: QPData, s: NSSettings) -> NSOp:
-    """Device-side banded prep: every NSOp leaf in the data's dtype on the
-    data's device (``data`` holds tensors).  The rung inventory is the
+    """Device-side prep: every NSOp leaf in the data's dtype on the data's
+    device (``data`` holds tensors).  The banded rung inventory is the
     Schur chain over knots, Kd per knot, the (I (x) Ho)^T Dinv (I (x) Ho)
     sandwich, and an LU inverse plus one Newton step X (2I - S X), with
-    the rungs batched.  Only the small time-grid maps (knot_maps, N,
+    the rungs batched; the dense one is K(rho)^-1 of each rung (the
+    operator of _dense_kinvs_np), an LU inverse plus the same Newton
+    step.  Only the small time-grid maps (knot_maps, N,
     x_pin) are built on the host in float64, as the host prep builds
     them.  Pins IEEE float32 products: under TF32 the low-rho rung
     inverses come out orders of magnitude wrong.  The Newton step leaves
@@ -489,6 +557,11 @@ def _prepare_ns_impl(data: QPData, s: NSSettings) -> NSOp:
         ladder = np.asarray([s.rho], np.float64)
     ladder = torch.as_tensor(ladder, **kw)
     C = _build_coupling(data)                               # [M, B3, B3]
+    if s.kkt_mode == "dense":
+        Kinvs = _dense_kinvs(N, H_raw, c_s, C, ladder, s.sigma, M, npp, B3)
+        return NSOp(*(v.contiguous() for v in (N, x_pin, g, F0, FT, c_s,
+                                               ladder)),
+                    Dinvs=None, Kos=None, Kinvs=Kinvs.contiguous())
 
     # Kd[k] = I_B3 (x) (Hd_k + sigma I + rho NtN_k)
     #         + rho (C_{k+1} (x) WL_{k+1} + C_k (x) WR_k)
@@ -537,13 +610,39 @@ def _prepare_ns_impl(data: QPData, s: NSSettings) -> NSOp:
                                            ladder, Dinvs, Ho)))
 
 
+def _dense_kinvs(N, H_raw, c_s, C, ladder, sigma, M, npp, B3):
+    """[R, nx, nx] K(rho)^-1 of each rung in the dtype and on the device
+    of its operands (the device twin of _dense_kinvs_np)."""
+    kw = dict(dtype=N.dtype, device=N.device)
+    nw = N.shape[1]
+    eye = torch.eye(B3, **kw)
+    K0 = torch.einsum("ab,de->adbe", eye,
+                      c_s * H_raw + sigma * torch.eye(nw, **kw))
+    K1 = torch.einsum("ab,de->adbe", eye, N.T @ N)
+    Nm = N.reshape(M, npp, nw)
+    W = torch.einsum("mda,mdb->mab", Nm, Nm)
+    K1 = K1 + torch.einsum("mab,mij->iajb", W, C)
+    nx = B3 * nw
+    Ks = (K0.reshape(nx, nx)[None]
+          + ladder[:, None, None] * K1.reshape(nx, nx)[None])
+    X = torch.linalg.inv(Ks)
+    return X @ (2.0 * torch.eye(nx, **kw) - Ks @ X)
+
+
 def make_kinv_apply(op: NSOp, B: int, K3: int, M: int, phi: int,
                     solve=None):
     """KKT-system solver ``(rho_idx, rhs [B, K3, nw]) -> [B, K3, nw]``:
-    the block-tridiagonal Thomas solve over knots with the stored pivot
-    inverses, through ``solve`` (default ops/thomas.thomas_solve, looked
-    up at each call: the kernel for CUDA tensors, the plain twin on the
-    CPU)."""
+    in dense mode one matvec with the rung's stored K(rho)^-1; in banded
+    mode the block-tridiagonal Thomas solve over knots with the stored
+    pivot inverses, through ``solve`` (default ops/thomas.thomas_solve,
+    looked up at each call: the kernel for CUDA tensors, the plain twin
+    on the CPU)."""
+    if op.Kinvs is not None:
+        def kinv_apply_dense(rho_idx, rhs):
+            return (op.Kinvs[int(rho_idx)] @ rhs.reshape(-1)
+                    ).reshape(rhs.shape)
+        return kinv_apply_dense
+
     Mi = M - 1
     bs = B * K3 * phi
     if op.Dinvs.shape[-1] != bs:
@@ -746,29 +845,67 @@ def pcg_w_update(data: QPData, op: NSOp, cop: ConstrOp, s: NSSettings,
     return w_update
 
 
-def _iterate_ns(data: QPData, op: NSOp, s: NSSettings, schedule,
-                init=None, return_state: bool = False):
-    """Phased ADMM loop in knot-state coordinates on one device.
+def plain_chunk(data: QPData, op: NSOp, cop: ConstrOp, l: NSConstr,
+                u: NSConstr, s: NSSettings, kinv_apply):
+    """``chunk(w, z, y, rho_idx)``: check_every ADMM iterations in plain
+    torch whose w-update is ``kinv_apply`` (the dense inverse's matvec,
+    or a KKT solve that reaches ops/thomas), refined by s.kkt_refine PCG
+    steps against the fresh operator when s.kkt_refine >= 1."""
+    def chunk(w, z, y, rho_idx):
+        if s.kkt_refine:
+            solve_w = pcg_w_update(data, op, cop, s, kinv_apply, rho_idx)
+        else:
+            def solve_w(rhs_w, rho):
+                return kinv_apply(rho_idx, rhs_w)
+        return admm_steps(op, cop, l, u, rho_idx, s.sigma, s.alpha, w, z, y,
+                          s.check_every, solve_w)
+
+    return chunk
+
+
+def phase_schedule(ladder, s: NSSettings):
+    """The one-phase schedule ([max_iter], [idx_lo], [idx_hi]) of ``s``:
+    its rho fences as the nearest rungs of the operator's ``ladder`` in
+    the problem dtype (the JAX package's per-phase loop fences the same
+    way)."""
+    lad = ladder.detach().cpu().numpy()
+    llog = np.log(lad)
+
+    def fence(r, default):
+        if r is None:
+            return default
+        return int(np.argmin(np.abs(llog - np.log(lad.dtype.type(r)))))
+
+    return ([s.max_iter], [fence(s.rho_lo, 0)],
+            [fence(s.rho_hi, len(lad) - 1)])
+
+
+def _iterate_ns(data: QPData, op: NSOp, s: NSSettings, init=None,
+                return_state: bool = False, schedule=None):
+    """ADMM loop in knot-state coordinates on one device.
 
     schedule: (max_iters [K], idx_lo [K], idx_hi [K]) host ints — K fenced
     phases run back to back, each a loop of check_every chunks that stops
-    at its budget or when the residuals converge.  init: (w, z, y,
-    rho_idx) from a previous call with return_state=True."""
-    # every chunk reaches a kernel's wrapper, which routes by the tensors'
-    # device (the kernel on CUDA, the plain twin on the CPU): refine
-    # chunks solve through ops/thomas, the others are one ops/nsfused chunk
-    if s.kkt_refine:
+    at its budget or when the residuals converge; None runs the one phase
+    of ``s`` (its max_iter and rho_lo/rho_hi fences, phase_schedule).
+    init: (w, z, y, rho_idx) from a previous call with return_state=True
+    (z is re-clipped to this call's bounds)."""
+    if s.aa_depth:
+        raise NotImplementedError(
+            "NSSettings.aa_depth > 0 (Anderson acceleration) is not ported "
+            "(ROADMAP queue 1, item 4)")
+    if schedule is None:
+        schedule = phase_schedule(op.ladder, s)
+    # every banded chunk reaches a kernel's wrapper, which routes by the
+    # tensors' device (the kernel on CUDA, the plain twin on the CPU):
+    # refine chunks solve through ops/thomas, the others are one
+    # ops/nsfused chunk; dense chunks are plain torch
+    if s.kkt_refine or op.Kinvs is not None:
         pop, l, u, cold = _cold_state(data, op, s)
         cop = constr_op(pop)
         B, K3, _ = data.lb.shape
-        kinv_apply = make_kinv_apply(op, B, K3, op.F0.shape[0],
-                                     op.F0.shape[1])
-
-        def chunk(w, z, y, rho_idx):
-            return admm_steps(op, cop, l, u, rho_idx, s.sigma, s.alpha,
-                              w, z, y, s.check_every,
-                              pcg_w_update(data, op, cop, s, kinv_apply,
-                                           rho_idx))
+        chunk = plain_chunk(data, op, cop, l, u, s, make_kinv_apply(
+            op, B, K3, op.F0.shape[0], op.F0.shape[1]))
     else:
         ops_f, cold = cold_chunk_inputs(data, op, s)
         cop, l, u = constr_op(ops_f.pop), ops_f.l, ops_f.u
@@ -898,6 +1035,8 @@ def schedule_arrays(phases: tuple[NSSettings, ...]):
     tuple is not schedule-compatible.  Fence indices come from the ladder
     definition in the settings."""
     s0 = phases[0]
+    if s0.aa_depth:
+        return None
 
     def neutral(p):
         return dataclasses.replace(p, max_iter=0, rho_lo=None, rho_hi=None)
@@ -923,6 +1062,26 @@ def schedule_arrays(phases: tuple[NSSettings, ...]):
     return neutral(s0), it_k, lo_k, hi_k
 
 
+def run_phases(phases: tuple[NSSettings, ...], ladder, iterate, init=None):
+    """The phased solve that the single-device and the sharded solves
+    share: ``iterate(s, schedule, init) -> (x, info, state)`` runs one
+    settings object over a schedule.  A schedule-compatible tuple
+    (schedule_arrays) runs as one schedule of its base settings; any other
+    runs phase by phase, each phase with its own settings (tighten,
+    kkt_refine, ...) and its fences on ``ladder``, carrying the state (w,
+    z, y, rho_idx).  Returns (x, SolveInfo, state), iterations totalled
+    over the phases."""
+    sched = schedule_arrays(tuple(phases))
+    if sched is not None:
+        s0, it_k, lo_k, hi_k = sched
+        return iterate(s0, (it_k, lo_k, hi_k), init)
+    state, total = init, 0
+    for s in phases:
+        x, info, state = iterate(s, phase_schedule(ladder, s), state)
+        total += info.iters
+    return x, info._replace(iters=total), state
+
+
 def solve_ns_schedule(data: QPData, op: NSOp, s_base: NSSettings,
                       it_k, lo_k, hi_k, init=None,
                       return_state: bool = False):
@@ -930,5 +1089,79 @@ def solve_ns_schedule(data: QPData, op: NSOp, s_base: NSSettings,
     total across phases.  ``data`` and ``op`` hold tensors on one device."""
     pin_ieee_fp32()
     with torch.no_grad():
-        return _iterate_ns(data, op, s_base, (it_k, lo_k, hi_k), init=init,
-                           return_state=return_state)
+        return _iterate_ns(data, op, s_base, init=init,
+                           return_state=return_state,
+                           schedule=(it_k, lo_k, hi_k))
+
+
+def _on(device, data: QPData) -> QPData:
+    """``data`` on the resolved ``device`` (None = the card, raising
+    without one), float32 products pinned to IEEE."""
+    pin_ieee_fp32()
+    return data.to(resolve_device(device))
+
+
+def solve_ns_phases(data: QPData, phases: tuple[NSSettings, ...],
+                    return_state: bool = False, op: NSOp | None = None,
+                    init=None, device=None):
+    """Phased rho schedule sharing ONE prepared op: the rung inventory
+    comes from phases[0] (prepare_ns on the device when ``op`` is None);
+    the phases run through run_phases (one schedule when they differ only
+    in max_iter / rho_lo / rho_hi, else phase by phase), carrying the full
+    ADMM state.  init: a (w, z, y, rho_idx) state from an earlier call
+    with return_state=True (the state-warm replan).
+
+    ``data`` (host numpy or tensors) and ``op`` move to ``device`` (None =
+    the card; raises without one: pass ``device="cpu"`` for the CPU).
+    Returns (x [B, 3, D], SolveInfo[, state]); SolveInfo.iters is the
+    total over the phases."""
+    data = _on(device, data)
+    with torch.no_grad():
+        op = (prepare_ns(data, phases[0]) if op is None
+              else op.to(data.lb.device))
+
+        def iterate(s, schedule, st):
+            return _iterate_ns(data, op, s, init=st, return_state=True,
+                               schedule=schedule)
+
+        x, info, state = run_phases(phases, op.ladder, iterate, init)
+    if return_state:
+        return x, info, state
+    return x, info
+
+
+def solve_single_ns(data: QPData, s: NSSettings, device=None):
+    """Prepare (prepare_ns, in the data's dtype) and solve one batch QP on
+    ``device`` (None = the card; ``device="cpu"`` for the CPU): (x [B, 3,
+    D], SolveInfo)."""
+    data = _on(device, data)
+    with torch.no_grad():
+        return _iterate_ns(data, prepare_ns(data, s), s)
+
+
+def solve_ns(data: QPData, settings: NSSettings = NSSettings(),
+             device=None) -> torch.Tensor:
+    """Solve one batch QP in knot-state coordinates on ``device`` (None =
+    the card).  Returns x [B, 3, D] (as the JAX package's solve_ns);
+    continuity and the endpoint equalities hold to machine precision by
+    construction."""
+    return solve_single_ns(data, settings, device)[0]
+
+
+def solve_ns_batched(data: QPData, settings: NSSettings = NSSettings(),
+                     device=None):
+    """Solve a stack of batch QPs (a leading axis on every leaf) on
+    ``device`` (None = the card), one problem at a time: each is prepared
+    and iterated alone, so its result does not depend on the stack.
+    Returns (x [L, B, 3, D], SolveInfo of [L] tensors)."""
+    from .admm import _tree_map
+
+    data = _on(device, data)
+    outs = [solve_single_ns(_tree_map(lambda a: a[i], data), settings,
+                            data.lb.device)
+            for i in range(data.lb.shape[0])]
+    x = torch.stack([o[0] for o in outs])
+    info = SolveInfo(*(torch.stack([torch.as_tensor(
+        getattr(o[1], f), device=x.device) for o in outs])
+        for f in SolveInfo._fields))
+    return x, info

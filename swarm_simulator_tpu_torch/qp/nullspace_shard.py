@@ -33,9 +33,9 @@ rank count it was prepared for.  The two chunk solves are
 ops/thomas.thomas_solve on the rank's interior chain (kernel K2 on the
 card); the separator chain is plain torch.
 
-The schedule loop, the ADMM step and the kkt_refine PCG are qp/nullspace's
-(``phased_loop``, ``admm_steps``, ``pcg_w_update``), given the sharded
-constraint applies and KKT solve.  Sums are re-associated by the
+The schedule and per-phase loops, the ADMM step and the kkt_refine PCG
+are qp/nullspace's (``run_phases``, ``phased_loop``, ``plain_chunk``),
+given the sharded constraint applies and KKT solve.  Sums are re-associated by the
 collectives, so results match a one-device solve to reduction round-off,
 not bitwise.
 """
@@ -52,9 +52,8 @@ import torch.distributed as dist
 from ..ops import thomas
 from ..parallel import distributed as pd
 from .assemble import BIG, QPData
-from .nullspace import (NSOp, NSSettings, _cold_state, admm_steps,
-                        constr_op, pcg_w_update, phased_loop, pin_ieee_fp32,
-                        schedule_arrays)
+from .nullspace import (NSOp, NSSettings, _cold_state, constr_op,
+                        phased_loop, pin_ieee_fp32, plain_chunk, run_phases)
 
 MODES = ("chunk", "blockrow", "spike")
 
@@ -139,22 +138,21 @@ def chunk_couplings(kos, n_knots: int):
 
 
 def _check_phases(phases, mode: str):
-    """The phases' schedule arrays (schedule_arrays), after the checks
-    that the sharded solve can run them in ``mode``."""
+    """The checks that the sharded solve can run ``phases`` in ``mode``."""
     if mode not in MODES:
         raise ValueError(f"unknown shard mode {mode!r}")
     for p in phases:
+        if p.aa_depth:
+            raise ValueError("sharded joint solve does not support aa_depth "
+                             "phases")
         if p.kkt_refine and mode == "spike":
             # kkt_refine composes mathematically (the preconditioner is
             # just the spike apply) but is untested in this mode
             raise ValueError("mode='spike' does not support kkt_refine "
                              "phases yet")
-    sched = schedule_arrays(tuple(phases))
-    if sched is None:
-        raise NotImplementedError(
-            "phase tuples that differ in more than max_iter/rho_lo/rho_hi "
-            "are not ported (ROADMAP queue 1, item 4)")
-    return sched
+        if p.kkt_mode != "banded":
+            raise ValueError("sharded joint solve requires kkt_mode="
+                             "'banded' (knot-chunk / block-row sharding)")
 
 
 def place(data: QPData, op, group=None, mode: str = "chunk"):
@@ -212,7 +210,8 @@ def place(data: QPData, op, group=None, mode: str = "chunk"):
     if bs != B * K3 * phi:
         raise ValueError(f"pivot blocks of {bs} rows, expected "
                          f"{B * K3 * phi} (an unpadded operator)")
-    others = {k: put(getattr(op, k)) for k in NSOp._fields if k != "Dinvs"}
+    others = {k: None if getattr(op, k) is None else put(getattr(op, k))
+              for k in NSOp._fields if k != "Dinvs"}
     if mode == "blockrow":
         if bs % n:
             raise ValueError(f"pivot block size {bs} must divide over {n} "
@@ -350,28 +349,19 @@ def _kinv_apply(sop: ShardOp, B: int, K3: int, phi: int, group):
 
 
 def _iterate_ns_sharded(data: QPData, sop: ShardOp, s: NSSettings, schedule,
-                        group):
+                        group, init=None):
     """The phased knot-state ADMM on this rank's share: qp/nullspace's
     loop, ADMM step and PCG with the sharded constraint applies (one psum
-    per A^T y, one pmax per residual check) and the sharded KKT solve."""
+    per A^T y, one pmax per residual check) and the sharded KKT solve.
+    Returns (x, SolveInfo, state) from ``init`` (or the cold state)."""
     op = sop.base
     B, K3, _ = data.lb.shape
     pop, l, u, cold = _cold_state(data, op, s)
     cop = constr_op(pop, pair_sum=lambda t: pd.psum(t, group))
-    kinv_apply = _kinv_apply(sop, B, K3, op.F0.shape[1], group)
-
-    def chunk(w, z, y, rho_idx):
-        if s.kkt_refine:
-            solve_w = pcg_w_update(data, op, cop, s, kinv_apply, rho_idx)
-        else:
-            def solve_w(rhs_w, rho):
-                return kinv_apply(rho_idx, rhs_w)
-        return admm_steps(op, cop, l, u, rho_idx, s.sigma, s.alpha, w, z, y,
-                          s.check_every, solve_w)
-
-    x, info, _ = phased_loop(data, op, s, schedule, chunk, cop, l, u, cold,
-                             pair_max=lambda t: pd.pmax(t, group))
-    return x, info
+    chunk = plain_chunk(data, op, cop, l, u, s,
+                        _kinv_apply(sop, B, K3, op.F0.shape[1], group))
+    return phased_loop(data, op, s, schedule, chunk, cop, l, u, cold, init,
+                       pair_max=lambda t: pd.pmax(t, group))
 
 
 def solve_ns_phases_sharded(data: QPData, phases, op, group=None,
@@ -383,11 +373,12 @@ def solve_ns_phases_sharded(data: QPData, phases, op, group=None,
     data/op: host leaves as produced by assemble + prepare_ns_np
     (prepare_spike_np for mode="spike"), or this rank's share from
     ``place`` (a ShardOp), which skips the padding and the transfer.
-    The phases must differ only in max_iter / rho_lo / rho_hi (the
-    production shape).  Returns (x [B, 3, D], SolveInfo) on the group's
-    device, the same on every rank; SolveInfo.iters is the total over the
-    phases."""
-    s0, it_k, lo_k, hi_k = _check_phases(phases, mode)
+    Phases that differ only in max_iter / rho_lo / rho_hi (the production
+    shape) run as one schedule, any other tuple phase by phase
+    (nullspace.run_phases).  Returns (x [B, 3, D], SolveInfo) on the
+    group's device, the same on every rank; SolveInfo.iters is the total
+    over the phases."""
+    _check_phases(phases, mode)
     if isinstance(op, ShardOp):
         n = dist.get_world_size(group)
         if op.mode != mode or op.n != n:
@@ -398,8 +389,13 @@ def solve_ns_phases_sharded(data: QPData, phases, op, group=None,
     if mode == "spike" and op.n < 2:
         raise ValueError("mode='spike' needs at least 2 ranks")
     pin_ieee_fp32()
+
+    def iterate(s, schedule, init):
+        return _iterate_ns_sharded(data, op, s, schedule, group, init)
+
     with torch.no_grad():
-        return _iterate_ns_sharded(data, op, s0, (it_k, lo_k, hi_k), group)
+        x, info, _ = run_phases(phases, op.base.ladder, iterate)
+    return x, info
 
 
 def rank_solve(data: QPData, phases, op, mode: str = "chunk"):

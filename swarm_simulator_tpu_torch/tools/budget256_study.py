@@ -86,7 +86,8 @@ def base_settings(refine: int, bf16: bool):
 
     return ns.NSSettings(
         max_iter=1500, check_every=50, eps_abs=2e-4, eps_rel=2e-4,
-        eps_dual_abs=5e-3, tighten=2e-3, warm_start="x0", rho_min=3e-5,
+        eps_dual_abs=5e-3, tighten=2e-3, warm_start="x0", kkt_mode="banded",
+        rho_min=3e-5,
         n_rungs=5, kkt_refine=refine,
         precond_dtype="bfloat16" if bf16 else "float32")
 

@@ -123,3 +123,35 @@ def load_bt_world(path: str | Path, world_min, world_max,
             continue
         grid.occ[lo[0]:hi[0] + 1, lo[1]:hi[1] + 1, lo[2]:hi[2] + 1] = True
     return grid
+
+
+def write_bt(path: str | Path, grid: OccupancyGrid) -> None:
+    """Write the occupied voxels of ``grid`` as a .bt file that
+    ``load_bt_world`` reads back to the same grid (same AABB and
+    resolution): one occupied depth-16 leaf a voxel, the inner nodes in
+    octomap's depth-first child order, unknown children left out.  Voxel
+    g (global index, ``grid.i0`` + local) has center (g + 0.5) * res, as
+    a depth-16 leaf of the octree centered at the origin does."""
+    keys = np.argwhere(grid.occ) + grid.i0 + (1 << (_MAX_DEPTH - 1))
+    out = bytearray()
+
+    def node(keys, depth):
+        # child i of a node at this depth: bit 0 -> x, 1 -> y, 2 -> z
+        shift = _MAX_DEPTH - 1 - depth
+        child = (((keys >> shift) & 1) * np.array([1, 2, 4])).sum(axis=1)
+        kids = [keys[child == i] for i in range(8)]
+        bits = 0
+        for i, k in enumerate(kids):
+            if len(k):
+                bits |= (1 if shift == 0 else 3) << (2 * i)
+        out.extend((bits & 0xFF, bits >> 8))
+        if shift:
+            for k in kids:
+                if len(k):
+                    node(k, depth + 1)
+
+    if len(keys):
+        node(keys, 0)
+    Path(path).write_bytes(b"# Octomap OcTree binary file\nid OcTree\n"
+                           + f"size {len(keys)}\nres {grid.res}\n".encode()
+                           + b"data\n" + bytes(out))

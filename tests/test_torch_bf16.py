@@ -258,9 +258,10 @@ def ladder_objectives(data, phases_t) -> dict:
             ph_t = tuple(dataclasses.replace(
                 p, precond_dtype="bfloat16" if bf16 else "float32")
                 for p in phases_t)
-            assert all(p.kkt_refine == 1 for p in ph_t)
+            assert all(p.kkt_refine == 1 and p.kkt_mode == "banded"
+                       for p in ph_t)
             ph_j = tuple(ns_j.NSSettings(
-                kkt_mode="banded", thomas_kernel=True,
+                thomas_kernel=True,
                 **{f.name: getattr(p, f.name)
                    for f in dataclasses.fields(p)}) for p in ph_t)
             op_j = jax.jit(lambda d: ns_j.prepare_ns(d, ph_j[0]))(data_j)

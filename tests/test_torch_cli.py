@@ -14,7 +14,8 @@ The port's CLI (``python -m swarm_simulator_tpu_torch.cli.plan``) on a
 mission JSON written from the in-repo 2-agent swap with ``--device cpu``:
 exit 0, the JAX CLI's printed lines, ``--json`` metrics equal to the
 port's library, CSVs and plots under ``--log-dir``; without a card and
-without ``--device`` it raises, and ``--alg scp`` names its ROADMAP item.
+without ``--device`` it raises (``--alg scp`` too, which runs with
+``--device cpu``).
 """
 import dataclasses
 import json
@@ -296,6 +297,9 @@ def test_cli_needs_a_card_or_device_cpu(tmp_path, monkeypatch):
     monkeypatch.delenv("SWARM_MISSIONS_DIR", raising=False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--mission", str(mpath), *ARGS])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        main(["--mission", str(mpath), "--alg", "scp", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--mission", str(mpath), "--alg", "scp"])
+    from swarm_simulator_tpu.cli.plan import main as main_j
+    scp = ["--mission", str(mpath), "--alg", "scp", "--dtype", "float64"]
+    assert main([*scp, "--device", "cpu"]) == main_j(scp)
     assert main(["--preset", "rbp_test", "--device", "cpu"]) == 2

@@ -96,7 +96,8 @@ def _chunk_setups(n_agents=8):
             f.name: getattr(d, f.name).to(dtype)
             for f in dataclasses.fields(d)
             if torch.is_floating_point(getattr(d, f.name))})
-        o = ns.NSOp(*(v.to(dtype) for v in op.to(dev)))
+        o = ns.NSOp(*(None if v is None else v.to(dtype)
+                      for v in op.to(dev)))
         out[dtype] = ns.cold_chunk_inputs(d, o, s)
     return s, out
 
@@ -722,3 +723,68 @@ def test_exact_polish_on_cuda():
     ok, m = gate_quality(result.ctrl, result, mission, param, obj_ref,
                          obj_b0, device="cuda")
     assert ok, m
+
+
+def _jacobi_groups(dtype):
+    """The 8-agent forest's two groups of 4, host leaves in ``dtype``,
+    padded to one pair count, and its dummy."""
+    from swarm_simulator_tpu_torch.parallel import seqbatch
+    from swarm_simulator_tpu_torch.qp import assemble
+
+    plan, mission, param = _corridors(8)
+    param = dataclasses.replace(param, solver_dtype=dtype, sequential=True,
+                                batch_size=4, batch_iter=-1)
+    batches, _ = seqbatch.make_batches(mission.qn, param)
+    dummy = assemble.build_dummy(plan.init_traj, param.n, plan.M)
+    pairs = np.asarray(plan.pair_idx)
+    pad = max(int(np.isin(pairs, b).any(axis=1).sum()) for b in batches)
+    return seqbatch._stack_qpdata([
+        assemble.assemble_batch(plan, mission, param, b, dummy, pad)
+        for b in batches]), dummy.astype(dtype)
+
+
+def test_jacobi_sweep_through_k1_matches_cpu():
+    """The knot-state Jacobi sweep (banded, two rounds of 100 and 50
+    iterations) of the 8-agent forest's two groups of 4 through K1 on the
+    card, against the same sweep on the CPU in float32 (K1's twin) and in
+    float64: the card's error against the float64 run within K1's
+    tolerance (TWIN_GAP_FACTOR x the float32 CPU run's + TWIN_GAP_FLOOR);
+    K1 launched, its twin never on CUDA."""
+    from swarm_simulator_tpu_torch.parallel import mesh
+
+    s = ns.NSSettings(kkt_mode="banded", tighten=2e-3)
+    kw = dict(rounds=2, iters_schedule=(100, 50))
+    g32, d32 = _jacobi_groups("float32")
+    g64, d64 = _jacobi_groups("float64")
+    nsfused.nsfused_chunk.launches = 0
+    nsfused.nsfused_chunk_reference.cuda_calls = 0
+    ck, _ = mesh.jacobi_sweep(g32, d32, s, device="cuda", **kw)
+    assert nsfused.nsfused_chunk.launches > 0
+    assert nsfused.nsfused_chunk_reference.cuda_calls == 0
+    cc, _ = mesh.jacobi_sweep(g32, d32, s, device="cpu", **kw)
+    c64, _ = mesh.jacobi_sweep(g64, d64, s, device="cpu", **kw)
+    ek = thomas.rel_error(ck.cpu(), c64)
+    et = thomas.rel_error(cc, c64)
+    assert thomas.twin_gap_use([ek], [et]) <= 1.0, (ek, et)
+
+
+def test_solve_dense_float64_on_cuda_matches_cpu():
+    """qp/dense's ADMM on a seeded QP (equality rows, two-sided bounds)
+    in float64 on the card against the CPU: the same iterations, x within
+    1e-8."""
+    from swarm_simulator_tpu_torch.qp import dense
+
+    rng = np.random.default_rng(3)
+    n, m = 30, 45
+    G = rng.standard_normal((n, n))
+    Q = G @ G.T / n + 0.1 * np.eye(n)
+    q = rng.standard_normal(n)
+    A = rng.standard_normal((m, n))
+    ax = A @ rng.standard_normal(n)
+    l, u = ax - rng.uniform(0, 1, m), ax + rng.uniform(0, 1, m)
+    l[:5] = u[:5] = ax[:5]
+    s = dense.DenseSettings(max_iter=3000)
+    xg, ig = dense.solve_dense(Q, q, A, l, u, s, device="cuda")
+    xc, ic = dense.solve_dense(Q, q, A, l, u, s, device="cpu")
+    assert xg.is_cuda and ig.iters == ic.iters < 3000
+    assert float((xg.cpu() - xc).abs().max()) < 1e-8

@@ -97,10 +97,8 @@ def test_plan_rejects_unported_modes(change):
 
 #: the port's citations of ROADMAP queue 1 items: (source, the cited
 #: item's number, a word the item's text holds)
-CITED = [("qp/joint.py", 4, "solve_ns_phases"),
-         ("qp/nullspace_shard.py", 4, "solve_ns_phases"),
-         ("parallel/distributed.py", 7, "stack_across_processes"),
-         ("cli/plan.py", 6, "qp/scp")]
+CITED = [("qp/nullspace.py", 4, "aa_depth"),
+         ("parallel/distributed.py", 7, "stack_across_processes")]
 
 
 @pytest.mark.parametrize("source,item,word", CITED)

@@ -185,7 +185,8 @@ def _port_data(data):
 
 
 def _port_op(op):
-    return ns_t.NSOp(**{k: np.asarray(getattr(op, k))
+    return ns_t.NSOp(**{k: None if getattr(op, k) is None
+                        else np.asarray(getattr(op, k))
                         for k in ns_t.NSOp._fields})
 
 

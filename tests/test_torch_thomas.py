@@ -208,14 +208,14 @@ def test_refresh_matches_jax(forest):
     want = ns_j.refresh_ns_op_np(op, moved)
     _, op_t = interop.from_numpy(forest, op, device="cpu")
     got = ns_t.refresh_ns_op_np(
-        ns_t.NSOp(*(v.numpy() for v in op_t)), moved)
+        ns_t.NSOp(*(None if v is None else v.numpy() for v in op_t)), moved)
     for leaf in ("x_pin", "g"):
         assert _rel(getattr(got, leaf), getattr(want, leaf)) < 1e-9
     assert got.Dinvs is not None and np.shares_memory(got.Dinvs,
                                                       op_t.Dinvs.numpy())
     bad = dataclasses.replace(moved, dt=np.asarray(moved.dt) * 1.1)
     with pytest.raises(ValueError, match="time grid"):
-        ns_t.refresh_ns_op_np(ns_t.NSOp(*(v.numpy() for v in op_t)), bad)
+        ns_t.refresh_ns_op_np(ns_t.NSOp(*(None if v is None else v.numpy() for v in op_t)), bad)
 
 
 def test_refine_schedule_matches_jax_float64(forest):
