@@ -150,15 +150,17 @@ Phases (any failure raises and exits non-zero):
      seconds, held to no kernel or twin run, pipelined coefficients within
      MC_PIPE_TOL of the two-phase ones, safety ratio >= 1 - 1e-3, and the
      control points within phase 18's cg bar of a float64 run on the
-     card; the knot-state Jacobi sweep (16 groups of 4, two rounds) banded
-     (K1 a group a chunk, no twin) and dense (no kernel) in float32 and
-     dense in float64, each time-scaled plan held to
+     card; the knot-state Jacobi sweep (16 groups of 4, two rounds)
+     banded in float32 (K1 a group a chunk, no twin) and dense in float64
+     (no kernel), each time-scaled plan held to
      tests/test_pipeline.py:_check but for its safety ratio, which is
      printed beside the JAX package's (below 1 there too:
-     JAX_CPU_JACOBI64) and held to it in float64; K1 at one group's
-     shapes against its twins (phase 2's rule) and timed, and the banded
-     sweep at a short schedule through K1 and its float32 twin held to
-     K1's tolerance against a float64 twin's; plan() with per-phase
+     JAX_CPU_JACOBI64) and held to it in float64, and in float32 to the
+     card's float32 twin sweep (CARD_TWIN_JACOBI_F32); K1 at one group's
+     shapes against its twins (phase 2's rule) and timed; the banded
+     sweep at a short schedule, and group 0's first round at the sweep's
+     own, through K1 and its float32 twin, held to K1's tolerance against
+     a float64 twin's; plan() with per-phase
      production phases (restore tightened by RESTORE_TIGHTEN) through K1
      with the full oracle gate, its margin beside phase 19's; the sweep
      CLI (``python -m swarm_simulator_tpu_torch.cli.sweep``, two
@@ -1771,16 +1773,26 @@ JACOBI_CMP_ITERS = (50, 50)
 #: MODE --dtype DTYPE``, x64 only for float64 as the JAX CLI; PERF.md).
 #: Every one is below 1: each group keeps the others at their previous
 #: round's positions, and the groups' simultaneous moves collide across
-#: groups (ROADMAP queue 3).  So phase 20 holds the float32 sweeps to
+#: groups (ROADMAP queue 3).  So phase 20 holds the sweeps to
 #: tests/test_pipeline.py:_check's other clauses, prints their ratios
-#: beside these (float32 rounding moves the banded sweep's ratio by ~0.15
-#: between the card and a CPU), and holds the dense sweep in float64 to
-#: the float64 value within JACOBI_RATIO_TOL
+#: beside these, and holds the dense sweep in float64 to the float64 value
+#: within JACOBI_RATIO_TOL
 JAX_CPU_JACOBI64 = {("banded", "float32"): 0.5795884728431702,
                     ("banded", "float64"): 0.5660554629706032,
                     ("dense", "float32"): 0.5524252653121948,
                     ("dense", "float64"): 0.5660554629884789}
 JACOBI_RATIO_TOL = 1e-3
+#: the same banded float32 sweep on the card with K1's plain twin in K1's
+#: place (python3 -m swarm_simulator_tpu_torch.tools.jacobi_f32_study, an
+#: H100 80GB HBM3 at 700 W; ~6 min, too long for this script): the sweep
+#: stops at max_iter with its dual residual far from converged, and the
+#: float32 rounding of the card's twin lands its ratio at this value, of
+#: the port's twin on a CPU at 0.5404 and of the JAX package's at 0.5796
+#: (PERF.md).  Phase 20 holds the sweep through K1 to it within
+#: JACOBI_F32_RATIO_TOL, ten times the gap between K1's sweep and the
+#: twin's there (5.0e-4)
+CARD_TWIN_JACOBI_F32 = 0.4264031365467965
+JACOBI_F32_RATIO_TOL = 5e-3
 #: phase 20's per-phase joint solve: the restore phase tightens by this
 #: (the production phases' 2e-3 elsewhere), which schedule_arrays refuses
 RESTORE_TIGHTEN = 3e-3
@@ -1923,11 +1935,12 @@ def jacobi_knot_state(plan, mission, param, dev) -> dict:
     banded in float32 (each chunk one K1 launch a group) and dense in
     float64 (no kernel, no float32 rounding to amplify), each plan
     time-scaled and held to tests/test_pipeline.py:_check as
-    JAX_CPU_JACOBI64 says; K1 at one
-    group's shapes against its twins (K1's tolerance, phase 2's rule) and
-    timed; then the banded sweep at the short schedule JACOBI_CMP_ITERS
+    JAX_CPU_JACOBI64 says, the float32 ratio to CARD_TWIN_JACOBI_F32; K1
+    at one group's shapes against its twins (K1's tolerance, phase 2's
+    rule) and timed; then the banded sweep at the short schedule
+    JACOBI_CMP_ITERS, and group 0's first round at the sweep's own,
     through K1, the float32 twin and a float64 twin in K1's place, the
-    kernel's sweep held to K1's tolerance against the float64 twin's."""
+    kernel's run held to K1's tolerance against the float64 twin's."""
     from unittest import mock
 
     from swarm_simulator_tpu_torch.ops import nsfused, thomas
@@ -1935,14 +1948,18 @@ def jacobi_knot_state(plan, mission, param, dev) -> dict:
     from swarm_simulator_tpu_torch.qp import nullspace as ns
 
     stacked, dummy = jacobi_stack(plan, mission, param)
+
+    def cast(data, dtype):
+        return dataclasses.replace(data, **{
+            f.name: np.asarray(getattr(data, f.name), dtype)
+            for f in dataclasses.fields(data)
+            if np.asarray(getattr(data, f.name)).dtype.kind == "f"})
+
     out = {}
     for mode, dtype in (("banded", np.float32), ("dense", np.float64)):
         label = f"jacobi knot-state {mode} {np.dtype(dtype).name}"
         s = ns.NSSettings(kkt_mode=mode, tighten=JACOBI_TIGHTEN)
-        st = dataclasses.replace(stacked, **{
-            f.name: np.asarray(getattr(stacked, f.name), dtype)
-            for f in dataclasses.fields(stacked)
-            if np.asarray(getattr(stacked, f.name)).dtype.kind == "f"})
+        st = cast(stacked, dtype)
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1963,6 +1980,14 @@ def jacobi_knot_state(plan, mission, param, dev) -> dict:
             check(abs(m["min_safety_ratio"] - ref) <= JACOBI_RATIO_TOL,
                   f"{label}: ratio {m['min_safety_ratio']} not within "
                   f"{JACOBI_RATIO_TOL} of the JAX package's {ref}")
+        else:
+            log(f"{label}: ratio beside the float32 twin's sweep on the "
+                f"card {CARD_TWIN_JACOBI_F32}")
+            check(abs(m["min_safety_ratio"] - CARD_TWIN_JACOBI_F32)
+                  <= JACOBI_F32_RATIO_TOL,
+                  f"{label}: ratio {m['min_safety_ratio']} not within "
+                  f"{JACOBI_F32_RATIO_TOL} of the float32 twin's sweep on "
+                  f"the card, {CARD_TWIN_JACOBI_F32}")
         if mode == "banded":
             check(counts["k1"] > 0, "the banded Jacobi sweep launched K1 "
                   "0 times")
@@ -1986,30 +2011,41 @@ def jacobi_knot_state(plan, mission, param, dev) -> dict:
         f"{grp['bound'][0]:.5f} ms ({grp['bound'][1]}); banded sweep "
         f"{out['banded', 'float32']['counts']['k1']} launches")
 
-    # the whole sweep through K1, the float32 twin, the float64 twin
-    def sweep(dtype):
-        st = dataclasses.replace(stacked, **{
-            f.name: np.asarray(getattr(stacked, f.name), dtype)
-            for f in dataclasses.fields(stacked)
-            if np.asarray(getattr(stacked, f.name)).dtype.kind == "f"})
-        c, _ = mesh.jacobi_sweep(st, dummy.astype(dtype), s, rounds=2,
-                                 iters_schedule=JACOBI_CMP_ITERS,
-                                 device=dev)
-        return c.double()
+    # through K1, the float32 twin and a float64 twin in K1's place: the
+    # whole sweep at the short schedule, then the first round of group 0
+    # (its agents' rows) at the sweep's own (max_iter, 30 chunks)
+    def through_k1_and_twins(label, data, rows, **kw):
+        def sweep(dtype):
+            t0 = time.perf_counter()
+            c, _ = mesh.jacobi_sweep(cast(data, dtype), dummy.astype(dtype),
+                                     s, device=dev, **kw)
+            c = c[rows].double()
+            return c, time.perf_counter() - t0
 
-    ck = sweep(np.float32)
-    with mock.patch.object(nsfused, "nsfused_chunk",
-                           nsfused.nsfused_chunk_reference):
-        ct = sweep(np.float32)
-        c64 = sweep(np.float64)
-    ek, et = thomas.rel_error(ck, c64), thomas.rel_error(ct, c64)
-    use = thomas.twin_gap_use([ek], [et])
-    log(f"jacobi banded sweep at {JACOBI_CMP_ITERS}: ctrl rel err kernel "
-        f"vs float64 twin {ek:.3e}, float32 twin vs float64 twin "
-        f"{et:.3e}, kernel vs float32 twin {thomas.rel_error(ck, ct):.3e};"
-        f" tolerance used {use:.2f}")
-    check(use <= 1.0, f"the Jacobi sweep through K1 is less accurate than "
-          f"the float32 twin's allows ({use:.2f} of the tolerance)")
+        (ck, sk) = sweep(np.float32)
+        with mock.patch.object(nsfused, "nsfused_chunk",
+                               nsfused.nsfused_chunk_reference):
+            (ct, st), (c64, s64) = sweep(np.float32), sweep(np.float64)
+        ek, et = thomas.rel_error(ck, c64), thomas.rel_error(ct, c64)
+        use = thomas.twin_gap_use([ek], [et])
+        log(f"{label}: ctrl rel err kernel vs float64 twin {ek:.3e}, "
+            f"float32 twin vs float64 twin {et:.3e}, kernel vs float32 twin "
+            f"{thomas.rel_error(ck, ct):.3e}; tolerance used {use:.2f}; "
+            f"seconds kernel {sk:.2f}, twins {st:.2f} and {s64:.2f}")
+        check(use <= 1.0, f"{label} through K1 is less accurate than the "
+              f"float32 twin's allows ({use:.2f} of the tolerance)")
+        return use
+
+    out["short_use"] = through_k1_and_twins(
+        f"jacobi banded sweep at {JACOBI_CMP_ITERS}", stacked,
+        slice(None), rounds=2, iters_schedule=JACOBI_CMP_ITERS)
+    sub = dataclasses.replace(stacked, **{
+        f.name: np.asarray(getattr(stacked, f.name))[:1]
+        for f in dataclasses.fields(stacked)
+        if getattr(stacked, f.name) is not None})
+    out["full_use"] = through_k1_and_twins(
+        f"jacobi banded first round of group 0 at max_iter {s.max_iter}",
+        sub, np.asarray(sub.agents)[0], rounds=1)
     out["group"] = grp
     return out
 

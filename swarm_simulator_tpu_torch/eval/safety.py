@@ -16,9 +16,9 @@ import torch
 from ..core.device import resolve_device
 
 
-def safety_margin_ratio(pos, radius, *, downwash: float,
-                        device=None) -> float:
-    """pos [N, S, 3] -> min over time/pairs of downwash-scaled dist ratio."""
+def pair_ratios(pos, radius, *, downwash: float, device=None):
+    """pos [N, S, 3] -> (i [P], j [P], ratio [P]): each pair i < j and its
+    least downwash-scaled distance ratio over time."""
     device = resolve_device(device)
     f64 = torch.float64
     pos = torch.as_tensor(pos, dtype=f64, device=device)
@@ -28,8 +28,14 @@ def safety_margin_ratio(pos, radius, *, downwash: float,
                          device=device)
     iu, ju = torch.triu_indices(N, N, offset=1, device=device)
     dist = torch.linalg.vector_norm((pos[ju] - pos[iu]) * scale, dim=-1)
-    ratio = dist / (radius[iu] + radius[ju])[:, None]
-    return float(ratio.min())
+    return iu, ju, dist.amin(dim=1) / (radius[iu] + radius[ju])
+
+
+def safety_margin_ratio(pos, radius, *, downwash: float,
+                        device=None) -> float:
+    """pos [N, S, 3] -> min over time/pairs of downwash-scaled dist ratio."""
+    return float(pair_ratios(pos, radius, downwash=downwash,
+                             device=device)[2].min())
 
 
 def flight_distance(pos, device=None) -> float:

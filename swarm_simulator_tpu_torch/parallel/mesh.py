@@ -192,10 +192,7 @@ def stacked_sweep(stacked: assemble.QPData, scen: torch.Tensor,
                 outs = [nullspace._iterate_ns(
                     pick(d, g), ops[g], s_round, init=states[g],
                     return_state=True) for g in range(G)]
-                xs = torch.stack([o[0] for o in outs])
-                info = admm.SolveInfo(*(torch.stack([torch.as_tensor(
-                    getattr(o[1], f), device=xs.device) for o in outs])
-                    for f in admm.SolveInfo._fields))
+                xs, info = nullspace.stack_solves(outs)
                 if carry_state:
                     states = [o[2] for o in outs]
             else:

@@ -9,7 +9,7 @@ matrix-vector products with A and one with K^-1 (torch.matmul: the JAX
 package reaches no Pallas kernel here either).
 
 The JAX package tests convergence after every iteration inside one
-compiled while_loop.  The port runs ``check_every`` iterations between
+compiled while_loop.  The port runs ``_SYNC_EVERY`` iterations between
 host syncs with the same per-iteration test: the iteration at which the
 test first holds freezes the state, so the result and the iteration count
 are those of a per-iteration loop.
@@ -23,6 +23,9 @@ import torch
 
 from ..core.device import pin_ieee_fp32, resolve_device
 
+# iterations between host syncs (the result does not depend on it)
+_SYNC_EVERY = 25
+
 
 @dataclass(frozen=True)
 class DenseSettings:
@@ -34,9 +37,6 @@ class DenseSettings:
     eps_abs: float = 1e-5
     eps_rel: float = 1e-5
     scaling_iters: int = 10
-    # iterations between host syncs (the port's; the result does not
-    # depend on it)
-    check_every: int = 25
 
 
 class DenseInfo(NamedTuple):
@@ -147,14 +147,14 @@ def _solve_dense(Q, q, A, l, u, s: DenseSettings, is_eq, x0):
     active = torch.ones((), dtype=torch.bool, device=Q.device)
     n_run = 0
     while n_run < s.max_iter and bool(active):
-        for _ in range(min(s.check_every, s.max_iter - n_run)):
+        for _ in range(min(_SYNC_EVERY, s.max_iter - n_run)):
             x_n, z_n, y_n, done = step(x, z, y)
             x = torch.where(active, x_n, x)
             z = torch.where(active, z_n, z)
             y = torch.where(active, y_n, y)
             it = it + active
             active = active & ~done
-        n_run += s.check_every
+        n_run += _SYNC_EVERY
 
     xu = d * x
     yu = e * y / c

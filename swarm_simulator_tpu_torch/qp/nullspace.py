@@ -1157,11 +1157,15 @@ def solve_ns_batched(data: QPData, settings: NSSettings = NSSettings(),
     from .admm import _tree_map
 
     data = _on(device, data)
-    outs = [solve_single_ns(_tree_map(lambda a: a[i], data), settings,
-                            data.lb.device)
-            for i in range(data.lb.shape[0])]
+    return stack_solves([solve_single_ns(_tree_map(lambda a: a[i], data),
+                                         settings, data.lb.device)
+                         for i in range(data.lb.shape[0])])
+
+
+def stack_solves(outs):
+    """Stack per-problem solves ((x, SolveInfo, ...) each) along a new
+    leading axis: (x [L, ...], SolveInfo of [L] tensors)."""
     x = torch.stack([o[0] for o in outs])
-    info = SolveInfo(*(torch.stack([torch.as_tensor(
+    return x, SolveInfo(*(torch.stack([torch.as_tensor(
         getattr(o[1], f), device=x.device) for o in outs])
         for f in SolveInfo._fields))
-    return x, info

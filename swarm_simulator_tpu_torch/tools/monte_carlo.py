@@ -10,18 +10,23 @@ stacked on one axis and solved as one Jacobi sweep on the card.  Runs:
           mission, Param (batches of 4, two Jacobi rounds) and dense
           ADMM settings (max_iter 500), as benchmarks/monte_carlo16_tpu.json
   8x64    the same, 64 scenarios (benchmarks/monte_carlo64_tpu.json)
-  256x16  BASELINE.md's ladder config, 256 agents x 16 scenarios: the
-          256-agent scatter mission (seed 0) in the 20 x 20 m world of
-          tools/monte_carlo256.py with 40 obstacles, batches of 4, the
-          module's cg settings, pipelined in chunks of 4 scenarios (the
-          stack of 64 groups x 16 scenarios, with 1014 pair rows a
-          group, would hold ~10 GB of pair operands at once)
+  256x16  256 agents x 16 scenarios through the scenario path: the
+          256-agent scatter mission (seed 0, the same in every scenario)
+          in the 20 x 20 m world of tools/monte_carlo256.py with 40
+          obstacles, batches of 4, two Jacobi rounds, the module's cg
+          settings, pipelined in chunks of 4 scenarios (the stack of 64
+          groups x 16 scenarios, with 1014 pair rows a group, would hold
+          ~10 GB of pair operands at once).  This is not the JAX
+          package's tools/monte_carlo256.py run (one joint solve of all
+          256 agents a scenario, a scatter mission a seed, the full
+          gate), which the scenario path does not do.
 
 Each run is done twice in one process (the second with the native
 library and the card warm); per run: wall seconds, scenarios
-collision-free (sampled safety ratio >= 1), the ratios, the buckets, host
-prep seconds against stacked solve seconds, and the card's name and power
-limit.  One JSON object a run on stdout.
+collision-free (sampled safety ratio >= 1), the ratios, the pairs below
+ratio 1 split by whether both agents are in one Jacobi group or in two,
+the buckets, host prep seconds against stacked solve seconds, and the
+card's name and power limit.  One JSON object a run on stdout.
 
 Usage (on the card): python3 -m swarm_simulator_tpu_torch.tools.monte_carlo
     [--runs 8x16,8x64,256x16] [--out FILE]
@@ -32,6 +37,30 @@ import argparse
 import json
 import sys
 import time
+
+
+def collisions_by_group(plan, mission, param, dev) -> dict:
+    """The pairs of ``plan`` whose sampled safety ratio (evaluate()'s,
+    step 0.1) falls below 1, counted by whether both agents are in one
+    Jacobi group (agent // batch_size) or in two, and each kind's least
+    ratio."""
+    import numpy as np
+
+    from swarm_simulator_tpu_torch.eval import sample, safety
+
+    ts = sample.sample_times(plan.T, 0.1)
+    pos = sample.sample_trajectories(plan.coef, np.asarray(plan.T), ts,
+                                     n=param.n, derivatives=1,
+                                     device=dev)[:, :, 0]
+    iu, ju, ratio = safety.pair_ratios(pos, mission.radius,
+                                       downwash=param.downwash, device=dev)
+    same = iu // param.batch_size == ju // param.batch_size
+    out = {}
+    for kind, sel in (("same_group", same), ("cross_group", ~same)):
+        r = ratio[sel]
+        out[kind] = {"pairs_below_1": int((r < 1).sum()),
+                     "min_ratio": round(float(r.min()), 4)}
+    return out
 
 
 def run_config(name: str, dev) -> dict:
@@ -72,13 +101,14 @@ def run_config(name: str, dev) -> dict:
         out = scn.run_monte_carlo(mission, param, device=dev, **kw)
         torch.cuda.synchronize(dev)
         walls.append(time.perf_counter() - t0)
-    ratios, errors = [], []
+    ratios, errors, groups = [], [], []
     for sc in out:
         if sc.error is not None or sc.plan is None:
             errors.append(sc.error)
             continue
         m = port.evaluate(sc.plan, mission, param, device=dev)
         ratios.append(round(float(m["min_safety_ratio"]), 4))
+        groups.append(collisions_by_group(sc.plan, mission, param, dev))
     solves = {}
     for sc in out:
         if sc.plan is not None and sc.plan.solver_info:
@@ -90,6 +120,7 @@ def run_config(name: str, dev) -> dict:
             "agents": mission.qn, "pipeline": kw.get("pipeline"),
             "collision_free": int(sum(r >= 1.0 for r in ratios)),
             "ratios": ratios, "errors": errors,
+            "collisions_by_group": groups,
             "wall_s": walls[0], "wall_warm_s": walls[1],
             "s_per_scenario_warm": walls[1] / kw["n_scenarios"],
             "host_prep_thread_s": prep,

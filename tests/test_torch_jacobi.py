@@ -11,7 +11,9 @@ the JAX package on the CPU in float64.
   knot-state branch in banded mode (the fused chunk's plain twin on the
   CPU) and in dense mode with a tighten_schedule: ctrl within 1e-6 and
   the last round's iterations equal;
-- without a card and without ``device`` it raises.
+- a two-round knot-state sweep equals two one-round sweeps (bit for bit);
+- without a card and without ``device`` it raises, and
+  tools/jacobi_f32_study exits 2.
 """
 import dataclasses
 import sys
@@ -161,6 +163,29 @@ def test_knot_state_branch_matches_jax(groups, mode):
         tighten_schedule=(2e-3, 1e-3), carry_state=True)
     assert itt.tolist() == itj.tolist()
     assert np.abs(ct - cj).max() < 1e-6
+
+
+@pytest.mark.parametrize("mode", ["banded", "dense"])
+def test_two_rounds_equal_two_one_round_sweeps(groups, mode):
+    """A two-round knot-state sweep without carried state equals a
+    one-round sweep from the first round's control points, bit for bit
+    (tools/jacobi_f32_study runs the sweep so, round by round)."""
+    stacked, dummy = groups
+    data = _port_data(stacked)
+    s = ns_t.NSSettings(kkt_mode=mode, tighten=2e-3, max_iter=50)
+    two, _ = mesh_t.jacobi_sweep(data, dummy, s, rounds=2, device="cpu")
+    one, _ = mesh_t.jacobi_sweep(data, dummy, s, rounds=1, device="cpu")
+    again, _ = mesh_t.jacobi_sweep(data, one.numpy(), s, rounds=1,
+                                   device="cpu")
+    assert not torch.equal(one, two)
+    assert torch.equal(again, two)
+
+
+def test_jacobi_f32_study_without_a_card_exits_2(monkeypatch):
+    from swarm_simulator_tpu_torch.tools import jacobi_f32_study
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert jacobi_f32_study.main([]) == 2
 
 
 def test_sweep_without_a_card_raises(groups, monkeypatch):

@@ -169,3 +169,37 @@ def test_run_monte_carlo_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sc_t.run_monte_carlo(_mission(swap_t), ParamT(**PARAM),
                              n_scenarios=1)
+
+
+def test_collisions_by_group_splits_the_pairs(runs):
+    """tools/monte_carlo's per-pair breakdown against eval/safety's ratio
+    of each pair alone, grouped by agent // batch_size."""
+    import torch as _torch
+
+    import swarm_simulator_tpu_torch as port
+    from swarm_simulator_tpu_torch.eval import sample, safety
+    from swarm_simulator_tpu_torch.tools.monte_carlo import \
+        collisions_by_group
+
+    param, mission = ParamT(**PARAM), _mission(swap_t)
+    cpu = _torch.device("cpu")
+    for sc in runs[None][1]:
+        got = collisions_by_group(sc.plan, mission, param, cpu)
+        ts = sample.sample_times(sc.plan.T, 0.1)
+        pos = sample.sample_trajectories(
+            sc.plan.coef, np.asarray(sc.plan.T), ts, n=param.n,
+            device="cpu").numpy()[:, :, 0]
+        want = {"same_group": [], "cross_group": []}
+        for i in range(mission.qn):
+            for j in range(i + 1, mission.qn):
+                r = safety.safety_margin_ratio(
+                    pos[[i, j]], mission.radius[[i, j]],
+                    downwash=param.downwash, device="cpu")
+                same = i // param.batch_size == j // param.batch_size
+                want["same_group" if same else "cross_group"].append(r)
+        for kind, rs in want.items():
+            assert got[kind] == {"pairs_below_1": sum(r < 1 for r in rs),
+                                 "min_ratio": round(min(rs), 4)}, kind
+        m = port.evaluate(sc.plan, mission, param, device="cpu")
+        assert min(g["min_ratio"] for g in got.values()) == \
+            round(m["min_safety_ratio"], 4)
