@@ -73,17 +73,21 @@ Phases (any failure raises and exits non-zero):
      production ladder too poorly for one PCG step, in the JAX package
      too: PERF.md);
  12. the big-swarm route through the entry point: ``plan(...,
-     cold_prep="device")`` of the 256-agent scatter problem (the
-     budget256 study's, tools/budget256_study.py) with stage times, the
-     inventory's bytes, the peak device memory, iterations, objective and
-     the gate (no objective pin at this size); then, on the same host
-     problem, the study's full-budget arm (200, 600, 100) at refine 1: on
+     cold_prep="device", iteration=2)`` of the 256-agent scatter problem
+     (the budget256 study's, tools/budget256_study.py) with the
+     large-swarm replan budgets (joint.REPLAN_BUDGETS_LARGE): stage times,
+     the inventory's bytes, the peak device memory, iterations, objective,
+     the gate (no objective pin at this size) on the cold round's and on
+     the replan round's control points, and the replan round's prep and
+     solve seconds, iterations and K2 launches (K1 none); then, on the
+     same host problem, the study's full-budget arm (200, 600, 100) at refine 1: on
      float32 pivots K2 held against its twins on the arm's inventory (as
      in phase 5), A x against the einsum form as in phase 5, and the arm
-     checked (ratio >= 1, box and continuity < 1e-3); on bf16 pivots K2-bf16 held against its twins likewise, the
-     arm run through the kernel and again with the float32 twin in K2's
-     place, the two runs held together as in phase 11, and its checks and
-     objective gap against the float32 arm reported;
+     checked (ratio >= 1, box and continuity < 1e-3); on bf16 pivots
+     K2-bf16 held against its twins likewise, the arm cut to its first 7
+     chunks (BF16_ARM) run through the kernel and again with the float32
+     twin in K2's place, the two runs held together as in phase 11, and
+     its checks and objective gap against the float32 arm reported;
  13. the pivot-stream study T4 at the 256-agent shapes
      (tools/thomas_bw_study.py, [2, 71, 2304, 2304] made on the card):
      GB/s of every variant on float32 and bf16 pivots, of K2 on both and
@@ -165,11 +169,30 @@ Phases (any failure raises and exits non-zero):
      with the full oracle gate, its margin beside phase 19's; the sweep
      CLI (``python -m swarm_simulator_tpu_torch.cli.sweep``, two
      subprocesses, admm and nullspace) over forests 0-2 written as .bt:
-     exit 0, ``# success 3/3``, each ratio equal to the library plan's;
+     exit 0, ``# success 3/3``, map 1's ratio equal to the library plan's;
      ``cli.plan --preset scp --alg scp`` on the 8-agent swap with the
      reference's start noise in float32 and float64: exit 0 and the
      costs within SCP_COST_TOL.
-The line before the last is the kernels' JSON record (each kernel's
+ 21. (a) Anderson acceleration: phase 2's problem through
+     ``solve_ns_phases`` with the production phases at aa_depth 5 (per
+     phase, K1 chunks) beside the production schedule: K1 launched, no
+     twin on CUDA, the gate's clauses required and both objective margins
+     printed (the 1.25 criterion printed, not required); the first three
+     AA chunks through K1 against the float32 twin within K1's tolerance;
+     (b) the KKT route: joint.select_kkt_path and ops/nsfused.fits at 64,
+     96 and 256 agents (256 from the shapes alone), the 96-agent scatter
+     problem (host prep) through K1 and through the K2 route, timed, each
+     with the gate's clauses (no oracle), K1 and K2 held to their twins at its
+     shapes; (c) the device EDT of the 64-agent forest and of the
+     256-agent 20 m world on the card, bit-equal to the CPU form and
+     within 1e-4 of the native EDT, timed; (d) the 256-agent RSFC planes
+     through the numpy chain, the torch form on the CPU and on the card,
+     timed and held together at 1e-12;
+ 22. the (scenario, batch) Jacobi sweep of 4 copies of the 64-agent
+     forest's 16 groups on a 1 x 1 grid of one NCCL rank
+     (tools/dryrun_multichip's part 2), bit-equal to stacked_sweep.
+The host's OpenBLAS runs one thread unless the caller set
+OPENBLAS_NUM_THREADS.  The line before the last is the kernels' JSON record (each kernel's
 launches on its own path, errors, times of kernel and plain twin, and its
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
 card's peak for their type, 67 TFLOP/s float32 or 989 TFLOP/s bf16 on the
@@ -183,12 +206,18 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+# the host f64 prep and the oracles' factorizations on one BLAS thread
+# (set before numpy loads): on the card's 8-CPU host OpenBLAS's default
+# thread a CPU slows them 2-4x (PERF.md); a caller's own setting stands
+os.environ.setdefault("OPENBLAS_NUM_THREADS", "1")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 SEED = 0
 #: bench.py's gate seeds, each graded by the IPM oracle in phase 19
@@ -358,12 +387,13 @@ def kernel_vs_twin(plan, mission, param, dev):
     return dict(chunk_vs_twins(data, op, s, dev, ""), data=data, op=op)
 
 
-def chunk_vs_twins(data, op, s, dev, label: str) -> dict:
+def chunk_vs_twins(data, op, s, dev, label: str, rungs=None) -> dict:
     """One chunk per rung of the host problem ``data`` and its host-prep
     operator ``op`` through the kernel, the float32 twin and a float64
     twin, all from the same cold state: the errors (the kernel's against
     the float64 twin held to ops/nsfused.twin_gap_use), the median times
-    of kernel and float32 twin, and the chunk's bound."""
+    of kernel and float32 twin, and the chunk's bound.  ``rungs``: the
+    rungs to hold (None: every rung)."""
     from swarm_simulator_tpu_torch.ops import nsfused
     from swarm_simulator_tpu_torch.qp import nullspace as ns
     from swarm_simulator_tpu_torch.tools._timing import event_ms
@@ -375,7 +405,7 @@ def chunk_vs_twins(data, op, s, dev, label: str) -> dict:
     errs = {"k32": [], "k64": [], "t64": []}
     max_abs = 0.0
     k_ms, t_ms = [], []
-    for r in range(op.Dinvs.shape[0]):
+    for r in rungs or range(op.Dinvs.shape[0]):
         a32 = (ops32, r, s.sigma, s.alpha, *st32)
         kern = nsfused.nsfused_chunk(*a32, n_inner=N_INNER)
         twin = nsfused.nsfused_chunk_reference(*a32, n_inner=N_INNER)
@@ -1029,32 +1059,55 @@ def sharded_solve(data, op, plan, mission, param, dev):
 
 def big_swarm_plan(dev, agents: int = 256):
     """Phase 12, first part: the 256-agent scatter problem through
-    ``plan(..., cold_prep="device")`` (stage times, inventory bytes, peak
-    device memory, launch counts, the gate without the 64-agent objective
-    pin)."""
+    ``plan(..., cold_prep="device", iteration=2)`` with the large-swarm
+    replan budgets (joint.REPLAN_BUDGETS_LARGE): the cold round and one
+    corridor replan round from one call.  Stage times, inventory bytes,
+    peak device memory, launch counts (K2 only, no twin), the gate without
+    the 64-agent objective pin on the cold round's control points and on
+    the replan round's, and the round's prep and solve seconds,
+    iterations and K2 launches."""
+    import copy
+
     import swarm_simulator_tpu_torch as port
     from swarm_simulator_tpu_torch.eval.gate import gate_quality
+    from swarm_simulator_tpu_torch.qp import joint
     from swarm_simulator_tpu_torch.tools import budget256_study as bud
 
     mission, param, world = bud.scatter_config(agents)
-    param = dataclasses.replace(param, cold_prep="device")
+    param = dataclasses.replace(param, cold_prep="device", iteration=2,
+                                replan_budgets=joint.REPLAN_BUDGETS_LARGE)
+    # the cold round's control points, its plan (T before the time scale)
+    # and the launch counts when the replan round starts assembling
+    cold = {}
+    assemble = joint.assemble_joint
+
+    def assemble_spy(plan, mission_, param_, dummy=None):
+        if dummy is not None and "ctrl" not in cold:
+            cold.update(ctrl=np.array(dummy), plan=copy.copy(plan),
+                        counts=read_counts())
+        return assemble(plan, mission_, param_, dummy=dummy)
+
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     t0 = time.perf_counter()
-    result, times = port.plan(mission, param, world, device=dev)
+    joint.assemble_joint = assemble_spy
+    try:
+        result, times = port.plan(mission, param, world, device=dev)
+    finally:
+        joint.assemble_joint = assemble
     torch.cuda.synchronize()
     cycle_s = time.perf_counter() - t0
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     info = result.solver_info
-    log(f"{agents} agents, cold_prep=device: M={result.M} pairs "
-        f"{len(result.pair_idx)}; cycle {cycle_s:.3f} s: esdf "
+    log(f"{agents} agents, cold_prep=device, iteration=2: M={result.M} "
+        f"pairs {len(result.pair_idx)}; cycle {cycle_s:.3f} s: esdf "
         f"{times.esdf:.3f} search {times.init_traj:.3f} corridor "
         f"{times.corridor:.3f} qp {times.qp:.3f} (device prep "
         f"{info['prep_s']:.3f} cold solve {info['solve_s']:.3f} polish "
         f"{info['polish_rounds']} rounds {info['polish_s']:.3f}) timescale "
         f"{times.timescale:.3f}; inventory {info['inventory_bytes'] / 1e9:.3f}"
-        f" GB, peak device memory {peak / 1e9:.3f} GB; iters "
+        f" GB, peak device memory {peak / 1e9:.3f} GB; last round iters "
         f"{info['iters'][0]} r_prim {info['r_prim'][0]:.3e} objective "
         f"{info['obj'][0]:.4f}; launches K2 {counts['k2']} K2-bf16 "
         f"{counts['k2bf16']} K1 {counts['k1']}, twin calls on CUDA "
@@ -1063,16 +1116,37 @@ def big_swarm_plan(dev, agents: int = 256):
     check(counts["k1"] == 0, "the big-swarm device-prep plan launched K1")
     check(all(counts[k] == 0 for k in TWINS),
           f"the big-swarm plan ran a plain twin on CUDA ({counts})")
-    check(result.ctrl.shape == (agents, result.M, param.n + 1, 3)
-          and bool(np.isfinite(result.ctrl).all()),
-          f"{agents} agents: control points {result.ctrl.shape}, finite "
-          f"{bool(np.isfinite(result.ctrl).all())}")
-    ok, m = gate_quality(result.ctrl, result, mission, param, device=dev)
-    log(f"{agents}-agent gate (no objective pin): " + json.dumps(
-        {k: (float(v) if not isinstance(v, bool) else v)
-         for k, v in m.items()}))
-    check(ok, f"{agents} agents: acceptance gate failed: {m}")
-    return dict(counts=counts, cycle_s=cycle_s)
+    check(info["replan_rounds"] == 1 and "ctrl" in cold,
+          f"{agents} agents: {info['replan_rounds']} replan rounds")
+    round_k2 = counts["k2"] - cold["counts"]["k2"]
+    round_k1 = counts["k1"] - cold["counts"]["k1"]
+    log(f"{agents}-agent replan round ({joint.REPLAN_BUDGETS_LARGE}, "
+        f"replan_prep {info['replan_prep']}): replan_prep_s "
+        f"{info['replan_prep_s'][0]:.3f} replan_solve_s "
+        f"{info['replan_solve_s'][0]:.3f} replan_iters "
+        f"{info['replan_iters'][0]}; K2 launches {round_k2}, K1 {round_k1}")
+    check(round_k2 > 0 and round_k1 == 0,
+          f"the replan round launched K2 {round_k2}, K1 {round_k1} times")
+    for label, ctrl, plan in (("cold round", cold["ctrl"], cold["plan"]),
+                              ("replan round", result.ctrl, result)):
+        check(ctrl.shape == (agents, result.M, param.n + 1, 3)
+              and bool(np.isfinite(ctrl).all()),
+              f"{agents} agents, {label}: control points {ctrl.shape}, "
+              f"finite {bool(np.isfinite(ctrl).all())}")
+        ok, m = gate_quality(ctrl, plan, mission, param, device=dev)
+        log(f"{agents}-agent {label} gate (no objective pin): " + json.dumps(
+            {k: (float(v) if not isinstance(v, bool) else v)
+             for k, v in m.items()}))
+        check(ok, f"{agents} agents, {label}: acceptance gate failed: {m}")
+    return dict(counts=counts, cycle_s=cycle_s, result=result,
+                round_k2=round_k2, info=info, downwash=param.downwash)
+
+
+#: phase 12's bf16 arm, run through K2-bf16 and through the float32 twin
+#: and held together: the full-budget arm cut to its first 7 chunks (both
+#: runs turn non-finite in the 6th of the full arm's 18, PERF.md), which
+#: holds the same chunks at a third of the twin run's seconds
+BF16_ARM = (200, 150, 0)
 
 
 def budget_arms(dev, agents: int = 256):
@@ -1082,9 +1156,10 @@ def budget_arms(dev, agents: int = 256):
     against its twins on that inventory, at the shapes the arm gives it
     (thomas_vs_twin: 96 cooperative blocks, rows of 2304); the arm through
     the kernel, checked (ratio >= 1, box and continuity < 1e-3) on float32
-    pivots; on bf16 pivots the arm once more with the float32 twin in
-    K2's place, the two runs held together (compare_runs), and the bf16
-    arm's checks and objective against the float32 arm's reported."""
+    pivots; on bf16 pivots the arm cut to BF16_ARM, through the kernel and
+    once more with the float32 twin in K2's place, the two runs held
+    together (compare_runs), and the bf16 arm's checks and objective
+    against the float32 arm's reported."""
     from swarm_simulator_tpu_torch.tools import budget256_study as bud
 
     t0 = time.perf_counter()
@@ -1107,7 +1182,8 @@ def budget_arms(dev, agents: int = 256):
         for twin in ((False, True) if bf16 else (False,)):
             reset_counts()
             with traced(twin) as trace:
-                r = bud.run_arm(data_dev, op, base, bud.ARMS[0], plan,
+                arm = BF16_ARM if bf16 else bud.ARMS[0]
+                r = bud.run_arm(data_dev, op, base, arm, plan,
                                 mission, param, data, dev)
             counts = read_counts()
             r["trace"] = trace
@@ -1116,7 +1192,7 @@ def budget_arms(dev, agents: int = 256):
                                                               twin),
                   f"{label} arm (twin {twin}): launches {counts}")
             how = " (float32 twin in K2's place)" if twin else ""
-            log(f"full-budget arm {bud.ARMS[0]}, refine 1, {label} pivots"
+            log(f"arm {arm}, refine 1, {label} pivots"
                 f"{how}: prep {prep_s:.3f} s, solve {r['solve_s']:.3f} s "
                 f"({r['iters']} iters, r_prim {r['r_prim']:.3e}) ratio "
                 f"{r['ratio']:.4f} box {r['box_viol']:.2e} cont "
@@ -1126,7 +1202,7 @@ def budget_arms(dev, agents: int = 256):
         torch.cuda.empty_cache()
     check(arms["float32"]["ok"], "the float32-pivot full-budget arm failed "
           f"its checks: {arms['float32']}")
-    compare_runs(f"{agents}-agent bf16 full-budget arm", arms["bf16"],
+    compare_runs(f"{agents}-agent bf16 arm {BF16_ARM}", arms["bf16"],
                  arms["bf16 twin"])
     gap = abs(arms["bf16"]["obj"] - arms["float32"]["obj"]) / abs(
         arms["float32"]["obj"])
@@ -2089,14 +2165,20 @@ def per_phase_joint(port, phase19, dev) -> dict:
     return dict(plan_s=plan_s, margin=margin, k1=counts["k1"])
 
 
+#: phase 20's sweep CLI: the maps this process plans again through the
+#: library, each row's ratio held to the CLI's (one map suffices for the
+#: determinism check; the other two only run through the CLI)
+SWEEP_LIB_MAPS = (1,)
+
+
 def sweep_cli(dev) -> dict:
     """Phase 20, the sweep CLI: forest seeds 0-2 written as map1-3.bt
     (world/btree.write_bt) and the 64-agent mission as JSON in a
     temporary directory, ``python -m swarm_simulator_tpu_torch.cli.sweep``
     run as two subprocesses (the admm default and --solver nullspace)
-    while this process plans the same maps through the library with the
-    CLI's Param; checks: exit 0, ``# success 3/3``, each row's ratio equal
-    to the library plan's."""
+    while this process plans the maps of SWEEP_LIB_MAPS through the
+    library with the CLI's Param; checks: exit 0, ``# success 3/3``, a row
+    a map, and those maps' ratios equal to the library plan's."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -2129,7 +2211,7 @@ def sweep_cli(dev) -> dict:
         for solver in procs:
             sparam = sweep.sweep_param(sweep.build_argparser().parse_args(
                 [*base, "--solver", solver]))
-            for mi in (1, 2, 3):
+            for mi in SWEEP_LIB_MAPS:
                 world = load_bt_world(d / f"map{mi}.bt", sparam.world_min,
                                       sparam.world_max)
                 result, _ = port.plan(mission, sparam, world, device=dev)
@@ -2148,13 +2230,15 @@ def sweep_cli(dev) -> dict:
             check(lines[-1] == "# success 3/3",
                   f"sweep cli {solver}: {lines[-1]!r}")
             rows = [json.loads(ln) for ln in lines[:-1]]
-            for r in rows:
+            check(sorted(r["map"] for r in rows) == [1, 2, 3],
+                  f"sweep cli {solver}: rows {rows}")
+            for r in (r for r in rows if r["map"] in SWEEP_LIB_MAPS):
                 check(r["ratio"] == lib[solver, r["map"]],
                       f"sweep cli {solver} map {r['map']}: ratio "
                       f"{r['ratio']}, the library plan's "
                       f"{lib[solver, r['map']]}")
             out[solver] = rows
-        log("sweep cli: every row's ratio equals the library plan's: "
+        log("sweep cli: the ratios equal the library plan's: "
             + json.dumps({f"{k[0]} map{k[1]}": v for k, v in lib.items()}))
         return out
     finally:
@@ -2225,6 +2309,400 @@ def scp_cli(dev) -> dict:
     return out
 
 
+#: phase 21a: the JAX package's Anderson study arm (tools/schedule_study.py:
+#: 33-64 there): the production phases at check_every 50, aa_depth 5
+AA_DEPTH = 5
+#: phase 21a: the AA chunks held against the float32 twin on the card
+AA_CHECK_CHUNKS = 3
+
+
+def production_result(plan, ctrl, param):
+    """A PlanResult of ``plan``'s host problem with the joint solve's
+    control points ``ctrl`` (time scale 1), for the gate and the oracle."""
+    import copy
+
+    from swarm_simulator_tpu_torch.qp import convert
+
+    out = copy.copy(plan)
+    out.ctrl = ctrl
+    out.coef = convert.ctrl_to_coef(ctrl, plan.T, param.n)
+    return out
+
+
+def gate_clauses(result, mission, param, dev, label: str,
+                 oracle: bool = True) -> dict:
+    """The gate's safety, continuity, endpoint, box and dynamics clauses
+    (eval/gate.gate_quality without the objective criterion), required,
+    and with ``oracle`` the IPM objective margin of batch 0 (obj_b0 /
+    obj_ref), printed beside the 1.25 criterion."""
+    from swarm_simulator_tpu_torch.eval.gate import gate_quality
+
+    check(bool(np.isfinite(result.ctrl).all()),
+          f"{label}: non-finite control points")
+    ok, m = gate_quality(result.ctrl, result, mission, param, device=dev)
+    margin, note = None, ""
+    if oracle:
+        oparam = dataclasses.replace(param, **ORACLE_BATCHES)
+        obj_b0, obj_ref, ipm_s = oracle_pair(result, mission, oparam, 0)
+        margin = obj_b0 / obj_ref
+        note = (f"; objective margin on batch 0 {margin:.6f} (the 1.25 "
+                f"criterion: {'met' if margin <= 1.25 else 'not met'}; "
+                f"oracle {ipm_s:.3f} s)")
+    log(f"{label} gate (no objective criterion): " + json.dumps(
+        {k: (float(v) if not isinstance(v, bool) else v)
+         for k, v in m.items()}) + note)
+    check(ok, f"{label}: the gate's clauses failed: {m}")
+    return dict(metrics=m, margin=margin)
+
+
+def anderson_solve(k1, plan, mission, param, dev) -> dict:
+    """Phase 21a: the 64-agent forest's host-prep problem (phase 2's)
+    through ``solve_ns_phases`` with the production phases at check_every
+    50 and aa_depth AA_DEPTH (per phase, Anderson-accelerated chunks
+    through K1), beside the production schedule: launches (K1 > 0, no
+    twin on CUDA), iterations, seconds, the gate's clauses and both
+    objective margins; then the first AA_CHECK_CHUNKS chunks of an AA
+    phase through K1 held against the same chunks through the float32
+    twin and a float64 twin on the card (ops/nsfused.twin_gap_use)."""
+    from unittest import mock
+
+    from swarm_simulator_tpu_torch.ops import nsfused
+    from swarm_simulator_tpu_torch.qp import convert, joint
+    from swarm_simulator_tpu_torch.qp import nullspace as ns
+
+    data, op = k1["data"], k1["op"]
+    prod = joint.production_phases()
+    aa = tuple(dataclasses.replace(p, aa_depth=AA_DEPTH) for p in prod)
+    op_dev = op.to(dev)
+    out = {}
+    for label, phases in (("production", prod), ("aa", aa)):
+        reset_counts()
+        t0 = time.perf_counter()
+        x, info = ns.solve_ns_phases(data, phases, op=op_dev, device=dev)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        counts = read_counts()
+        ctrl = convert.x_to_ctrl(x.double().cpu().numpy(), plan.M, param.n)
+        log(f"21a {label} solve: {solve_s:.3f} s host clock, iters "
+            f"{int(info.iters)}, r_prim {float(info.r_prim):.3e}, objective "
+            f"{float(info.obj):.6f}; launches K1 {counts['k1']}, twin calls "
+            f"on CUDA {sum(counts[t] for t in TWINS)}")
+        check(counts["k1"] > 0, f"21a {label}: K1 launched 0 times")
+        check(all(counts[t] == 0 for t in TWINS),
+              f"21a {label}: a plain twin ran on CUDA ({counts})")
+        g = gate_clauses(production_result(plan, ctrl, param), mission,
+                         param, dev, f"21a {label}")
+        out[label] = dict(counts=counts, solve_s=solve_s,
+                          iters=int(info.iters), obj=float(info.obj), **g)
+    log(f"21a objective margins: aa_depth {AA_DEPTH} "
+        f"{out['aa']['margin']:.6f}, production schedule "
+        f"{out['production']['margin']:.6f}")
+
+    # the first chunks of the feasibility phase, the third from an
+    # extrapolated state: kernel, float32 twin and float64 twin on the
+    # same inputs
+    ops64, _ = ns.cold_chunk_inputs(*on_device(data, op, dev,
+                                               torch.float64), aa[0])
+    errs = {"k32": [], "k64": [], "t64": []}
+    max_abs = [0.0]
+    kernel = nsfused.nsfused_chunk
+
+    def held(ops, rho_idx, sigma, alpha, w, z, y, n_inner):
+        kern = kernel(ops, rho_idx, sigma, alpha, w, z, y, n_inner)
+        if len(errs["k32"]) < AA_CHECK_CHUNKS:
+            twin = nsfused.nsfused_chunk_reference(
+                ops, rho_idx, sigma, alpha, w, z, y, n_inner)
+            up = (w.double(), ns.NSConstr(*(t.double() for t in z)),
+                  ns.NSConstr(*(t.double() for t in y)))
+            twin64 = nsfused.nsfused_chunk_reference(
+                ops64, rho_idx, sigma, alpha, *up, n_inner)
+            for k, t in zip((kern[0], *kern[1], *kern[2]),
+                            (twin[0], *twin[1], *twin[2])):
+                max_abs[0] = max(max_abs[0], float((k - t).abs().max()))
+            errs["k32"].append(nsfused.state_errors(kern, twin))
+            errs["k64"].append(nsfused.state_errors(kern, twin64))
+            errs["t64"].append(nsfused.state_errors(twin, twin64))
+        return kern
+
+    # the kernel's wrapper counts its launches on the name it is bound to
+    held.launches = 0
+    first = (dataclasses.replace(aa[0], max_iter=AA_CHECK_CHUNKS
+                                 * aa[0].check_every),)
+    with mock.patch.object(nsfused, "nsfused_chunk", held):
+        ns.solve_ns_phases(data, first, op=op_dev, device=dev)
+    check(len(errs["k32"]) == AA_CHECK_CHUNKS,
+          f"21a: {len(errs['k32'])} AA chunks checked")
+    use = nsfused.twin_gap_use(errs["k64"], errs["t64"])
+    log(f"21a first {AA_CHECK_CHUNKS} AA chunks, K1 against the float32 "
+        "twin (worst own-scale rel err per part): "
+        + " ".join(f"{n} {max(e[i] for e in errs['k32']):.1e}"
+                   for i, n in enumerate(nsfused.STATE_PARTS))
+        + "; share of K1's tolerance used: "
+        + " ".join(f"{n} {v:.2f}" for n, v in use.items())
+        + f"; max abs err vs float32 twin {max_abs[0]:.3e}")
+    for name, v in use.items():
+        check(v <= 1.0, f"21a AA chunks: {name} uses {v:.2f} of K1's "
+              "tolerance")
+    out["max_abs_err"] = max_abs[0]
+    out["use"] = max(use.values())
+    return out
+
+
+#: phase 21b: the 96-agent host-prepped problem (the budget256 study's
+#: scatter mission and empty 20 m world at 96 agents)
+ROUTE_AGENTS = 96
+
+
+def kkt_route(plan64, dev) -> dict:
+    """Phase 21b: joint.select_kkt_path's decision and ops/nsfused.fits at
+    64 agents (phase 2's problem), 96 (the scatter problem of
+    ROUTE_AGENTS) and 256 (phase 12's scatter shapes alone: its host prep
+    takes minutes), on this card; then the 96-agent host-prepped problem
+    solved with the production phases through K1 (where it fits) and
+    through the K2 route (thomas_kernel=True, each w-update one K2 solve
+    at kkt_refine 0): seconds, iterations and launches of each, the gate's
+    clauses required (the 96-agent oracle takes 13-16 s a solve, so no
+    margin here); K1 (rungs 0 and 4) and K2 held against their twins at
+    the 96-agent shapes and timed."""
+    from swarm_simulator_tpu_torch.corridor.times import build_corridors
+    from swarm_simulator_tpu_torch.ops import nsfused
+    from swarm_simulator_tpu_torch.qp import convert, joint
+    from swarm_simulator_tpu_torch.qp import nullspace as ns
+    from swarm_simulator_tpu_torch.search.planner import \
+        plan_initial_trajectories
+    from swarm_simulator_tpu_torch.tools import budget256_study as bud
+    from swarm_simulator_tpu_torch.world.esdf import ESDF
+
+    t0 = time.perf_counter()
+    mission, param, world = bud.scatter_config(ROUTE_AGENTS)
+    esdf = ESDF(world, max_dist=param.esdf_max_dist)
+    plan = plan_initial_trajectories(esdf, mission, param)
+    build_corridors(esdf, plan, mission.radius, param, dev)
+    phases = joint.production_phases()
+    data, _ = joint.assemble_joint(plan, mission, param)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op = ns.prepare_ns_np(data, phases[0])
+    prep_s = time.perf_counter() - t0
+    log(f"21b problem: scatter_mission({ROUTE_AGENTS}, half=9.5, z=1.0, "
+        f"seed=7) in the empty 20 m world (tools/budget256_study."
+        f"scatter_config({ROUTE_AGENTS})): M={plan.M}, pairs "
+        f"{len(plan.pair_idx)}, pivots {tuple(op.Dinvs.shape)}; host build "
+        f"{host_s:.3f} s, host f64 prep {prep_s:.3f} s")
+    limits = nsfused.card_limits(dev)
+    shapes = {len(plan64.init_traj): (plan64.M, len(plan64.pair_idx)),
+              ROUTE_AGENTS: (plan.M, len(plan.pair_idx)),
+              256: (72, 256 * 255 // 2)}
+    decisions = {}
+    for n_ag, (M, P) in shapes.items():
+        routed = joint.select_kkt_path(phases, n_ag, M, P, param.phi, dev)
+        decisions[n_ag] = "K2" if routed[0].thomas_kernel else "K1"
+        log(f"21b select_kkt_path at {n_ag} agents (M={M}, {P} pairs): "
+            f"{decisions[n_ag]}; nsfused.fits "
+            f"{nsfused.fits(n_ag, M, P, dev)} "
+            f"{nsfused.unfit_reasons(n_ag, M, P, limits)} on {limits}")
+    op_dev = op.to(dev)
+    routes = {"K1": phases,
+              "K2": tuple(dataclasses.replace(p, thomas_kernel=True)
+                          for p in phases)}
+    out = dict(decisions=decisions)
+    for name, ph in routes.items():
+        if name == "K1" and decisions[ROUTE_AGENTS] != "K1":
+            continue
+        reset_counts()
+        t0 = time.perf_counter()
+        x, info = ns.solve_ns_phases(data, ph, op=op_dev, device=dev)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        counts = read_counts()
+        log(f"21b {ROUTE_AGENTS} agents through the {name} route: "
+            f"{solve_s:.3f} s host clock, iters "
+            f"{int(info.iters)}, r_prim {float(info.r_prim):.3e}, "
+            f"objective {float(info.obj):.6f}; launches K1 "
+            f"{counts['k1']} K2 {counts['k2']}, twin calls on CUDA "
+            f"{sum(counts[t] for t in TWINS)}")
+        check(counts["k1" if name == "K1" else "k2"] > 0
+              and counts["k2" if name == "K1" else "k1"] == 0,
+              f"21b {name} route: launches {counts}")
+        check(all(counts[t] == 0 for t in TWINS),
+              f"21b {name} route: a plain twin ran on CUDA ({counts})")
+        ctrl = convert.x_to_ctrl(x.double().cpu().numpy(), plan.M, param.n)
+        g = gate_clauses(production_result(plan, ctrl, param), mission,
+                         param, dev, f"21b {name} route", oracle=False)
+        out[name] = dict(counts=counts, solve_s=solve_s,
+                         iters=int(info.iters), obj=float(info.obj), **g)
+    out["k1"] = chunk_vs_twins(data, op, phases[0], dev,
+                               f"21b K1 at {ROUTE_AGENTS} agents: ",
+                               rungs=(0, op.Dinvs.shape[0] - 1))
+    out["k2"] = thomas_vs_twin(op, dev, f"{ROUTE_AGENTS}-agent host-prep",
+                               reps=(10, 1))
+    return out
+
+
+def device_edt(world64, dev) -> dict:
+    """Phase 21c: world/esdf.esdf_from_occupancy on the card for the
+    64-agent forest's occupancy and for the 256-agent 20 m world
+    (tools/monte_carlo.py's 256x16 scenario 0: scatter_mission(256, seed
+    0), 40 obstacles, forest seed 100), each bit-equal to the torch form
+    on the CPU and within tests/test_esdf.py's 1e-4 of the native EDT;
+    ESDF(backend="device") on the card against the native ESDF; the
+    seconds of each form."""
+    from swarm_simulator_tpu_torch.io.mission_json import scatter_mission
+    from swarm_simulator_tpu_torch.search.native_binding import esdf_native
+    from swarm_simulator_tpu_torch.tools import budget256_study as bud
+    from swarm_simulator_tpu_torch.tools._timing import median_ms
+    from swarm_simulator_tpu_torch.world.esdf import ESDF, esdf_from_occupancy
+    from swarm_simulator_tpu_torch.world.forest import generate_forest
+
+    _, param256, _ = bud.scatter_config(256)
+    world256 = generate_forest(
+        scatter_mission(256, half=9.5, z=1.0, seed=0),
+        world_min=param256.world_min, world_max=param256.world_max,
+        resolution=param256.world_resolution, obs_num=40, r_min=0.3,
+        r_max=0.3, h_min=0.0, h_max=2.5, margin=0.5, seed=100)
+    out = {}
+    for label, world in (("64-agent forest", world64),
+                         ("256-agent 20 m world", world256)):
+        occ_cpu = torch.as_tensor(np.ascontiguousarray(world.occ))
+        occ = occ_cpu.to(dev)
+        card = esdf_from_occupancy(occ, res=world.res, max_dist=1.0)
+        ms = median_ms(lambda: esdf_from_occupancy(occ, res=world.res,
+                                                   max_dist=1.0), 5)
+        t0 = time.perf_counter()
+        cpu = esdf_from_occupancy(occ_cpu, res=world.res, max_dist=1.0)
+        cpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nat = esdf_native(world.occ, world.res, 1.0)
+        nat_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dev_esdf = ESDF(world, 1.0, backend="device", device=dev)
+        esdf_s = time.perf_counter() - t0
+        got = card.cpu().numpy()
+        ulps = int(np.abs(got.view(np.int32).astype(np.int64)
+                          - cpu.numpy().view(np.int32)).max())
+        gap = float(np.abs(got - nat).max())
+        log(f"21c device EDT, {label} {tuple(world.occ.shape)} "
+            f"({int(world.occ.sum())} occupied): card {ms:.3f} ms (CUDA "
+            f"events), torch on the CPU {1e3 * cpu_s:.1f} ms, native "
+            f"{1e3 * nat_s:.1f} ms, ESDF(backend='device') with the copies "
+            f"{1e3 * esdf_s:.1f} ms; card vs CPU form: largest ulp "
+            f"difference {ulps}; vs native: {gap:.2e} (limit 1e-4)")
+        check(ulps == 0, f"21c {label}: the card's EDT differs from the "
+              f"CPU form by {ulps} ulps")
+        check(gap <= 1e-4 and float(np.abs(dev_esdf.dist - nat).max())
+              <= 1e-4, f"21c {label}: device EDT {gap:.2e} from native")
+        out[label] = dict(ms=ms, cpu_s=cpu_s, native_s=nat_s)
+    return out
+
+
+def rsfc_forms(init_traj, downwash: float, dev) -> dict:
+    """Phase 21d: the RSFC planes of the 256-agent scatter plan's initial
+    trajectories (2.3 M pair-segments) through the numpy chain, the torch
+    form on the CPU and the torch form on the card (the result copied
+    back), each timed on the host clock (the card's after a warm-up, the
+    median of 3; the host forms once), held to each other at 1e-12, and
+    the form build_rsfc takes on the card."""
+    from swarm_simulator_tpu_torch.corridor import rsfc
+
+    N, K = init_traj.shape[:2]
+    iu, ju = np.triu_indices(N, k=1)
+    pairs = np.stack([iu, ju], axis=1).astype(np.int32)
+    traj = np.asarray(init_traj, np.float64)
+
+    def torch_form(d):
+        n, m = rsfc.pair_separating_planes(
+            torch.as_tensor(traj, device=d), torch.as_tensor(pairs, device=d),
+            downwash=float(downwash))
+        return n.cpu().numpy(), m.cpu().numpy()
+
+    times, res = {}, {}
+    for name, fn, reps in (("numpy", lambda: rsfc._pair_planes_numpy(
+            traj, pairs, float(downwash)), 1),
+                           ("torch cpu", lambda: torch_form("cpu"), 1),
+                           ("torch card", lambda: torch_form(dev), 3)):
+        if reps > 1:
+            fn()
+        runs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            res[name] = fn()
+            runs.append(time.perf_counter() - t0)
+        times[name] = float(np.median(runs))
+    gaps = {name: max(float(np.abs(res[name][0] - res["numpy"][0]).max()),
+                      float(np.abs(res[name][1] - res["numpy"][1]).max()))
+            for name in ("torch cpu", "torch card")}
+    calls = []
+    form = rsfc.pair_separating_planes
+    rsfc.pair_separating_planes = lambda *a, **k: (
+        calls.append(a[0].device.type) or form(*a, **k))
+    try:
+        rsfc.build_rsfc(traj, downwash, dev)
+    finally:
+        rsfc.pair_separating_planes = form
+    log(f"21d RSFC planes, {N} agents, {len(pairs) * (K - 1)} "
+        f"pair-segments, host clock: numpy chain "
+        f"{times['numpy']:.4f} s, torch form on the CPU "
+        f"{times['torch cpu']:.4f} s, on the card with the copies "
+        f"{times['torch card']:.4f} s (median of 3); largest difference "
+        f"from the numpy "
+        f"chain: " + ", ".join(f"{k} {v:.1e}" for k, v in gaps.items())
+        + f" (limit 1e-12); build_rsfc on the card ran the torch form on "
+        f"{calls}")
+    check(max(gaps.values()) <= 1e-12, f"21d RSFC forms disagree: {gaps}")
+    check(calls == ["cuda"], f"21d build_rsfc took {calls}")
+    return dict(times=times, gaps=gaps)
+
+
+#: phase 22: copies of the 64-agent forest's 16 groups on a 1 x 1 grid
+GRID_SCENARIOS = 4
+
+
+def scenario_grid(dev) -> dict:
+    """Phase 22: tools/dryrun_multichip's part 2 on one NCCL rank: the
+    (scenario, batch) Jacobi sweep (mesh.grid_sweep: ADMM, cg, two rounds
+    of (50, 25) iterations carrying the state) of GRID_SCENARIOS copies of
+    the 64-agent forest's 16 groups of 4 on a 1 x 1 grid, its control
+    points held bit for bit to mesh.stacked_sweep of the same stack in
+    this process."""
+    from swarm_simulator_tpu_torch.parallel import distributed as pd
+    from swarm_simulator_tpu_torch.parallel import mesh, seqbatch
+    from swarm_simulator_tpu_torch.qp import assemble
+    from swarm_simulator_tpu_torch.tools import dryrun_multichip as dry
+
+    kw = dict(iters_schedule=dry.SWEEP_ITERS, carry_state=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    got, shape, iters, sweep_s = pd.run_ranks(
+        dry.sweep_rank, 1, dry.forest_share, (SEED,), GRID_SCENARIOS,
+        dry.sweep_settings(), dry.SWEEP_ROUNDS, kw, (1, 1),
+        backend="nccl" if dev.type == "cuda" else "gloo")
+    call_s = time.perf_counter() - t0
+    counts = read_counts()
+    plan, mission, param, batches, pad, dummy = dry.forest_groups(SEED)
+    groups = seqbatch._stack_qpdata([
+        assemble.assemble_batch(plan, mission, param, b, dummy, pad)
+        for b in batches])
+    stacked, scen, dm = dry.copies(groups, dummy, GRID_SCENARIOS)
+    t0 = time.perf_counter()
+    want, _ = mesh.stacked_sweep(stacked.to(dev), scen.to(dev), dm.to(dev),
+                                 dry.sweep_settings(), dry.SWEEP_ROUNDS,
+                                 **kw)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    want = want.double().cpu().numpy()
+    log(f"22 (scenario, batch) grid {shape} on one NCCL rank: "
+        f"{GRID_SCENARIOS} copies x {len(batches)} groups of 4, ctrl "
+        f"{list(got.shape)}, iters {iters}, sweep {sweep_s:.3f} s "
+        f"({call_s:.3f} s with the group and the host build); "
+        f"stacked_sweep of the same stack {one_s:.3f} s; bit-equal "
+        f"{np.array_equal(got, want)}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    check(shape == (1, 1), f"22: grid {shape}")
+    check(np.array_equal(got, want), "22: the grid sweep differs from "
+          f"stacked_sweep by {float(np.abs(got - want).max()):.3e}")
+    return dict(sweep_s=sweep_s, one_s=one_s)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the "
@@ -2242,6 +2720,7 @@ def main() -> int:
     log(smi)
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    log(f"host BLAS threads: {blas_threads()}")
 
     t0 = time.perf_counter()
     built = _build.build("nsfused", "thomas", "thomas_stream", "thomas_prim",
@@ -2332,7 +2811,7 @@ def main() -> int:
     del op_dev
 
     # ---- phases 12 and 13: the 256-agent route, then the stream study ----
-    big_swarm_plan(dev)
+    bigp = big_swarm_plan(dev)
     big = budget_arms(dev)
     t4 = stream_study(dev)
 
@@ -2356,6 +2835,19 @@ def main() -> int:
     sweep_cli(dev)
     scp_cli(dev)
     log(f"phase 20: {time.perf_counter() - t20:.1f} s")
+
+    # ---- phase 21: AA, the KKT route, the device EDT, the RSFC forms ----
+    t21 = time.perf_counter()
+    aa = anderson_solve(k1, plan0, mission, param, dev)
+    route = kkt_route(plan0, dev)
+    device_edt(world, dev)
+    rsfc_forms(bigp["result"].init_traj, bigp["downwash"], dev)
+    log(f"phase 21: {time.perf_counter() - t21:.1f} s")
+
+    # ---- phase 22: the scenario axis on a 1 x 1 grid of NCCL ranks ----
+    t22 = time.perf_counter()
+    scenario_grid(dev)
+    log(f"phase 22: {time.perf_counter() - t22:.1f} s")
 
     def entry(name, source, replaces, launches, max_abs_err, ms, plain_ms,
               bnd, library_ms=None):
@@ -2386,6 +2878,25 @@ def main() -> int:
               jac["group"]["max_abs_err"],
               jac["group"]["ms"], jac["group"]["plain_ms"],
               jac["group"]["bound"]),
+        entry("nsfused_chunk_aa", "nsfused.cu",
+              "swarm_simulator_tpu/ops/pallas_nsfused.py:506",
+              aa["aa"]["counts"]["k1"], aa["max_abs_err"], k1["ms"],
+              k1["plain_ms"], k1["bound"]),
+        entry(f"nsfused_chunk_{ROUTE_AGENTS}", "nsfused.cu",
+              "swarm_simulator_tpu/ops/pallas_nsfused.py:506",
+              route.get("K1", {}).get("counts", {}).get("k1", 0),
+              route["k1"]["max_abs_err"], route["k1"]["ms"],
+              route["k1"]["plain_ms"], route["k1"]["bound"]),
+        entry(f"thomas_solve_{ROUTE_AGENTS}_route", "thomas.cu",
+              "swarm_simulator_tpu/ops/pallas_thomas.py:359",
+              route["K2"]["counts"]["k2"], route["k2"]["max_abs_err"],
+              route["k2"]["ms"], route["k2"]["plain_ms"],
+              route["k2"]["bound"]),
+        entry("thomas_solve_replan256", "thomas.cu",
+              "swarm_simulator_tpu/ops/pallas_thomas.py:359",
+              bigp["round_k2"], big["k2"]["float32"]["max_abs_err"],
+              big["k2"]["float32"]["ms"], big["k2"]["float32"]["plain_ms"],
+              big["k2"]["float32"]["bound"]),
         entry("thomas_solve", "thomas.cu",
               "swarm_simulator_tpu/ops/pallas_thomas.py:359",
               rp["replan"]["counts"]["k2"],

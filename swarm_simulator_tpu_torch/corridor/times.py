@@ -32,12 +32,13 @@ def seg_boxes_from_sfc(sfc, T: np.ndarray) -> np.ndarray:
 
 
 def build_corridors(esdf: ESDF, plan: PlanResult, radius: np.ndarray,
-                    param: Param) -> PlanResult:
-    """Fill plan.sfc / rsfc / seg_boxes / pair_normals / pair_idx in place."""
+                    param: Param, device=None) -> PlanResult:
+    """Fill plan.sfc / rsfc / seg_boxes / pair_normals / pair_idx in place;
+    a large swarm's RSFC planes are computed on ``device`` (build_rsfc)."""
     plan.sfc = update_obs_boxes(esdf, plan, radius, param)
     plan.seg_boxes = seg_boxes_from_sfc(plan.sfc, plan.T)
 
-    pair_idx, normals = build_rsfc(plan.init_traj, param.downwash)
+    pair_idx, normals = build_rsfc(plan.init_traj, param.downwash, device)
     plan.pair_idx = pair_idx
     plan.pair_normals = np.asarray(normals, dtype=np.float64)
     # raw (normal, end_time) list form for parity with RSFC_t — a debug/

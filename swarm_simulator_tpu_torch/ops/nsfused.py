@@ -100,15 +100,16 @@ def pair_csr(pair_bi: np.ndarray, pair_bj: np.ndarray,
 
 
 def refuse_bf16(dinv) -> None:
-    """The fused chunk reads float32 pivots: a bf16 inventory
-    (NSSettings.precond_dtype="bfloat16") is a preconditioner for the
-    kkt_refine >= 1 solve through ops/thomas, never K1's operator."""
+    """A bf16 inventory (NSSettings.precond_dtype="bfloat16") is a
+    preconditioner for the kkt_refine >= 1 solve through ops/thomas, never
+    the operator of a refine-0 solve (K1's chunk or the K2 route)."""
     if isinstance(dinv, torch.Tensor) and dinv.dtype == torch.bfloat16:
         raise ValueError(
             "bf16 pivot inventory (precond_dtype='bfloat16') requires "
-            "kkt_refine >= 1 (the Thomas solve, K2): the fused chunk (K1) "
-            "would widen it back to float32 and solve with the rounded "
-            "pivots as its exact operator")
+            "kkt_refine >= 1 (the Thomas solve, K2): a refine-0 solve (the "
+            "fused chunk K1, or the K2 route) would widen it back to "
+            "float32 and solve with the rounded pivots as its exact "
+            "operator")
 
 
 def build_operands(data, op, pop, l, u) -> FusedOperands:
@@ -152,6 +153,73 @@ def build_operands(data, op, pop, l, u) -> FusedOperands:
         acoef=torch.as_tensor(acoef, device=dev),
         ladder=op.ladder.detach().cpu().numpy().astype(np.float32),
         dims=dims)
+
+
+class CardLimits(NamedTuple):
+    """What K1's launch needs to know of a card."""
+    sms: int          # multiprocessors (the cooperative grid: one block each)
+    smem_optin: int   # dynamic shared memory a block may opt in to, bytes
+
+
+#: an H100 SXM's limits (132 SMs, 227 KB of shared memory a block)
+H100 = CardLimits(sms=132, smem_optin=thomas.SMEM_PER_BLOCK)
+
+#: csrc/nsfused.cu: kMaxPhi, the knot-state width its registers hold
+MAX_PHI = 4
+#: the kernel indexes the [Mi, bs] rows, the [B3, D] box and the [P, D]
+#: pair arrays and the agents' pair lists with 32-bit ints
+INDEX_LIMIT = 2 ** 31
+
+
+def card_limits(device) -> CardLimits:
+    """The limits of the CUDA card ``device``."""
+    p = torch.cuda.get_device_properties(device)
+    return CardLimits(sms=p.multi_processor_count,
+                      smem_optin=p.shared_memory_per_block_optin)
+
+
+def unfit_reasons(B: int, M: int, P: int, limits: CardLimits,
+                  phi: int = 3) -> list[str]:
+    """The rules of csrc/nsfused.cu that a problem of B agents, M segments
+    and P pairs breaks on a card of ``limits`` (empty: K1 runs it).  The
+    kernel's own limits, not the TPU kernel's (its 256-lane group and
+    8-sublane rules are Mosaic's): the knot-state width, at least one
+    interior knot, the ring plan of the chain (thomas.ring_plan: a
+    two-slot ring beside the block's rows) within the block's opt-in
+    shared memory, a cooperative grid of one block per SM that holds the
+    chain's blocks, and 32-bit element indices."""
+    reasons = []
+    if not 1 <= phi <= MAX_PHI:
+        reasons.append(f"phi {phi} outside [1, {MAX_PHI}]")
+    if M < 2:
+        reasons.append(f"M = {M}: no interior knot")
+    if reasons:
+        return reasons
+    B3, Mi, D = 3 * B, M - 1, M * 2 * phi
+    bs = B3 * phi
+    try:
+        plan = thomas.ring_plan(bs, phi, 4, sms=limits.sms)
+    except ValueError as e:
+        return [f"ring plan: {e}"]
+    if plan.smem > limits.smem_optin:
+        reasons.append(f"ring plan needs {plan.smem} bytes of shared memory "
+                       f"a block, the card allows {limits.smem_optin}")
+    if -(-B3 // plan.groups) > limits.sms:
+        reasons.append(f"{-(-B3 // plan.groups)} chain blocks on "
+                       f"{limits.sms} SMs")
+    for name, n in (("Mi * bs", Mi * bs), ("B3 * D", B3 * D),
+                    ("P * D", P * D), ("pair-list entries", 2 * P)):
+        if n >= INDEX_LIMIT:
+            reasons.append(f"{name} = {n} elements overflow 32-bit indices")
+    return reasons
+
+
+def fits(B: int, M: int, P: int, device, phi: int = 3) -> bool:
+    """Whether K1 runs a problem of B agents, M segments and P pairs on
+    ``device`` (a CUDA device, or CardLimits such as H100) —
+    unfit_reasons is empty."""
+    limits = device if isinstance(device, CardLimits) else card_limits(device)
+    return not unfit_reasons(B, M, P, limits, phi)
 
 
 def nsfused_chunk_reference(ops: FusedOperands, rho_idx: int, sigma: float,
@@ -234,7 +302,7 @@ def nsfused_chunk(ops: FusedOperands, rho_idx: int, sigma: float,
     d = ops.dims
     B, K3, D, M, P = d["B"], d["K3"], d["D"], d["M"], d["P"]
     Mi, phi, B3, bs, R = d["Mi"], d["phi"], d["B3"], d["bs"], d["R"]
-    if K3 != 3 or d["npp"] != 2 * phi or Mi < 1:
+    if K3 != 3 or d["npp"] != 2 * phi:
         raise ValueError(f"nsfused_chunk: unsupported dims {d}")
     if not 0 <= rho_idx < R:
         raise ValueError(f"nsfused_chunk: rung {rho_idx} outside [0, {R})")
@@ -261,6 +329,11 @@ def nsfused_chunk(ops: FusedOperands, rho_idx: int, sigma: float,
                            ("apair", ops.apair, (nnz,))):
         _check(name, t, shape, torch.int32)
     _check("acoef", ops.acoef, (nnz,))
+    unfit = unfit_reasons(B, M, P, card_limits(w.device), phi)
+    if unfit:
+        raise ValueError("nsfused_chunk: the problem does not fit the "
+                         "kernel (" + "; ".join(unfit) + "); route it "
+                         "through qp/joint.select_kkt_path")
 
     lib = _build.load("nsfused", _declare)
     w_o = torch.empty_like(w_rows)

@@ -20,9 +20,12 @@ group and couples them with the helpers below.
   batched P2P ops.  On a 1-rank group each helper returns its input (no
   NCCL call sends to its own rank).
 
-``global_mesh``, ``scenario_shard`` and ``stack_across_processes`` of the
-JAX module serve the scenario-replicated Jacobi path, which is not ported
-yet (ROADMAP queue 1, item 7).
+* ``global_mesh``, ``scenario_shard`` and ``stack_across_processes``
+  serve the scenario axis across ranks (parallel/mesh.grid_sweep): the
+  (scenario, batch) grid over the whole group, the scenarios a rank
+  preps on its host, and a rank's own rows of its stack on its card.
+  One process is one rank, so the JAX module's process index and count
+  are the rank and the world size (0 and 1 without a group).
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import pickle
 import shutil
 import tempfile
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -146,6 +150,54 @@ def recv_next(buf: torch.Tensor, group=None) -> torch.Tensor:
     if r + 1 < dist.get_world_size(group):
         _p2p(dist.irecv, buf, r + 1, group)
     return buf
+
+
+def global_mesh(n_scenario: int | None = None, n_batch: int | None = None):
+    """The (scenario, batch) grid over every rank of the default group
+    (parallel/mesh.make_mesh): this rank's RankGrid."""
+    from .mesh import make_mesh
+
+    return make_mesh(n_scenario, n_batch)
+
+
+def _rank_and_size() -> tuple[int, int]:
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def block(n: int, index: int, parts: int) -> slice:
+    """The ``index``-th of ``parts`` contiguous blocks of range(n), the
+    remainder spread over the leading blocks."""
+    q, r = divmod(n, parts)
+    start = index * q + min(index, r)
+    return slice(start, start + q + (index < r))
+
+
+def scenario_shard(n_scenarios: int, process_id: int | None = None,
+                   num_processes: int | None = None) -> np.ndarray:
+    """Indices of the scenarios process ``process_id`` of ``num_processes``
+    preps on its host (None: this rank of the default group): ``block``'s
+    contiguous blocks."""
+    pid, nproc = _rank_and_size()
+    pid = pid if process_id is None else process_id
+    nproc = nproc if num_processes is None else num_processes
+    return np.arange(n_scenarios)[block(n_scenarios, pid, nproc)]
+
+
+def stack_across_processes(local_stacked, grid,
+                           axes: tuple[str | None, ...] = ("scenario",),
+                           device=None):
+    """This rank's share of the global stack whose leading axes are
+    ``axes``, from ``local_stacked``, the rows this rank prepped: its
+    scenarios (the grid row's block, scenario_shard over the rows) whole
+    along "scenario", and along "batch" cut to the grid column's block of
+    groups; on ``device`` (None = the rank's device).  No rank holds
+    another row's scenarios or another column's groups."""
+    from .mesh import shard_stacked
+
+    keep = tuple("batch" if ax == "batch" else None for ax in axes)
+    return shard_stacked(local_stacked, grid, keep, device)
 
 
 def _run_rank(rank: int, fn, world_size: int, store_path: str, backend: str,

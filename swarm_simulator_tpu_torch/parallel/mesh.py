@@ -1,22 +1,121 @@
-"""The sweeps of sequential batch planning on one device.
+"""The sweeps of sequential batch planning, and the (scenario, batch) grid
+of ranks that spreads them over cards.
 
 ``gauss_seidel_sweep`` solves the agent groups in order, each against the
 latest dummy; ``jacobi_sweep`` solves every group of a round against the
 previous round's dummy, with the ADMM or the knot-state solver.  Scenario
 batching (parallel/scenarios) folds (scenario, group) into the one
 leading axis of ``stacked_sweep``, each scenario's agents offset into one
-stacked dummy.  The JAX module also places the stacks on a (scenario,
-batch) device mesh (``make_mesh``, ``shard_stacked``); the port runs on
-one card.
+stacked dummy.
+
+The JAX module places the stacks on a (scenario, batch) device mesh; the
+port runs one rank a card (parallel/distributed) and factors the ranks
+the same way: ``make_mesh`` gives each rank its place in the grid and the
+two sub-groups it belongs to, ``shard_stacked`` keeps a rank's own rows
+of a (scenario, group) stack on its card, and ``grid_sweep`` runs the
+Jacobi sweep over the grid:
+  * ``scenario`` -- independent planning problems (Monte-Carlo maps): a
+    row of the grid solves its own block of scenarios, and the rows'
+    results are gathered to rank 0 with one collective per sweep;
+  * ``batch`` -- the agent groups of sequential batch planning
+    (rbp_planner.hpp:849-872): a rank solves only its groups each round,
+    and the refreshed dummy is all-gathered over the row's batch
+    sub-group at the end of the round, the collective form of the
+    reference's dummy write-back (rbp_planner.hpp:183).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..core.device import pin_ieee_fp32, resolve_device
 from ..qp import admm, assemble
+from . import distributed as pd
+
+
+class RankGrid(NamedTuple):
+    """A rank's place in the (scenario, batch) grid: rank r of the grid sits
+    at row r // n_batch, column r % n_batch."""
+    n_scenario: int
+    n_batch: int
+    row: int              # its block of scenarios
+    col: int              # its block of agent groups
+    batch_group: object   # the ranks of its row (the dummy's all-gather)
+    scenario_group: object  # the ranks of its column (the rows' gather)
+
+
+def factor(n: int, n_scenario: int | None = None,
+           n_batch: int | None = None) -> tuple[int, int]:
+    """(n_scenario, n_batch) of n ranks by the JAX package's make_mesh rule:
+    neither given, the batch axis takes the first of 4, 2, 1 dividing n and
+    the scenario axis the rest; one given, the other is n // it."""
+    if n_scenario is None and n_batch is None:
+        n_batch = next(c for c in (4, 2, 1) if n % c == 0)
+        n_scenario = n // n_batch
+    elif n_scenario is None:
+        n_scenario = n // n_batch
+    elif n_batch is None:
+        n_batch = n // n_scenario
+    return n_scenario, n_batch
+
+
+def make_mesh(n_scenario: int | None = None, n_batch: int | None = None,
+              group=None) -> RankGrid | None:
+    """Factor the ranks of ``group`` (None = the default group) into a
+    (scenario, batch) grid (``factor``) and return this rank's RankGrid,
+    with the process groups of its row and of its column.  Every rank of
+    ``group`` must call it (each row's and column's group is created on
+    all of them, in one order); ranks past n_scenario * n_batch get None,
+    as the JAX package's mesh leaves its trailing devices out."""
+    ranks = (list(range(dist.get_world_size())) if group is None
+             else dist.get_process_group_ranks(group))
+    a, b = factor(len(ranks), n_scenario, n_batch)
+    if a < 1 or b < 1 or a * b > len(ranks):
+        raise ValueError(f"a ({a}, {b}) grid does not fit {len(ranks)} "
+                         "ranks")
+    me = dist.get_rank()
+    rows = [dist.new_group([ranks[i * b + j] for j in range(b)])
+            for i in range(a)]
+    cols = [dist.new_group([ranks[i * b + j] for i in range(a)])
+            for j in range(b)]
+    pos = ranks.index(me)
+    if pos >= a * b:
+        return None
+    return RankGrid(a, b, pos // b, pos % b, rows[pos // b], cols[pos % b])
+
+
+def _leaves(data: assemble.QPData, fn) -> assemble.QPData:
+    """``fn`` over the array leaves (numpy or tensors) of a QPData."""
+    return dataclasses.replace(data, **{
+        f.name: None if getattr(data, f.name) is None
+        else fn(getattr(data, f.name)) for f in dataclasses.fields(data)})
+
+
+def _take(data: assemble.QPData, axis: int, sl: slice) -> assemble.QPData:
+    return _leaves(data, lambda x: x[(slice(None),) * axis + (sl,)])
+
+
+def shard_stacked(stacked: assemble.QPData, grid: RankGrid,
+                  axes: tuple[str, ...] = ("scenario", "batch"),
+                  device=None) -> assemble.QPData:
+    """This rank's rows of a stacked QPData whose leading axes are ``axes``
+    (each "scenario" or "batch"): the grid row's block of the scenario
+    axis, the grid column's block of the batch (group) axis, on ``device``
+    (None = the rank's device, parallel/distributed.group_device)."""
+    for i, ax in enumerate(axes):
+        if ax == "scenario":
+            n = stacked.lb.shape[i]
+            stacked = _take(stacked, i,
+                            pd.block(n, grid.row, grid.n_scenario))
+        elif ax == "batch":
+            n = stacked.lb.shape[i]
+            stacked = _take(stacked, i, pd.block(n, grid.col, grid.n_batch))
+        elif ax is not None:
+            raise ValueError(f"unknown axis {ax!r}")
+    return stacked.to(pd.group_device() if device is None else device)
 
 
 def _with_refreshed(sd: assemble.QPData, d: assemble.QPData, scal):
@@ -118,15 +217,23 @@ def stacked_sweep(stacked: assemble.QPData, scen: torch.Tensor,
                   kkt_chunk: int = 4,
                   iters_schedule: tuple[int, ...] | None = None,
                   carry_state: bool = False,
-                  tighten_schedule: tuple[float, ...] | None = None):
+                  tighten_schedule: tuple[float, ...] | None = None,
+                  batch_group=None):
     """jacobi_sweep of S scenarios at once: ``stacked`` [G, ...] holds
     every scenario's groups (tensors on one device), ``scen`` [G] the
     scenario of each group and ``dummy`` [S, N, M, n+1, 3] the scenarios'
     dummies.  Each group reads and writes only its scenario's dummy (its
     agent ids offset by scen * N into the stacked [S * N] rows), and every
     group stops on its own residuals, so a scenario's result does not
-    depend on what it is stacked with.  Returns (ctrl [S, N, M, n+1, 3],
-    SolveInfo of the last round, [G])."""
+    depend on what it is stacked with.
+
+    batch_group: a process group whose ranks share the S scenarios and
+    each hold their own groups of them (``stacked``, ``scen``, the same
+    count on every rank); each round every rank solves its groups and the
+    solutions are all-gathered over the group and written into every
+    rank's dummy, so each rank ends a round with the dummy the whole stack
+    would give.  Returns (ctrl [S, N, M, n+1, 3], SolveInfo of the last
+    round of this rank's groups, [G])."""
     from ..qp import nullspace
 
     S, N, M, npp, _ = dummy.shape
@@ -157,6 +264,8 @@ def stacked_sweep(stacked: assemble.QPData, scen: torch.Tensor,
         agents=agents.clamp(max=N - 1) + off)
     dst = torch.where(agents < N, agents + off,
                       torch.full_like(agents, S * N)).reshape(-1)
+    if batch_group is not None:
+        dst = pd.all_gather_tiled(dst, batch_group)
     ext = torch.cat([dummy.reshape(S * N, M, npp, 3),
                      dummy.new_zeros((1, M, npp, 3))])
 
@@ -204,6 +313,45 @@ def stacked_sweep(stacked: assemble.QPData, scen: torch.Tensor,
             # xs [G, B, 3, D] -> control points [G * B, M, npp, 3]
             B = xs.shape[1]
             ctrl = xs.permute(0, 1, 3, 2).reshape(G * B, M, npp, 3)
+            if batch_group is not None:
+                ctrl = pd.all_gather_tiled(ctrl, batch_group)
             ext = ext.clone()
             ext[dst] = ctrl.to(ext.dtype)
     return ext[:S * N].reshape(S, N, M, npp, 3), info
+
+
+def grid_sweep(stacked: assemble.QPData, scen: torch.Tensor,
+               dummy: torch.Tensor, settings, grid: RankGrid,
+               n_scenarios: int, rounds: int = 1, **kw):
+    """The Jacobi sweep of a (scenario, group) stack over the grid's
+    ranks.  A rank holds its row's block of the ``n_scenarios`` scenarios
+    (dummy [S_row, N, M, n+1, 3]) and its column's block of each
+    scenario's groups (``stacked`` [G_rank, ...] and ``scen`` [G_rank],
+    scenario indices within the row; shard_stacked's rows), every column
+    the same number of groups.  Each round a rank solves its groups and
+    the row's batch sub-group all-gathers the refreshed dummy
+    (stacked_sweep's batch_group); after the last round the rows' dummies
+    are gathered to every rank of a column (rank 0 among them) in one
+    collective.  ``kw``: stacked_sweep's schedule arguments.  Returns
+    (ctrl [n_scenarios, N, M, n+1, 3], SolveInfo of this rank's groups'
+    last round)."""
+    rows = [pd.block(n_scenarios, i, grid.n_scenario)
+            for i in range(grid.n_scenario)]
+    if dummy.shape[0] != rows[grid.row].stop - rows[grid.row].start:
+        raise ValueError(f"row {grid.row} holds {dummy.shape[0]} scenarios, "
+                         f"its block of {n_scenarios} has "
+                         f"{rows[grid.row].stop - rows[grid.row].start}")
+    counts = pd.all_gather_tiled(
+        torch.tensor([stacked.lb.shape[0]], device=dummy.device),
+        grid.batch_group)
+    if bool((counts != counts[0]).any()):
+        raise ValueError(f"the row's ranks hold {counts.tolist()} groups: "
+                         "the batch sub-group's all-gather needs one count")
+    ctrl, info = stacked_sweep(stacked, scen, dummy, settings, rounds,
+                               batch_group=grid.batch_group, **kw)
+    most = rows[0].stop - rows[0].start
+    pad = ctrl.new_zeros((most,) + ctrl.shape[1:])
+    pad[:ctrl.shape[0]] = ctrl
+    every = pd.all_gather_tiled(pad, grid.scenario_group)
+    return torch.cat([every[i * most:i * most + r.stop - r.start]
+                      for i, r in enumerate(rows)]), info

@@ -71,7 +71,7 @@ def plan(
         from .corridor.flat import build_flat_corridors
         build_flat_corridors(esdf, result, mission, param)
     else:
-        build_corridors(esdf, result, mission.radius, param)
+        build_corridors(esdf, result, mission.radius, param, device)
     times.corridor = time.perf_counter() - t0
 
     t0 = time.perf_counter()

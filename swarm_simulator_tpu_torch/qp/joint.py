@@ -34,6 +34,7 @@ import torch
 from ..core.device import resolve_device
 from ..core.types import Mission, Param, PlanResult
 from ..corridor.rsfc import build_rsfc
+from ..ops import nsfused
 from ..parallel import seqbatch
 from . import activeset, assemble, convert, ipm, nullspace
 
@@ -145,6 +146,30 @@ def rescue_box_batches(plan, mission, param, ctrl, tol: float = 1e-3):
     return out, bad_b
 
 
+def select_kkt_path(phases, qn: int, M: int, n_pairs: int, phi: int,
+                    device, limits: nsfused.CardLimits | None = None):
+    """The KKT route of a host-prepped banded solve on ``device``: phases
+    that would run each chunk through the fused kernel K1 (banded,
+    kkt_refine 0) keep it where K1 holds the problem
+    (ops/nsfused.fits: its ring plan in the block's shared memory, its
+    grid, its indices), and otherwise all take thomas_kernel=True: each
+    w-update one solve of the streaming Thomas kernel K2 at kkt_refine 0
+    (the JAX package's route past its fused kernel's VMEM bound).  Where
+    K1 fits it is kept (PERF.md times both routes at 96 agents on an
+    H100).  Schedules on the CPU (the plain twins), and
+    schedules that take no K1 chunk (dense, kkt_refine >= 1, already
+    routed), pass through untouched.  ``limits``: the card's
+    (ops/nsfused.CardLimits; None = queried from ``device``)."""
+    device = torch.device(device)
+    if device.type == "cpu" or not any(
+            p.kkt_mode == "banded" and not p.kkt_refine
+            and not p.thomas_kernel for p in phases):
+        return phases
+    if nsfused.fits(qn, M, n_pairs, limits or device, phi):
+        return phases
+    return tuple(dataclasses.replace(p, thomas_kernel=True) for p in phases)
+
+
 def assemble_joint(plan: PlanResult, mission: Mission, param: Param,
                    dummy: np.ndarray | None = None):
     """The joint all-agent QP as host numpy.  dummy (the warm start,
@@ -226,6 +251,8 @@ def solve_trajectories(plan: PlanResult, mission: Mission, param: Param,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    phases = select_kkt_path(phases, N, M, len(np.asarray(plan.pair_idx)),
+                             param.phi, device)
     data, _ = assemble_joint(plan, mission, param, dummy=dummy)
     op = None
     t0 = time.perf_counter()
@@ -291,7 +318,8 @@ def solve_trajectories(plan: PlanResult, mission: Mission, param: Param,
             knots = np.concatenate(
                 [ctrl[:, :, 0, :], ctrl[:, -1:, -1, :]], axis=1)
             try:
-                pair_idx, normals = build_rsfc(knots, param.downwash)
+                pair_idx, normals = build_rsfc(knots, param.downwash,
+                                               device)
             except ValueError:
                 # a residually-colliding pair leaves no separating plane:
                 # keep the best solved round

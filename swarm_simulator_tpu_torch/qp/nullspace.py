@@ -21,12 +21,16 @@ a rung), the host refresh of a replan's endpoint leaves
 (refresh_ns_op_np), the constraint applies and bounds, the KKT solves
 (make_kinv_apply: the banded Thomas solve over ops/thomas, or the dense
 inverse's matvec), the phased schedule loop (solve_ns_schedule) and the
-per-phase loop of any other phase tuple (solve_ns_phases), and the
+per-phase loop of any other phase tuple (solve_ns_phases), with the
+chunk-level Anderson acceleration of NSSettings.aa_depth, and the
 one-problem and stacked solves (solve_single_ns, solve_ns,
-solve_ns_batched).  A chunk of check_every iterations runs one of three
+solve_ns_batched).  A chunk of check_every iterations runs one of four
 ways:
   banded, kkt_refine == 0  one ops/nsfused chunk (the fused kernel K1 for
                    CUDA tensors, its plain twin on the CPU);
+  banded, kkt_refine == 0, thomas_kernel  check_every torch ADMM steps,
+                   each w-update one ops/thomas solve (K2): the route of
+                   a problem that K1 cannot hold (joint.select_kkt_path);
   kkt_refine >= 1  check_every torch ADMM steps whose w-update is a PCG
                    against the FRESH operator (K_fresh), preconditioned by
                    the rung inventory: 2 + kkt_refine KKT solves per step
@@ -35,15 +39,14 @@ ways:
                    with the rung's K(rho)^-1 (no kernel: the JAX package
                    reaches none in this mode either).
 The loop is a Python loop; the termination test after each chunk is one
-host sync.
+host sync (with aa_depth > 0 it also reads the chunk's step norm; the
+Anderson least squares stays on the device).
 
 The bf16 preconditioner (NSSettings.precond_dtype="bfloat16"): both
 preps round the rung inventory to bf16 (K2 reads it, widening each pivot
 at the multiply); legal only with kkt_refine >= 1, where the PCG against
 the float32 K_fresh absorbs the ~8-bit mantissa.  The fused chunk (K1)
 refuses such an inventory.
-
-Not ported yet: Anderson acceleration (NSSettings.aa_depth > 0 raises).
 """
 from __future__ import annotations
 
@@ -106,8 +109,16 @@ class NSSettings:
     #             for JOINT solves (the 64-agent joint KKT would be a
     #             20160^2 dense inverse, 1.6 GB a rung in float32)
     kkt_mode: str = "dense"
-    # Anderson acceleration depth of the JAX package (chunk-level AA-II);
-    # 0 = off.  Not ported: any other value raises
+    # banded mode at kkt_refine 0: run each w-update through the Thomas
+    # kernel (ops/thomas, K2) in a plain torch chunk instead of one fused
+    # chunk (ops/nsfused, K1) -- the route joint.select_kkt_path takes for
+    # a problem K1 cannot hold (the JAX package's fused_chunk=False,
+    # thomas_kernel=True).  kkt_refine >= 1 always solves through K2
+    thomas_kernel: bool = False
+    # Anderson acceleration (type II) at chunk level: the map G(v) = one
+    # check_every chunk on the packed state v = (w, z, y), accelerated with
+    # a rolling history of aa_depth + 1 map outputs; 0 = off.  Per-phase
+    # loop only (a schedule raises ValueError, as in the JAX package)
     aa_depth: int = 0
 
 
@@ -887,20 +898,20 @@ def _iterate_ns(data: QPData, op: NSOp, s: NSSettings, init=None,
     schedule: (max_iters [K], idx_lo [K], idx_hi [K]) host ints — K fenced
     phases run back to back, each a loop of check_every chunks that stops
     at its budget or when the residuals converge; None runs the one phase
-    of ``s`` (its max_iter and rho_lo/rho_hi fences, phase_schedule).
+    of ``s`` (its max_iter and rho_lo/rho_hi fences, phase_schedule),
+    Anderson-accelerated when s.aa_depth > 0 (a schedule with aa_depth
+    raises ValueError).
     init: (w, z, y, rho_idx) from a previous call with return_state=True
     (z is re-clipped to this call's bounds)."""
-    if s.aa_depth:
-        raise NotImplementedError(
-            "NSSettings.aa_depth > 0 (Anderson acceleration) is not ported "
-            "(ROADMAP queue 1, item 4)")
-    if schedule is None:
-        schedule = phase_schedule(op.ladder, s)
+    if schedule is not None and s.aa_depth:
+        raise ValueError("schedule mode does not support aa_depth")
     # every banded chunk reaches a kernel's wrapper, which routes by the
     # tensors' device (the kernel on CUDA, the plain twin on the CPU):
-    # refine chunks solve through ops/thomas, the others are one
-    # ops/nsfused chunk; dense chunks are plain torch
-    if s.kkt_refine or op.Kinvs is not None:
+    # refine and thomas_kernel chunks solve through ops/thomas, the others
+    # are one ops/nsfused chunk; dense chunks are plain torch
+    if s.kkt_refine or s.thomas_kernel or op.Kinvs is not None:
+        if not s.kkt_refine:
+            nsfused.refuse_bf16(op.Dinvs)
         pop, l, u, cold = _cold_state(data, op, s)
         cop = constr_op(pop)
         B, K3, _ = data.lb.shape
@@ -927,12 +938,17 @@ def phased_loop(data: QPData, op: NSOp, s: NSSettings, schedule, chunk,
     """The phased schedule loop that the single-device and the sharded
     solves share: ``chunk(w, z, y, rho_idx)`` runs check_every ADMM
     iterations, then one host sync reads the residuals and the rung walk
-    (on the host, in the problem dtype) picks the next rung.  Starts from
+    (on the host, in the problem dtype) picks the next rung.  ``schedule``
+    None runs the one phase of ``s`` (phase_schedule), Anderson-accelerated
+    when s.aa_depth > 0 (anderson_phase).  Starts from
     ``init`` (w, z, y, rho_idx), or without it from ``cold`` (w, z, y) at
     the rung nearest s.rho.  ``pair_max`` maps the pair parts' maxima [k] to
     their maxima over all ranks (a sharded solve's all_reduce MAX; None on
     one device).  Returns (x, SolveInfo, (w, z, y, rho_idx)), iterations
     totalled over the phases."""
+    aa = int(s.aa_depth) if schedule is None else 0
+    if schedule is None:
+        schedule = phase_schedule(op.ladder, s)
     dt_ = data.lb.dtype
     dev = data.lb.device
     npf = {torch.float32: np.float32, torch.float64: np.float64}[dt_]
@@ -999,18 +1015,25 @@ def phased_loop(data: QPData, op: NSOp, s: NSSettings, schedule, chunk,
         return int(np.clip(np.argmin(np.abs(lad_log - np.log(cand))),
                            lo, hi))
 
+    def check(w, z, y, rho_idx, lo, hi, extra=()):
+        # the chunk's termination test and rung walk: the one host sync
+        # per chunk, which also reads ``extra`` (device scalars)
+        r_prim, r_dual, n_prim, n_dual = residuals(w, z, y)
+        ok = ((r_prim <= eps_abs + eps_rel * n_prim)
+              & (r_dual <= eps_dual + eps_rel * n_dual))
+        vals = torch.stack([r_prim, r_dual, n_prim, n_dual, ok.to(dt_),
+                            *extra]).cpu().numpy()
+        done = bool(vals[4])
+        return done, rho_update(rho_idx, done, *vals[:4], lo, hi), vals[5:]
+
     def run_phase(w, z, y, rho_idx, lo, hi, max_it):
+        if aa:
+            return anderson_phase(chunk, check, aa, s.check_every, w, z, y,
+                                  rho_idx, lo, hi, max_it)
         it, done = 0, False
         while it < max_it and not done:
             w, z, y = chunk(w, z, y, rho_idx)
-            r_prim, r_dual, n_prim, n_dual = residuals(w, z, y)
-            ok = ((r_prim <= eps_abs + eps_rel * n_prim)
-                  & (r_dual <= eps_dual + eps_rel * n_dual))
-            # the one host sync per chunk
-            vals = torch.stack([r_prim, r_dual, n_prim, n_dual,
-                                ok.to(dt_)]).cpu().numpy()
-            done = bool(vals[4])
-            rho_idx = rho_update(rho_idx, done, *vals[:4], lo, hi)
+            done, rho_idx, _ = check(w, z, y, rho_idx, lo, hi)
             it += s.check_every
         return w, z, y, rho_idx, it
 
@@ -1026,6 +1049,67 @@ def phased_loop(data: QPData, op: NSOp, s: NSSettings, schedule, chunk,
     obj = 0.5 * torch.sum(x * _apply_Qseg(data.Qseg, x))
     info = SolveInfo(iters=total, r_prim=r_prim, r_dual=r_dual, obj=obj)
     return x, info, (w, z, y, rho_idx)
+
+
+def anderson_phase(chunk, check, aa: int, check_every: int, w, z, y,
+                   rho_idx: int, lo: int, hi: int, max_it: int):
+    """One phase of chunks with chunk-level Anderson acceleration (type
+    II), the JAX package's ``outer_body_aa``: the map G(v) is one chunk on
+    the packed state v = (w, z.box, z.pair, y.box, y.pair); a newest-first
+    history of the last aa + 1 map outputs g and steps f = g - v, of which
+    the newest ``nh`` are valid, gives theta = argmin ||f - dF theta|| (a
+    Tikhonov term lam = 1e-8 tr(A) / aa + 1e-12 on A = dF dF^T, then the
+    aa x aa solve) and the next input v = g - theta dG.  The history
+    restarts when the step norm grew or the rung changed, and the
+    extrapolation is taken only when another chunk will run, so the
+    returned state is always a map output.  ``check(w, z, y, rho_idx, lo,
+    hi, extra)`` is phased_loop's termination test; it reads the step norm
+    in its one host sync, and the least squares stays on the device.
+    Returns (w, z, y, rho_idx, iterations)."""
+    shapes = [w.shape, z.box.shape, z.pair.shape, y.box.shape, y.pair.shape]
+    sizes = [int(np.prod(sh)) for sh in shapes]
+
+    def pack(w, z, y):
+        return torch.cat([t.reshape(-1) for t in (w, *z, *y)])
+
+    def unpack(v):
+        w, zb, zp, yb, yp = (p.reshape(sh) for p, sh in
+                             zip(torch.split(v, sizes), shapes))
+        return w, NSConstr(zb, zp), NSConstr(yb, yp)
+
+    v = pack(w, z, y)
+    Fh = v.new_zeros((aa + 1, v.numel()))
+    Gh = v.new_zeros((aa + 1, v.numel()))
+    eye = torch.eye(aa, dtype=v.dtype, device=v.device)
+    it, done, nh, fprev = 0, False, 0, np.inf
+    while it < max_it and not done:
+        rho_before = rho_idx
+        w, z, y = chunk(w, z, y, rho_idx)
+        g = pack(w, z, y)
+        f = g - v
+        fn = torch.linalg.vector_norm(f)
+        done, rho_idx, (fn_h,) = check(w, z, y, rho_idx, lo, hi, (fn,))
+        # a step norm that grew means the last extrapolation misled the
+        # map; a rung change makes it another map
+        reset = bool(fn_h > fprev) or rho_idx != rho_before
+        if reset:
+            nh = 0
+        Fh = torch.cat([f[None], Fh[:-1]])
+        Gh = torch.cat([g[None], Gh[:-1]])
+        nh = min(nh + 1, aa + 1)
+        fprev = np.inf if reset else fn_h
+        it += check_every
+        v = g
+        if not done and it < max_it and nh >= 2:
+            valid = (torch.arange(aa, device=v.device) < nh - 1).to(v.dtype)
+            dF = (Fh[:aa] - Fh[1:]) * valid[:, None]
+            dG = (Gh[:aa] - Gh[1:]) * valid[:, None]
+            A = dF @ dF.T
+            A = A + (1e-8 * torch.trace(A) / aa + 1e-12) * eye
+            theta = torch.linalg.solve_ex(A, dF @ f)[0]
+            v = g - theta @ dG
+            w, z, y = unpack(v)
+    return w, z, y, rho_idx, it
 
 
 def schedule_arrays(phases: tuple[NSSettings, ...]):
@@ -1062,22 +1146,22 @@ def schedule_arrays(phases: tuple[NSSettings, ...]):
     return neutral(s0), it_k, lo_k, hi_k
 
 
-def run_phases(phases: tuple[NSSettings, ...], ladder, iterate, init=None):
+def run_phases(phases: tuple[NSSettings, ...], iterate, init=None):
     """The phased solve that the single-device and the sharded solves
     share: ``iterate(s, schedule, init) -> (x, info, state)`` runs one
     settings object over a schedule.  A schedule-compatible tuple
     (schedule_arrays) runs as one schedule of its base settings; any other
-    runs phase by phase, each phase with its own settings (tighten,
-    kkt_refine, ...) and its fences on ``ladder``, carrying the state (w,
-    z, y, rho_idx).  Returns (x, SolveInfo, state), iterations totalled
-    over the phases."""
+    runs phase by phase (schedule None: each phase with its own settings,
+    tighten, kkt_refine, aa_depth, ..., and its own fences), carrying the
+    state (w, z, y, rho_idx).  Returns (x, SolveInfo, state), iterations
+    totalled over the phases."""
     sched = schedule_arrays(tuple(phases))
     if sched is not None:
         s0, it_k, lo_k, hi_k = sched
         return iterate(s0, (it_k, lo_k, hi_k), init)
     state, total = init, 0
     for s in phases:
-        x, info, state = iterate(s, phase_schedule(ladder, s), state)
+        x, info, state = iterate(s, None, state)
         total += info.iters
     return x, info._replace(iters=total), state
 
@@ -1124,7 +1208,7 @@ def solve_ns_phases(data: QPData, phases: tuple[NSSettings, ...],
             return _iterate_ns(data, op, s, init=st, return_state=True,
                                schedule=schedule)
 
-        x, info, state = run_phases(phases, op.ladder, iterate, init)
+        x, info, state = run_phases(phases, iterate, init)
     if return_state:
         return x, info, state
     return x, info

@@ -394,7 +394,7 @@ def solve_ns_phases_sharded(data: QPData, phases, op, group=None,
         return _iterate_ns_sharded(data, op, s, schedule, group, init)
 
     with torch.no_grad():
-        x, info, _ = run_phases(phases, op.base.ladder, iterate)
+        x, info, _ = run_phases(phases, iterate)
     return x, info
 
 

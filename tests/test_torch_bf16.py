@@ -260,10 +260,10 @@ def ladder_objectives(data, phases_t) -> dict:
                 for p in phases_t)
             assert all(p.kkt_refine == 1 and p.kkt_mode == "banded"
                        for p in ph_t)
-            ph_j = tuple(ns_j.NSSettings(
-                thomas_kernel=True,
+            ph_j = tuple(ns_j.NSSettings(**{
                 **{f.name: getattr(p, f.name)
-                   for f in dataclasses.fields(p)}) for p in ph_t)
+                   for f in dataclasses.fields(p)},
+                "thomas_kernel": True}) for p in ph_t)
             op_j = jax.jit(lambda d: ns_j.prepare_ns(d, ph_j[0]))(data_j)
             _, info = jax.jit(
                 lambda d, o: ns_j.solve_ns_phases(d, ph_j, op=o))(data_j,

@@ -5,6 +5,12 @@
   (x64, CPU) within 1e-12, and both packages' ``build_rsfc`` above the
   JAX package's 200,000 pair-segment threshold (64 synthetic agents x
   101 knots is 201,600), where JAX takes its jitted form.
+- The torch form (corridor/rsfc.pair_separating_planes, float64 on the
+  CPU) against the JAX package's jitted form under x64 within 1e-12, and
+  both packages' ``build_rsfc`` just above the threshold (100 agents, M =
+  41: 202,950 pair-segments), where both take their large-swarm forms,
+  within 1e-12, the port's through the torch form; both raise the same
+  "collide" error on a colliding pair.
 - The device-prep route's phases: refine-1 phases and their warm polish
   extensions keep kkt_refine and precond_dtype.
 - The budget256 tool's arm on a small scatter problem, bf16 pivots, on
@@ -55,6 +61,45 @@ def test_build_rsfc_above_threshold_matches_jax():
     pt, nt = rsfc_t.build_rsfc(traj, 2.0)
     assert np.array_equal(pj, pt) and pt.dtype == np.int32
     assert np.abs(nt - nj).max() <= 1e-12
+
+
+@pytest.mark.parametrize("downwash", [1.0, 2.0])
+def test_torch_pair_separating_planes_matches_jax(downwash):
+    import torch
+
+    traj = _trajectories(20, 31, seed=3)
+    iu, ju = np.triu_indices(20, k=1)
+    pair_idx = np.stack([iu, ju], axis=1).astype(np.int32)
+    with jax.enable_x64(True):
+        nj, dj = rsfc_j.pair_separating_planes(
+            jnp.asarray(traj), jnp.asarray(pair_idx), downwash=downwash)
+    nt, dt = rsfc_t.pair_separating_planes(
+        torch.as_tensor(traj), torch.as_tensor(pair_idx), downwash=downwash)
+    assert nt.dtype == dt.dtype == torch.float64
+    assert np.abs(nt.numpy() - np.asarray(nj)).max() <= 1e-12
+    assert np.abs(dt.numpy() - np.asarray(dj)).max() <= \
+        1e-12 * np.abs(dj).max()
+
+
+def test_build_rsfc_just_above_threshold_takes_the_torch_form(monkeypatch):
+    traj = _trajectories(100, 42, seed=7)
+    n_seg = 100 * 99 // 2 * 41
+    assert rsfc_t.LARGE_PAIR_SEGMENTS == 200_000 < n_seg
+    calls = []
+    form = rsfc_t.pair_separating_planes
+    monkeypatch.setattr(rsfc_t, "pair_separating_planes",
+                        lambda *a, **k: calls.append(1) or form(*a, **k))
+    pj, nj = rsfc_j.build_rsfc(traj, 2.0)
+    pt, nt = rsfc_t.build_rsfc(traj, 2.0, device="cpu")
+    assert calls == [1]
+    assert np.array_equal(pj, pt) and pt.dtype == np.int32
+    assert nt.dtype == np.float64
+    assert np.abs(nt - nj).max() <= 1e-12
+    # agents 3 and 7 meet at knot 10: no separating plane
+    traj[7, 10] = traj[3, 10]
+    for mod in (rsfc_j, rsfc_t):
+        with pytest.raises(ValueError, match="agents 3 and 7 collide"):
+            mod.build_rsfc(traj, 2.0)
 
 
 def test_device_route_phases_keep_refine_and_precond():

@@ -14,8 +14,7 @@ loop, against the JAX package on the CPU in float64.
 - ``joint.solve_trajectories`` of the 8-agent forest with per-phase
   phases: ctrl within 1e-6;
 - the sharded solve's per-phase loop on one gloo rank against the JAX
-  sharded solve on one device;
-- ``aa_depth`` > 0 raises, naming ROADMAP queue 1 item 4.
+  sharded solve on one device.
 """
 import dataclasses
 import sys
@@ -253,12 +252,3 @@ def test_sharded_per_phase_matches_jax(forest):
     assert _rel(x, np.asarray(xj)) < 1e-10
     with pytest.raises(ValueError, match="kkt_mode"):
         sh_t._check_phases((ns_t.NSSettings(),), "chunk")
-
-
-def test_aa_depth_raises_naming_its_item(forest):
-    data = _port_data(_batch(forest[4], 0))
-    s = ns_t.NSSettings(aa_depth=1, max_iter=50)
-    with pytest.raises(NotImplementedError,
-                       match=r"aa_depth.*ROADMAP queue 1, item 4"):
-        ns_t.solve_ns(data, s, device="cpu")
-    assert ns_t.schedule_arrays((s, s)) is None
