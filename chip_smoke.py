@@ -6,7 +6,8 @@
 Phases (any failure raises and exits non-zero):
   1. the card's name and power limit (nvidia-smi), then the build of the
      kernels from the checkout, one nvcc per source, started together: the
-     fused ADMM chunk (K1, csrc/nsfused.cu), the Thomas solves (K2 and
+     fused ADMM chunk (K1, csrc/nsfused.cu) and its stacked form
+     (csrc/nsfused_stack.cu), the Thomas solves (K2 and
      K3a/K3b, csrc/thomas.cu), the pivot stream (T4,
      csrc/thomas_stream.cu) and the probes (T2 csrc/thomas_prim.cu, T3
      csrc/thomas_probe.cu, T1 csrc/nsfused_probe.cu, T5
@@ -155,16 +156,21 @@ Phases (any failure raises and exits non-zero):
      MC_PIPE_TOL of the two-phase ones, safety ratio >= 1 - 1e-3, and the
      control points within phase 18's cg bar of a float64 run on the
      card; the knot-state Jacobi sweep (16 groups of 4, two rounds)
-     banded in float32 (K1 a group a chunk, no twin) and dense in float64
-     (no kernel), each time-scaled plan held to
-     tests/test_pipeline.py:_check but for its safety ratio, which is
-     printed beside the JAX package's (below 1 there too:
+     banded in float32 (a chunk one launch of the stacked kernel for the
+     running groups: at most 60 launches, no per-problem K1, no twin) and dense in float64 (no kernel), each time-scaled plan
+     held to tests/test_pipeline.py:_check but for its safety ratio,
+     which is printed beside the JAX package's (below 1 there too:
      JAX_CPU_JACOBI64) and held to it in float64, and in float32 to the
-     card's float32 twin sweep (CARD_TWIN_JACOBI_F32); K1 at one group's
-     shapes against its twins (phase 2's rule) and timed; the banded
-     sweep at a short schedule, and group 0's first round at the sweep's
-     own, through K1 and its float32 twin, held to K1's tolerance against
-     a float64 twin's; plan() with per-phase
+     card's float32 twin sweep (CARD_TWIN_JACOBI_F32); the stacked kernel
+     on the 16 groups' own operands at rung 0, the last rung and mixed
+     rungs against its twins (phase 2's rule, each group and state part)
+     and no less accurate than per-problem K1 on the same chunks
+     and bit-equal to each group launched alone, one launch timed against
+     16 per-problem K1 launches of the same chunk; the banded sweep at a
+     short schedule, and group 0's first round at the sweep's own,
+     through the stacked kernel and with the float32 twins in the
+     kernels' places (stack launches 0 there, twin calls above 0), held
+     to K1's tolerance against a float64 twin's; plan() with per-phase
      production phases (restore tightened by RESTORE_TIGHTEN) through K1
      with the full oracle gate, its margin beside phase 19's; the sweep
      CLI (``python -m swarm_simulator_tpu_torch.cli.sweep``, two
@@ -195,8 +201,8 @@ The host's OpenBLAS runs one thread unless the caller set
 OPENBLAS_NUM_THREADS.  The line before the last is the kernels' JSON record (each kernel's
 launches on its own path, errors, times of kernel and plain twin, and its
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
-card's peak for their type, 67 TFLOP/s float32 or 989 TFLOP/s bf16 on the
-tensor cores; the library time is that of the one PyTorch call computing
+card's peak for their type, 67 TFLOP/s float32, 34 TFLOP/s float64 or
+989 TFLOP/s bf16 on the tensor cores; the library time is that of the one PyTorch call computing
 the same function, where there is one); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card the script exits
 non-zero and prints no result.
@@ -442,23 +448,28 @@ def chunk_vs_twins(data, op, s, dev, label: str, rungs=None) -> dict:
         check(v <= 1.0, f"{label}{name}: the kernel is less accurate than "
               f"the float32 twin allows ({v:.2f} of the tolerance)")
     worst = {key: max(max(e) for e in rows) for key, rows in errs.items()}
-    # the bound of one chunk: one rung of pivots and every other operand
-    # read once, the state written once; the operations are the chunk's
-    # dominant terms per iteration (the 2Mi-1 pivot matvecs, the two
-    # N / N^T maps, the two pair applies A x and A^T y)
-    d = ops32.dims
+    return dict(worst=worst, use=max(use.values()), max_abs_err=max_abs,
+                ms=float(np.median(k_ms)), plain_ms=float(np.median(t_ms)),
+                bound=bound(*chunk_work(ops32, st32)))
+
+
+def chunk_work(ops, state) -> tuple[int, int]:
+    """(bytes, operations) of one N_INNER chunk of a problem: one rung of
+    pivots and every other operand read once, the state (w, z, y) read
+    and written once; the operations are the chunk's dominant terms per
+    iteration (the 2Mi-1 pivot matvecs, the two N / N^T maps, the two
+    pair applies A x and A^T y)."""
+    d = ops.dims
     nbytes = (d["Mi"] * d["bs"] ** 2 * 4
-              + sum(t.numel() * t.element_size() for t in ops32
-                    if isinstance(t, torch.Tensor) and t is not ops32.dinv)
+              + sum(t.numel() * t.element_size() for t in ops
+                    if isinstance(t, torch.Tensor) and t is not ops.dinv)
               + 2 * sum(t.numel() * t.element_size()
-                        for t in (st32[0], *st32[1], *st32[2])))
+                        for t in (state[0], *state[1], *state[2])))
     nw = d["Mi"] * d["phi"]
     flops = N_INNER * ((2 * d["Mi"] - 1) * 2 * d["bs"] ** 2
                        + 2 * 2 * d["B3"] * d["D"] * nw
                        + 2 * 4 * d["P"] * 3 * d["D"])
-    return dict(worst=worst, use=max(use.values()), max_abs_err=max_abs,
-                ms=float(np.median(k_ms)), plain_ms=float(np.median(t_ms)),
-                bound=bound(nbytes, flops))
+    return nbytes, flops
 
 
 def solve_kernel_vs_twin(data, op, dev):
@@ -612,7 +623,9 @@ def _counters() -> dict:
                 t1p4=(npb.p4_resident_thomas, "launches"),
                 t1p4r=(npb.p4_relayout, "launches"),
                 t5=(rp.row_pattern, "launches"),
+                kstack=(nsfused.nsfused_stack, "launches"),
                 twin1=(nsfused.nsfused_chunk_reference, "cuda_calls"),
+                twinstack=(nsfused.nsfused_stack_reference, "cuda_calls"),
                 twin2=(thomas.thomas_solve_reference, "cuda_calls"),
                 twin3a=(thomas.thomas_chunk_fwd_reference, "cuda_calls"),
                 twin3b=(thomas.thomas_chunk_bwd_reference, "cuda_calls"))
@@ -627,7 +640,7 @@ def read_counts() -> dict:
     return {k: getattr(f, attr) for k, (f, attr) in _counters().items()}
 
 
-TWINS = ("twin1", "twin2", "twin3a", "twin3b")
+TWINS = ("twin1", "twin2", "twin3a", "twin3b", "twinstack")
 
 
 def gate(result, mission, param, dev, label: str, obj_ref=None,
@@ -2008,15 +2021,17 @@ def jacobi_stack(plan, mission, param):
 def jacobi_knot_state(plan, mission, param, dev) -> dict:
     """Phase 20, the knot-state Jacobi sweep (mesh.jacobi_sweep) of the
     64-agent forest's 16 groups of 4, two rounds, in both KKT modes:
-    banded in float32 (each chunk one K1 launch a group) and dense in
-    float64 (no kernel, no float32 rounding to amplify), each plan
-    time-scaled and held to tests/test_pipeline.py:_check as
-    JAX_CPU_JACOBI64 says, the float32 ratio to CARD_TWIN_JACOBI_F32; K1
-    at one group's shapes against its twins (K1's tolerance, phase 2's
-    rule) and timed; then the banded sweep at the short schedule
-    JACOBI_CMP_ITERS, and group 0's first round at the sweep's own,
-    through K1, the float32 twin and a float64 twin in K1's place, the
-    kernel's run held to K1's tolerance against the float64 twin's."""
+    banded in float32 (each chunk one launch of the stacked kernel for the
+    running groups, no per-problem K1) and dense in float64 (no kernel, no
+    float32 rounding to amplify), each plan time-scaled and held to
+    tests/test_pipeline.py:_check as JAX_CPU_JACOBI64 says, the float32
+    ratio to CARD_TWIN_JACOBI_F32; the stacked kernel on the 16 groups'
+    own operands against its twins and against itself alone, timed
+    beside 16 per-problem K1 launches (stack_vs_twins); then the banded
+    sweep at the short schedule JACOBI_CMP_ITERS, and group 0's first
+    round at the sweep's own, through the stacked kernel, the float32
+    twin and a float64 twin in its place, the kernel's run held to K1's
+    tolerance against the float64 twin's."""
     from unittest import mock
 
     from swarm_simulator_tpu_torch.ops import nsfused, thomas
@@ -2048,8 +2063,9 @@ def jacobi_knot_state(plan, mission, param, dev) -> dict:
                          ctrl.double().cpu().numpy(), dev)
         ref = JAX_CPU_JACOBI64[mode, np.dtype(dtype).name]
         log(f"{label}: 2 rounds {secs:.3f} s, last round iters "
-            f"{info.iters.tolist()}, K1 launches {counts['k1']}, twin "
-            f"calls on CUDA {counts['twin1']}; evaluate (time-scaled): "
+            f"{info.iters.tolist()}, stack launches {counts['kstack']}, K1 "
+            f"launches {counts['k1']}, twin calls on CUDA "
+            f"{sum(counts[t] for t in TWINS)}; evaluate (time-scaled): "
             + json.dumps(m) + f"; the JAX package's ratio (CPU) {ref}")
         accept_plan(label, m, ratio=False)
         if dtype == np.float64:
@@ -2065,8 +2081,14 @@ def jacobi_knot_state(plan, mission, param, dev) -> dict:
                   f"{JACOBI_F32_RATIO_TOL} of the float32 twin's sweep on "
                   f"the card, {CARD_TWIN_JACOBI_F32}")
         if mode == "banded":
-            check(counts["k1"] > 0, "the banded Jacobi sweep launched K1 "
-                  "0 times")
+            # two rounds of at most max_iter / check_every chunks, each
+            # one launch for the running groups
+            most = 2 * -(-s.max_iter // s.check_every)
+            check(0 < counts["kstack"] <= most,
+                  f"the banded Jacobi sweep launched the stacked kernel "
+                  f"{counts['kstack']} times (1 to {most})")
+            check(counts["k1"] == 0, f"the banded Jacobi sweep launched "
+                  f"per-problem K1 {counts['k1']} times")
             check(all(counts[t] == 0 for t in TWINS),
                   f"the banded Jacobi sweep ran a twin on CUDA ({counts})")
         else:
@@ -2075,55 +2097,191 @@ def jacobi_knot_state(plan, mission, param, dev) -> dict:
         out[mode, np.dtype(dtype).name] = dict(s=secs, counts=counts,
                                                metrics=m)
 
-    # K1 at one group's shapes, on its host-prep operator
     s = ns.NSSettings(kkt_mode="banded", tighten=JACOBI_TIGHTEN)
-    g0 = dataclasses.replace(stacked, **{
-        f.name: np.asarray(getattr(stacked, f.name))[0]
-        for f in dataclasses.fields(stacked)
-        if getattr(stacked, f.name) is not None})
-    grp = chunk_vs_twins(g0, ns.prepare_ns_np(g0, s), s, dev, "K1 group: ")
-    log(f"K1 on one group of 4 (bs {3 * 4 * param.phi}): median chunk "
-        f"kernel {grp['ms']:.4f} ms, twin {grp['plain_ms']:.3f} ms, bound "
-        f"{grp['bound'][0]:.5f} ms ({grp['bound'][1]}); banded sweep "
-        f"{out['banded', 'float32']['counts']['k1']} launches")
+    out["stack"] = stack_vs_twins(stacked, s, dev)
 
-    # through K1, the float32 twin and a float64 twin in K1's place: the
-    # whole sweep at the short schedule, then the first round of group 0
-    # (its agents' rows) at the sweep's own (max_iter, 30 chunks)
-    def through_k1_and_twins(label, data, rows, **kw):
+    # through the stacked kernel, the float32 twin and a float64 twin in
+    # its place (and in K1's, which the sweep must not reach): the whole
+    # sweep at the short schedule, then the first round of group 0 (its
+    # agents' rows) at the sweep's own (max_iter, 30 chunks)
+    # the counters of the functions themselves, not of the names the
+    # patches below rebind
+    counted = dict(kstack=(nsfused.nsfused_stack, "launches"),
+                   k1=(nsfused.nsfused_chunk, "launches"),
+                   twinstack=(nsfused.nsfused_stack_reference, "cuda_calls"))
+
+    def through_kernel_and_twins(label, data, rows, **kw):
         def sweep(dtype):
+            before = {k: getattr(f, a) for k, (f, a) in counted.items()}
             t0 = time.perf_counter()
             c, _ = mesh.jacobi_sweep(cast(data, dtype), dummy.astype(dtype),
                                      s, device=dev, **kw)
             c = c[rows].double()
-            return c, time.perf_counter() - t0
+            return c, time.perf_counter() - t0, {
+                k: getattr(f, a) - before[k] for k, (f, a) in counted.items()}
 
-        (ck, sk) = sweep(np.float32)
+        (ck, sk, nk) = sweep(np.float32)
+        check(nk["kstack"] > 0 and nk["k1"] == 0 and nk["twinstack"] == 0,
+              f"{label}: the kernel run's counts {nk}")
         with mock.patch.object(nsfused, "nsfused_chunk",
-                               nsfused.nsfused_chunk_reference):
-            (ct, st), (c64, s64) = sweep(np.float32), sweep(np.float64)
+                               nsfused.nsfused_chunk_reference), \
+                mock.patch.object(nsfused, "nsfused_stack",
+                                  nsfused.nsfused_stack_reference):
+            (ct, st, nt), (c64, s64, _) = sweep(np.float32), \
+                sweep(np.float64)
+        check(nt["kstack"] == 0 and nt["k1"] == 0 and nt["twinstack"] > 0,
+              f"{label}: the float32 twin run's counts {nt}")
         ek, et = thomas.rel_error(ck, c64), thomas.rel_error(ct, c64)
         use = thomas.twin_gap_use([ek], [et])
         log(f"{label}: ctrl rel err kernel vs float64 twin {ek:.3e}, "
             f"float32 twin vs float64 twin {et:.3e}, kernel vs float32 twin "
             f"{thomas.rel_error(ck, ct):.3e}; tolerance used {use:.2f}; "
-            f"seconds kernel {sk:.2f}, twins {st:.2f} and {s64:.2f}")
-        check(use <= 1.0, f"{label} through K1 is less accurate than the "
-              f"float32 twin's allows ({use:.2f} of the tolerance)")
+            f"seconds kernel {sk:.2f}, twins {st:.2f} and {s64:.2f}; "
+            f"stack launches {nk['kstack']}, twin stack calls on CUDA "
+            f"{nt['twinstack']}")
+        check(use <= 1.0, f"{label} through the stacked kernel is less "
+              f"accurate than the float32 twin allows ({use:.2f} of the "
+              "tolerance)")
         return use
 
-    out["short_use"] = through_k1_and_twins(
+    out["short_use"] = through_kernel_and_twins(
         f"jacobi banded sweep at {JACOBI_CMP_ITERS}", stacked,
         slice(None), rounds=2, iters_schedule=JACOBI_CMP_ITERS)
     sub = dataclasses.replace(stacked, **{
         f.name: np.asarray(getattr(stacked, f.name))[:1]
         for f in dataclasses.fields(stacked)
         if getattr(stacked, f.name) is not None})
-    out["full_use"] = through_k1_and_twins(
+    out["full_use"] = through_kernel_and_twins(
         f"jacobi banded first round of group 0 at max_iter {s.max_iter}",
         sub, np.asarray(sub.agents)[0], rounds=1)
-    out["group"] = grp
     return out
+
+
+def stack_vs_twins(stacked, s, dev) -> dict:
+    """Phase 20, the stacked kernel on the 16 groups' own operands (each
+    group's host prep, cold state): one N_INNER chunk of every group at
+    rung 0, at the last rung and with group g on rung g mod R (one launch
+    each), through the kernel, the float32 twin and a float64 twin; each
+    group's error on each state part over the three held to
+    ops/nsfused.twin_gap_use (phase 2's rule), and each part's worst share
+    no larger than per-problem K1's on the same chunks (the float64 state
+    is there to be more accurate than K1 at a group's size);
+    each group's result bit-equal to the kernel on that group alone; then
+    CUDA events time one launch for the 16 groups against the 16
+    per-problem K1 launches of the same chunk and the float32 twin,
+    beside the stack's bound (each group's chunk_work summed)."""
+    from swarm_simulator_tpu_torch.ops import nsfused
+    from swarm_simulator_tpu_torch.qp import nullspace as ns
+    from swarm_simulator_tpu_torch.tools._timing import event_ms
+
+    G = np.asarray(stacked.lb).shape[0]
+    groups = [dataclasses.replace(stacked, **{
+        f.name: np.asarray(getattr(stacked, f.name))[g]
+        for f in dataclasses.fields(stacked)
+        if getattr(stacked, f.name) is not None}) for g in range(G)]
+    t0 = time.perf_counter()
+    ops_h = [ns.prepare_ns_np(g, s) for g in groups]
+    prep_s = time.perf_counter() - t0
+    R = ops_h[0].Dinvs.shape[0]
+    inputs = {}
+    for dtype in (torch.float32, torch.float64):
+        prep = [ns.cold_chunk_inputs(*on_device(g, op, dev, dtype), s)
+                for g, op in zip(groups, ops_h)]
+        inputs[dtype] = (nsfused.stack_operands([p[0] for p in prep]),
+                         [p[0] for p in prep],
+                         *(list(v) for v in zip(*(p[1] for p in prep))))
+    sops, ops32, w, z, y = inputs[torch.float32]
+    sops64, _, w64, z64, y64 = inputs[torch.float64]
+    every = list(range(G))
+    errs = {k: [[] for _ in every] for k in ("k64", "t64", "K1")}
+    scale = [0.0] * G
+    max_abs, n_alone = 0.0, 0
+    for name, rungs in (("rung 0", [0] * G), (f"rung {R - 1}", [R - 1] * G),
+                        ("rung g mod R", [g % R for g in every])):
+        args = (s.sigma, s.alpha)
+        kern = nsfused.nsfused_stack(sops, every, rungs, *args, w, z, y,
+                                     N_INNER)
+        twin = nsfused.nsfused_stack_reference(sops, every, rungs, *args,
+                                               w, z, y, N_INNER)
+        twin64 = nsfused.nsfused_stack_reference(sops64, every, rungs, *args,
+                                                 w64, z64, y64, N_INNER)
+        torch.cuda.synchronize()
+        for g in every:
+            kg = (kern[0][g], kern[1][g], kern[2][g])
+            tg = (twin[0][g], twin[1][g], twin[2][g])
+            t64 = (twin64[0][g], twin64[1][g], twin64[2][g])
+            for a, b in zip((kg[0], *kg[1], *kg[2]), (tg[0], *tg[1], *tg[2])):
+                check(bool(torch.isfinite(a).all()),
+                      f"stack {name}: group {g} not finite")
+                max_abs = max(max_abs, float((a - b).abs().max()))
+            errs["k64"][g].append(nsfused.state_errors(kg, t64))
+            errs["t64"][g].append(nsfused.state_errors(tg, t64))
+            # per-problem K1 on the same chunk, under the same rule
+            errs["K1"][g].append(nsfused.state_errors(nsfused.nsfused_chunk(
+                ops32[g], rungs[g], *args, w[g], z[g], y[g], N_INNER), t64))
+            scale[g] = max(scale[g], float(t64[2].box.abs().max()))
+            alone = nsfused.nsfused_stack(
+                nsfused.stack_operands([ops32[g]]), [0], rungs[g:g + 1],
+                *args, w[g:g + 1], z[g:g + 1], y[g:g + 1], N_INNER)
+            n_alone += 1
+            for a, b in zip((kg[0], *kg[1], *kg[2]),
+                            (alone[0][0], *alone[1][0], *alone[2][0])):
+                check(torch.equal(a, b), f"stack {name}: group {g} differs "
+                      "from the kernel on that group alone")
+    use = [nsfused.twin_gap_use(errs["k64"][g], errs["t64"][g])
+           for g in every]
+    k1_use = [nsfused.twin_gap_use(errs["K1"][g], errs["t64"][g])
+              for g in every]
+    for g in every:
+        log(f"stack group {g}: max |y_box| {scale[g]:.3e}; share of the "
+            "tolerance per part, stack / per-problem K1: " + " ".join(
+                f"{p} {use[g][p]:.2f}/{k1_use[g][p]:.2f}"
+                for p in nsfused.STATE_PARTS)
+            + "; worst rel err vs float64 twin over the runs, stack / K1 "
+            "/ float32 twin: " + " ".join(
+                f"{p} " + "/".join(f"{max(e[i] for e in errs[k][g]):.1e}"
+                                   for k in ("k64", "K1", "t64"))
+                for i, p in enumerate(nsfused.STATE_PARTS)))
+    worst = {p: max(u[p] for u in use) for p in nsfused.STATE_PARTS}
+    k1_worst = {p: max(u[p] for u in k1_use) for p in nsfused.STATE_PARTS}
+    log(f"stack of {G} groups (bs {sops.dims['bs']}, Mi {sops.dims['Mi']}, "
+        f"P {sops.dims['P']}, a rung {4 * sops.dims['rung']} bytes; host "
+        f"preps {prep_s:.3f} s): the worst group's share of the tolerance "
+        "per part (limit 1), stack / per-problem K1: " + " ".join(
+            f"{p} {v:.2f}/{k1_worst[p]:.2f}" for p, v in worst.items())
+        + f"; max abs err vs float32 twin {max_abs:.3e}; {n_alone} groups "
+        "alone bit-equal to the stack")
+    for p, v in worst.items():
+        check(v <= 1.0, f"stack {p}: a group is less accurate than the "
+              f"float32 twin allows ({v:.2f} of the tolerance)")
+        check(v <= k1_worst[p], f"stack {p}: less accurate than "
+              f"per-problem K1 on the same chunks ({v:.2f} against "
+              f"{k1_worst[p]:.2f} of the tolerance)")
+
+    a = (every, [0] * G, s.sigma, s.alpha, w, z, y, N_INNER)
+    reset_counts()
+    ms = event_ms(lambda: nsfused.nsfused_stack(sops, *a), 5)
+    k1_ms = event_ms(lambda: [nsfused.nsfused_chunk(
+        ops32[g], 0, s.sigma, s.alpha, w[g], z[g], y[g], N_INNER)
+        for g in every], 3)
+    plain_ms = event_ms(lambda: nsfused.nsfused_stack_reference(sops, *a),
+                        1, warmup=0)
+    counts = read_counts()
+    check(counts["kstack"] == 6 and counts["k1"] == 4 * G,
+          f"stack timing: launches {counts}")
+    work = [chunk_work(o, (wg, zg, yg))
+            for o, wg, zg, yg in zip(ops32, w, z, y)]
+    # at the function's type, float32 (the float64 state inside the
+    # block is the kernel's own choice)
+    bnd = bound(sum(b for b, _ in work), sum(f for _, f in work))
+    log(f"stack of {G} groups, one N_INNER={N_INNER} chunk at rung 0: one "
+        f"stack launch median {np.median(ms):.4f} ms, {G} per-problem K1 "
+        f"launches {np.median(k1_ms):.4f} ms ({np.median(k1_ms) / G:.4f} ms "
+        f"each), the float32 twin {plain_ms[0]:.3f} ms; the stack's bound "
+        f"{bnd[0]:.5f} ms ({bnd[1]})")
+    return dict(use=max(worst.values()), max_abs_err=max_abs,
+                ms=float(np.median(ms)), k1_ms=float(np.median(k1_ms)),
+                plain_ms=float(plain_ms[0]), bound=bnd)
 
 
 def per_phase_joint(port, phase19, dev) -> dict:
@@ -2723,9 +2881,9 @@ def main() -> int:
     log(f"host BLAS threads: {blas_threads()}")
 
     t0 = time.perf_counter()
-    built = _build.build("nsfused", "thomas", "thomas_stream", "thomas_prim",
-                         "thomas_probe", "nsfused_probe", "row_patterns",
-                         verbose=True)
+    built = _build.build("nsfused", "nsfused_stack", "thomas",
+                         "thomas_stream", "thomas_prim", "thomas_probe",
+                         "nsfused_probe", "row_patterns", verbose=True)
     log(f"kernel builds (parallel): {time.perf_counter() - t0:.2f} s")
     for name, (path, build_s, ptxas) in built.items():
         log(f"  {name}: {build_s:.2f} s -> {path.name}")
@@ -2872,12 +3030,11 @@ def main() -> int:
         entry("nsfused_chunk", "nsfused.cu",
               "swarm_simulator_tpu/ops/pallas_nsfused.py:506", launches,
               k1["max_abs_err"], k1["ms"], k1["plain_ms"], k1["bound"]),
-        entry("nsfused_chunk_jacobi_group", "nsfused.cu",
+        entry("nsfused_stack", "nsfused_stack.cu",
               "swarm_simulator_tpu/ops/pallas_nsfused.py:506",
-              jac["banded", "float32"]["counts"]["k1"],
-              jac["group"]["max_abs_err"],
-              jac["group"]["ms"], jac["group"]["plain_ms"],
-              jac["group"]["bound"]),
+              jac["banded", "float32"]["counts"]["kstack"],
+              jac["stack"]["max_abs_err"], jac["stack"]["ms"],
+              jac["stack"]["plain_ms"], jac["stack"]["bound"]),
         entry("nsfused_chunk_aa", "nsfused.cu",
               "swarm_simulator_tpu/ops/pallas_nsfused.py:506",
               aa["aa"]["counts"]["k1"], aa["max_abs_err"], k1["ms"],

@@ -63,18 +63,20 @@ def build(*names: str, verbose: bool = False) -> dict[str, tuple]:
         return {n: f.result() for n, f in futs.items()}
 
 
-def check_operands(fname: str, named) -> None:
+def check_operands(fname: str, named, dtype=None) -> None:
     """Raise ValueError unless every (name, tensor, shape) of ``named`` is
-    a contiguous CUDA float32 tensor of that shape."""
+    a contiguous CUDA tensor of that shape and ``dtype`` (None:
+    torch.float32)."""
     import torch
 
+    dtype = torch.float32 if dtype is None else dtype
     for name, t, shape in named:
         if t.device.type != "cuda":
             raise ValueError(f"{fname}: {name} is on {t.device}, expected a "
                              "CUDA tensor")
-        if t.dtype != torch.float32:
+        if t.dtype != dtype:
             raise ValueError(f"{fname}: {name} has dtype {t.dtype}, "
-                             "expected torch.float32")
+                             f"expected {dtype}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{fname}: {name} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")

@@ -373,3 +373,239 @@ def nsfused_chunk(ops: FusedOperands, rho_idx: int, sigma: float,
 
 
 nsfused_chunk.launches = 0
+
+
+# ---- the stack axis: one launch of K1's stacked form for many problems ----
+
+class StackOperands(NamedTuple):
+    """The FusedOperands of a stack of problems of one shape, stacked once
+    per solve for the stacked kernel (csrc/nsfused_stack.cu).  An entry's
+    pair list has its own length (padded pairs carry no list entries), so
+    the lists are concatenated and ``aoff`` holds each entry's offset."""
+    entries: tuple        # the entries' FusedOperands (the plain twin's)
+    dinv: torch.Tensor    # [L, R, rung] each rung flat, padded to `rung`
+    ho: torch.Tensor      # [L, Mi-1, phi, phi]
+    lmap: torch.Tensor    # [L, M, phi, phi]
+    rmap: torch.Tensor    # [L, M, phi, phi]
+    xpin: torch.Tensor    # [L, B3, D]
+    g: torch.Tensor       # [L, Mi, bs]
+    lb: torch.Tensor      # [L, B3, D]
+    ub: torch.Tensor      # [L, B3, D]
+    pl: torch.Tensor      # [L, P, D]
+    pnm: torch.Tensor     # [L, P, M, 3]
+    pi: torch.Tensor      # [L, P] int32
+    pj: torch.Tensor      # [L, P] int32
+    ci: torch.Tensor      # [L, P]
+    cj: torch.Tensor      # [L, P]
+    aptr: torch.Tensor    # [L, B+1] int32, within the entry's own list
+    aoff: torch.Tensor    # [L] int32 the entry's first list entry
+    apair: torch.Tensor   # [nnz of all entries] int32
+    acoef: torch.Tensor   # [nnz of all entries] float32
+    ladders: np.ndarray   # [L, R] float32 host copy of each entry's rungs
+    dims: dict            # the entries' common dims, and "rung"
+
+
+#: csrc/nsfused_stack.cu: bytes before the rung in shared memory (its
+#: mbarrier, 16-byte padded)
+STACK_BAR_BYTES = 16
+
+
+def rung_floats(M: int, B: int, phi: int = 3) -> int:
+    """Floats of one flat rung [Mi, bs, bs] padded to a multiple of 4, so
+    that every rung of a stacked inventory starts on 16 bytes (one bulk
+    copy moves it whole)."""
+    bs = 3 * B * phi
+    return -(-(M - 1) * bs * bs // 4) * 4
+
+
+def stack_smem_bytes(B: int, M: int, phi: int = 3) -> int:
+    """Shared memory of one block of the stacked kernel: its barrier, the
+    active rung (float32), the right-hand sides and the Thomas rows ([Mi,
+    bs] each) and the chain's vector [bs] (float64)."""
+    bs, Mi = 3 * B * phi, M - 1
+    return (STACK_BAR_BYTES + 4 * rung_floats(M, B, phi)
+            + 8 * (2 * Mi * bs + bs))
+
+
+def stack_fits(B: int, M: int, P: int, limits, phi: int = 3) -> bool:
+    """Whether the stacked kernel holds an entry of B agents, M segments
+    and P pairs on a card of ``limits`` (CardLimits, or a CUDA device):
+    the knot-state width, an interior knot, the rung plus the block's
+    vectors (stack_smem_bytes) within the block's opt-in shared memory,
+    and 32-bit indices within an entry.  At M = 36 on an H100 groups of 4
+    fit (bs 36: a 181,440-byte rung) and groups of 8 do not (bs 72:
+    725,760 bytes)."""
+    if not isinstance(limits, CardLimits):
+        limits = card_limits(limits)
+    if not (1 <= phi <= MAX_PHI and M >= 2):
+        return False
+    bs, D = 3 * B * phi, M * 2 * phi
+    return (stack_smem_bytes(B, M, phi) <= limits.smem_optin
+            and max((M - 1) * bs * bs, 3 * B * D, P * D, 2 * P)
+            < INDEX_LIMIT)
+
+
+def stack_operands(entries) -> StackOperands:
+    """Stack the FusedOperands of problems of one shape (ValueError
+    otherwise) for nsfused_stack."""
+    entries = tuple(entries)
+    d = entries[0].dims
+    for e in entries[1:]:
+        if e.dims != d:
+            raise ValueError(f"stack_operands: an entry of dims {e.dims} "
+                             f"in a stack of {d}")
+    rung = rung_floats(d["M"], d["B"], d["phi"])
+    flat = d["Mi"] * d["bs"] ** 2
+    dinv = entries[0].dinv.new_zeros((len(entries), d["R"], rung))
+    for i, e in enumerate(entries):
+        dinv[i, :, :flat] = e.dinv.reshape(d["R"], flat)
+    nnz = [int(e.apair.shape[0]) for e in entries]
+    dev = dinv.device
+
+    def stk(name):
+        return torch.stack([getattr(e, name) for e in entries]).contiguous()
+
+    return StackOperands(
+        entries=entries, dinv=dinv,
+        **{k: stk(k) for k in ("ho", "lmap", "rmap", "xpin", "g", "lb",
+                               "ub", "pl", "pnm", "pi", "pj", "ci", "cj",
+                               "aptr")},
+        aoff=torch.as_tensor(np.cumsum([0] + nnz[:-1]), dtype=torch.int32,
+                             device=dev),
+        apair=torch.cat([e.apair for e in entries]),
+        acoef=torch.cat([e.acoef for e in entries]),
+        ladders=np.stack([e.ladder for e in entries]),
+        dims=dict(d, rung=rung))
+
+
+def nsfused_stack_reference(ops: StackOperands, active, rho_idx, sigma: float,
+                            alpha: float, w, z, y, n_inner: int):
+    """Plain twin of nsfused_stack: nsfused_chunk_reference on each active
+    entry with its own rung; the other entries are passed through."""
+    if w[active[0]].is_cuda:
+        nsfused_stack_reference.cuda_calls += 1
+    w, z, y = list(w), list(z), list(y)
+    for i in active:
+        w[i], z[i], y[i] = nsfused_chunk_reference(
+            ops.entries[i], rho_idx[i], sigma, alpha, w[i], z[i], y[i],
+            n_inner)
+    return w, z, y
+
+
+nsfused_stack_reference.cuda_calls = 0
+
+
+def _declare_stack(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.nsfused_stack.restype = ci
+    lib.nsfused_stack.argtypes = ([vp] * 28 + [ci] * 8
+                                  + [ctypes.c_double] * 2 + [vp])
+    lib.nsfused_stack_error_string.restype = ctypes.c_char_p
+    lib.nsfused_stack_error_string.argtypes = [ci]
+
+
+def nsfused_stack(ops: StackOperands, active, rho_idx, sigma: float,
+                  alpha: float, w, z, y, n_inner: int):
+    """``n_inner`` knot-state ADMM iterations of each ``active`` entry of a
+    stack, each at its own rung ``rho_idx[i]`` (one rung an entry of the
+    stack); the other entries are frozen.
+
+    w, z, y: one state an entry (w [B, 3, nw], z/y NSConstr(box [B, 3, D],
+    pair [P, D])).  CUDA float32 tensors launch the stacked kernel once
+    (a block an active entry; the active states widened to float64 for
+    the chunk and rounded back to float32 after it, csrc/nsfused_stack.cu
+    says why); CPU tensors run the plain twin; anything else raises.
+    Returns new lists (w, z, y), the frozen entries' states passed
+    through."""
+    active = [int(i) for i in active]
+    if not active:
+        raise ValueError("nsfused_stack: no active entry")
+    refuse_bf16(ops.entries[0].op.Dinvs)
+    if w[active[0]].device.type == "cpu":
+        return nsfused_stack_reference(ops, active, rho_idx, sigma, alpha,
+                                       w, z, y, n_inner)
+    from ..qp.nullspace import NSConstr
+
+    d = ops.dims
+    B, K3, D, M, P = d["B"], d["K3"], d["D"], d["M"], d["P"]
+    Mi, phi, B3, bs, R = d["Mi"], d["phi"], d["B3"], d["bs"], d["R"]
+    L, n = len(ops.entries), len(active)
+    if K3 != 3 or d["npp"] != 2 * phi:
+        raise ValueError(f"nsfused_stack: unsupported dims {d}")
+    for i in active:
+        if not 0 <= i < L:
+            raise ValueError(f"nsfused_stack: entry {i} outside [0, {L})")
+        if not 0 <= rho_idx[i] < R:
+            raise ValueError(f"nsfused_stack: entry {i}'s rung "
+                             f"{rho_idx[i]} outside [0, {R})")
+    dev = w[active[0]].device
+    w_st = torch.stack([w[i] for i in active])
+    # [n, B, K3, nw] -> knot-major rows [n, Mi, bs] (rows_from_state)
+    w_rows = (w_st.reshape(n, B3, Mi, phi).permute(0, 2, 1, 3)
+              .reshape(n, Mi, bs).contiguous())
+    zb = torch.stack([z[i].box for i in active]).reshape(n, B3, D)
+    yb = torch.stack([y[i].box for i in active]).reshape(n, B3, D)
+    zp = torch.stack([z[i].pair for i in active])
+    yp = torch.stack([y[i].pair for i in active])
+    named = [("w", w_rows, (n, Mi, bs)), ("z.box", zb, (n, B3, D)),
+             ("y.box", yb, (n, B3, D)), ("z.pair", zp, (n, P, D)),
+             ("y.pair", yp, (n, P, D)),
+             ("dinv", ops.dinv, (L, R, d["rung"])),
+             ("ho", ops.ho, (L, Mi - 1, phi, phi)),
+             ("lmap", ops.lmap, (L, M, phi, phi)),
+             ("rmap", ops.rmap, (L, M, phi, phi)),
+             ("xpin", ops.xpin, (L, B3, D)), ("g", ops.g, (L, Mi, bs)),
+             ("lb", ops.lb, (L, B3, D)), ("ub", ops.ub, (L, B3, D)),
+             ("pl", ops.pl, (L, P, D)), ("pnm", ops.pnm, (L, P, M, 3)),
+             ("ci", ops.ci, (L, P)), ("cj", ops.cj, (L, P)),
+             ("acoef", ops.acoef, (ops.apair.shape[0],))]
+    _build.check_operands("nsfused_stack", named)
+    _build.check_operands("nsfused_stack", (
+        ("pi", ops.pi, (L, P)), ("pj", ops.pj, (L, P)),
+        ("aptr", ops.aptr, (L, B + 1)), ("aoff", ops.aoff, (L,)),
+        ("apair", ops.apair, (ops.acoef.shape[0],))), torch.int32)
+    if not stack_fits(B, M, P, card_limits(dev), phi):
+        raise ValueError(f"nsfused_stack: an entry of {B} agents, M = {M}, "
+                         f"{P} pairs does not fit a block of the card; "
+                         "route the stack by qp/nullspace.stack_route")
+    # a block's entry, rung and rho (its float32 bits), one copy
+    rho = np.asarray([ops.ladders[i][rho_idx[i]] for i in active],
+                     np.float32)
+    blk = torch.from_numpy(np.concatenate([
+        np.asarray(active, np.int32),
+        np.asarray([rho_idx[i] for i in active], np.int32),
+        rho.view(np.int32)])).to(dev)
+    # the chunk's state in float64, in place (csrc/nsfused_stack.cu)
+    f64 = torch.float64
+    w_rows, zb, yb, zp, yp = (t.to(f64) for t in (w_rows, zb, yb, zp, yp))
+    at = torch.empty_like(zb)
+    xt = torch.empty_like(zb)
+    lib = _build.load("nsfused_stack", _declare_stack)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    err = lib.nsfused_stack(
+        ptr(ops.dinv), ptr(ops.ho), ptr(ops.lmap), ptr(ops.rmap),
+        ptr(ops.xpin), ptr(ops.g), ptr(ops.lb), ptr(ops.ub), ptr(ops.pl),
+        ptr(ops.pnm), ptr(ops.pi), ptr(ops.pj), ptr(ops.ci), ptr(ops.cj),
+        ptr(ops.aptr), ptr(ops.aoff), ptr(ops.apair), ptr(ops.acoef),
+        ptr(blk), ptr(blk[n:]), ptr(blk[2 * n:]),
+        ptr(w_rows), ptr(zb), ptr(zp), ptr(yb), ptr(yp), ptr(at), ptr(xt),
+        B, M, phi, P, int(n_inner), n, R, d["rung"], float(sigma),
+        float(alpha),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check_error("nsfused_stack", err, lib.nsfused_stack_error_string)
+    nsfused_stack.launches += 1
+    # rounded back to float32; knot-major rows back to [n, B, K3, nw]
+    # (state_from_rows)
+    f32 = torch.float32
+    w_new = (w_rows.to(f32).reshape(n, Mi, B3, phi).permute(0, 2, 1, 3)
+             .reshape(n, B, K3, Mi * phi))
+    zb, yb, zp, yp = (t.to(f32) for t in (zb, yb, zp, yp))
+    w, z, y = list(w), list(z), list(y)
+    for j, i in enumerate(active):
+        w[i] = w_new[j]
+        z[i] = NSConstr(box=zb[j].reshape(B, K3, D), pair=zp[j])
+        y[i] = NSConstr(box=yb[j].reshape(B, K3, D), pair=yp[j])
+    return w, z, y
+
+
+nsfused_stack.launches = 0

@@ -192,8 +192,10 @@ def jacobi_sweep(stacked: assemble.QPData, dummy, settings,
     (the groups' KKT operators and equilibration prepared once, every
     round rescaling the refreshed rhs and warm-starting x0, the groups
     iterated as one stack) or nullspace.NSSettings (one operator per group
-    by prepare_ns, each group solved alone: in banded mode each chunk is
-    one launch of the fused kernel K1 a group).
+    by prepare_ns, the groups iterated as one stack by
+    nullspace.iterate_ns_stack, each stopping on its own residuals: in
+    banded mode each chunk is one launch of the stacked kernel for every
+    running group, where nullspace.stack_route takes the stack route).
 
     iters_schedule: per-round max_iter, one entry a round.  carry_state
     (needs iters_schedule): carry each group's solver state (x, z, y in
@@ -289,7 +291,7 @@ def stacked_sweep(stacked: assemble.QPData, scen: torch.Tensor,
 
             ops = [nullspace.prepare_ns(pick(stacked, g), settings)
                    for g in range(G)]
-            states = [None] * G
+            states = None
         else:
             sdatas, scals, kops = admm._prepare_stack(stacked, settings,
                                                       kkt_chunk)
@@ -298,9 +300,9 @@ def stacked_sweep(stacked: assemble.QPData, scen: torch.Tensor,
             s_round = schedule(r)
             d = refresh(ext[:S * N])
             if is_ns:
-                outs = [nullspace._iterate_ns(
-                    pick(d, g), ops[g], s_round, init=states[g],
-                    return_state=True) for g in range(G)]
+                outs = nullspace.iterate_ns_stack(
+                    [pick(d, g) for g in range(G)], ops, s_round,
+                    inits=states, return_state=True)
                 xs, info = nullspace.stack_solves(outs)
                 if carry_state:
                     states = [o[2] for o in outs]

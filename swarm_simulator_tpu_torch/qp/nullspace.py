@@ -22,10 +22,13 @@ a rung), the host refresh of a replan's endpoint leaves
 (make_kinv_apply: the banded Thomas solve over ops/thomas, or the dense
 inverse's matvec), the phased schedule loop (solve_ns_schedule) and the
 per-phase loop of any other phase tuple (solve_ns_phases), with the
-chunk-level Anderson acceleration of NSSettings.aa_depth, and the
-one-problem and stacked solves (solve_single_ns, solve_ns,
-solve_ns_batched).  A chunk of check_every iterations runs one of four
-ways:
+chunk-level Anderson acceleration of NSSettings.aa_depth, the loop of a
+stack of problems (iterate_ns_stack: the JAX package's vmapped loop, its
+banded refine-0 chunks one ops/nsfused.nsfused_stack launch for the whole
+stack, by stack_route), and the one-problem and stacked solves
+(solve_single_ns, solve_ns, solve_ns_batched).  A chunk of check_every
+iterations runs one of four ways (a chunk of a stack, the first of them
+for all its running problems at once):
   banded, kkt_refine == 0  one ops/nsfused chunk (the fused kernel K1 for
                    CUDA tensors, its plain twin on the CPU);
   banded, kkt_refine == 0, thomas_kernel  check_every torch ADMM steps,
@@ -932,67 +935,62 @@ def _iterate_ns(data: QPData, op: NSOp, s: NSSettings, init=None,
     return x, info
 
 
-def phased_loop(data: QPData, op: NSOp, s: NSSettings, schedule, chunk,
-                cop: ConstrOp, l: NSConstr, u: NSConstr, cold, init=None,
-                pair_max=None):
-    """The phased schedule loop that the single-device and the sharded
-    solves share: ``chunk(w, z, y, rho_idx)`` runs check_every ADMM
-    iterations, then one host sync reads the residuals and the rung walk
-    (on the host, in the problem dtype) picks the next rung.  ``schedule``
-    None runs the one phase of ``s`` (phase_schedule), Anderson-accelerated
-    when s.aa_depth > 0 (anderson_phase).  Starts from
-    ``init`` (w, z, y, rho_idx), or without it from ``cold`` (w, z, y) at
-    the rung nearest s.rho.  ``pair_max`` maps the pair parts' maxima [k] to
-    their maxima over all ranks (a sharded solve's all_reduce MAX; None on
-    one device).  Returns (x, SolveInfo, (w, z, y, rho_idx)), iterations
-    totalled over the phases."""
-    aa = int(s.aa_depth) if schedule is None else 0
-    if schedule is None:
-        schedule = phase_schedule(op.ladder, s)
-    dt_ = data.lb.dtype
-    dev = data.lb.device
-    npf = {torch.float32: np.float32, torch.float64: np.float64}[dt_]
-    eps_abs = torch.tensor(s.eps_abs, dtype=dt_, device=dev)
-    eps_dual = torch.tensor(
-        s.eps_abs if s.eps_dual_abs is None else s.eps_dual_abs,
-        dtype=dt_, device=dev)
-    eps_rel = torch.tensor(s.eps_rel, dtype=dt_, device=dev)
+class RungWalk:
+    """One problem's termination test and rung walk, the part of the
+    schedule loop that runs after each chunk (phased_loop's, and each
+    entry's of iterate_ns_stack): the residuals on the device, then on the
+    host, in the problem dtype, the test and the next rung.  ``pair_max``
+    maps the pair parts' maxima [k] to their maxima over all ranks (a
+    sharded solve's all_reduce MAX; None on one device)."""
 
-    # the rung walk runs on the host in the problem dtype
-    ladder_h = op.ladder.detach().cpu().numpy()
-    lad_log = np.log(ladder_h)
+    def __init__(self, data: QPData, op: NSOp, s: NSSettings, cop: ConstrOp,
+                 pair_max=None):
+        self.data, self.op, self.s, self.cop = data, op, s, cop
+        self.pair_max = pair_max
+        dt_ = data.lb.dtype
+        dev = data.lb.device
+        self.npf = {torch.float32: np.float32, torch.float64: np.float64}[dt_]
+        self.eps_abs = torch.tensor(s.eps_abs, dtype=dt_, device=dev)
+        self.eps_dual = torch.tensor(
+            s.eps_abs if s.eps_dual_abs is None else s.eps_dual_abs,
+            dtype=dt_, device=dev)
+        self.eps_rel = torch.tensor(s.eps_rel, dtype=dt_, device=dev)
+        self.zero = torch.zeros((), dtype=dt_, device=dev)
+        # the rung walk runs on the host in the problem dtype
+        self.ladder_h = op.ladder.detach().cpu().numpy()
+        self.lad_log = np.log(self.ladder_h)
 
-    def nearest_rung(rho) -> int:
-        return int(np.argmin(np.abs(lad_log - np.log(npf(rho)))))
-
-    if init is None:
-        w, z, y = cold
-        rho_idx = nearest_rung(s.rho)
-    else:
+    def start(self, cold, init, l: NSConstr, u: NSConstr):
+        """(w, z, y, rho_idx): ``cold`` (w, z, y) at the rung nearest s.rho,
+        or ``init`` with z clipped to the bounds (l, u)."""
+        if init is None:
+            w, z, y = cold
+            rho = self.npf(self.s.rho)
+            return w, z, y, int(np.argmin(np.abs(self.lad_log
+                                                 - np.log(rho))))
         w, z, y, rho_idx = init
-        z = _clip(z, l, u)
+        return w, _clip(z, l, u), y, rho_idx
 
-    zero = torch.zeros((), dtype=dt_, device=dev)
-
-    def cmax(parts):
+    def _cmax(self, parts):
         # max |.| of each NSConstr: the box part whole, the pair parts
         # through one pair_max call
         def m(v):
-            return v.abs().max() if v.numel() > 0 else zero
+            return v.abs().max() if v.numel() > 0 else self.zero
         pair = torch.stack([m(c.pair) for c in parts])
-        if pair_max is not None:
-            pair = pair_max(pair)
+        if self.pair_max is not None:
+            pair = self.pair_max(pair)
         return [torch.maximum(m(c.box), p) for c, p in zip(parts, pair)]
 
-    def residuals(w, z, y):
+    def residuals(self, w, z, y):
+        op, cop = self.op, self.cop
         x = _x_of(op, w)
         ax = cop.A_x(x)
         # duals live in the cost-normalized problem: judge stationarity
         # in ORIGINAL units, (c_s Qx + A^T y) / c_s
-        px = _apply_Qseg(data.Qseg, x)
+        px = _apply_Qseg(self.data.Qseg, x)
         aty = cop.AT_x(y) / op.c_s
         grad_w = torch.einsum("da,bkd->bka", op.N, px + aty)
-        r_prim, n_ax, n_z = cmax(
+        r_prim, n_ax, n_z = self._cmax(
             [NSConstr(*(a - b for a, b in zip(ax, z))), ax, z])
         r_dual = grad_w.abs().max()
         n_prim = torch.maximum(n_ax, n_z)
@@ -1001,30 +999,66 @@ def phased_loop(data: QPData, op: NSOp, s: NSSettings, schedule, chunk,
             torch.einsum("da,bkd->bka", op.N, aty).abs().max())
         return r_prim, r_dual, n_prim, n_dual
 
-    def rho_update(rho_idx, done, r_prim, r_dual, n_prim, n_dual, lo, hi):
+    def test(self, w, z, y, extra=()) -> torch.Tensor:
+        """[r_prim, r_dual, n_prim, n_dual, converged, *extra] on the
+        device, for one host sync to read."""
+        r_prim, r_dual, n_prim, n_dual = self.residuals(w, z, y)
+        ok = ((r_prim <= self.eps_abs + self.eps_rel * n_prim)
+              & (r_dual <= self.eps_dual + self.eps_rel * n_dual))
+        return torch.stack([r_prim, r_dual, n_prim, n_dual,
+                            ok.to(r_prim.dtype), *extra])
+
+    def step(self, vals, rho_idx: int, lo: int, hi: int):
+        """(done, next rung) from test()'s values read on the host."""
+        done = bool(vals[4])
+        s, npf = self.s, self.npf
         if not s.adaptive_rho or done:
-            return rho_idx
+            return done, rho_idx
+        r_prim, r_dual, n_prim, n_dual = vals[:4]
         tiny = npf(1e-10)
-        rho_s = ladder_h[rho_idx]
+        rho_s = self.ladder_h[rho_idx]
         ratio = np.sqrt((r_prim / max(n_prim, tiny))
                         / max(r_dual / max(n_dual, tiny), tiny))
         cand = np.clip(rho_s * ratio, npf(s.rho_min), npf(s.rho_max))
         thr = npf(s.adapt_threshold)
         if not (cand > thr * rho_s or cand < rho_s / thr):
-            return rho_idx
-        return int(np.clip(np.argmin(np.abs(lad_log - np.log(cand))),
-                           lo, hi))
+            return done, rho_idx
+        return done, int(np.clip(np.argmin(np.abs(self.lad_log
+                                                  - np.log(cand))), lo, hi))
+
+    def finish(self, w, z, y, rho_idx: int, total: int):
+        """(x, SolveInfo, (w, z, y, rho_idx)) of the final state."""
+        r_prim, r_dual, _, _ = self.residuals(w, z, y)
+        x = _x_of(self.op, w)
+        obj = 0.5 * torch.sum(x * _apply_Qseg(self.data.Qseg, x))
+        info = SolveInfo(iters=total, r_prim=r_prim, r_dual=r_dual, obj=obj)
+        return x, info, (w, z, y, rho_idx)
+
+
+def phased_loop(data: QPData, op: NSOp, s: NSSettings, schedule, chunk,
+                cop: ConstrOp, l: NSConstr, u: NSConstr, cold, init=None,
+                pair_max=None):
+    """The phased schedule loop that the single-device and the sharded
+    solves share: ``chunk(w, z, y, rho_idx)`` runs check_every ADMM
+    iterations, then one host sync reads the residuals and the rung walk
+    (RungWalk, on the host) picks the next rung.  ``schedule`` None runs
+    the one phase of ``s`` (phase_schedule), Anderson-accelerated when
+    s.aa_depth > 0 (anderson_phase).  Starts from ``init`` (w, z, y,
+    rho_idx), or without it from ``cold`` (w, z, y) at the rung nearest
+    s.rho.  ``pair_max``: RungWalk's.  Returns (x, SolveInfo, (w, z, y,
+    rho_idx)), iterations totalled over the phases."""
+    aa = int(s.aa_depth) if schedule is None else 0
+    if schedule is None:
+        schedule = phase_schedule(op.ladder, s)
+    walk = RungWalk(data, op, s, cop, pair_max)
+    w, z, y, rho_idx = walk.start(cold, init, l, u)
 
     def check(w, z, y, rho_idx, lo, hi, extra=()):
         # the chunk's termination test and rung walk: the one host sync
         # per chunk, which also reads ``extra`` (device scalars)
-        r_prim, r_dual, n_prim, n_dual = residuals(w, z, y)
-        ok = ((r_prim <= eps_abs + eps_rel * n_prim)
-              & (r_dual <= eps_dual + eps_rel * n_dual))
-        vals = torch.stack([r_prim, r_dual, n_prim, n_dual, ok.to(dt_),
-                            *extra]).cpu().numpy()
-        done = bool(vals[4])
-        return done, rho_update(rho_idx, done, *vals[:4], lo, hi), vals[5:]
+        vals = walk.test(w, z, y, extra).cpu().numpy()
+        done, rho_idx = walk.step(vals, rho_idx, lo, hi)
+        return done, rho_idx, vals[5:]
 
     def run_phase(w, z, y, rho_idx, lo, hi, max_it):
         if aa:
@@ -1043,12 +1077,80 @@ def phased_loop(data: QPData, op: NSOp, s: NSSettings, schedule, chunk,
         w, z, y, rho_idx, it = run_phase(w, z, y, rho_idx, int(lo),
                                          int(hi), int(max_it))
         total += it
+    return walk.finish(w, z, y, rho_idx, total)
 
-    r_prim, r_dual, _, _ = residuals(w, z, y)
-    x = _x_of(op, w)
-    obj = 0.5 * torch.sum(x * _apply_Qseg(data.Qseg, x))
-    info = SolveInfo(iters=total, r_prim=r_prim, r_dual=r_dual, obj=obj)
-    return x, info, (w, z, y, rho_idx)
+
+def stack_route(s: NSSettings, datas, ops, limits=None) -> str:
+    """How iterate_ns_stack solves a stack: "stack" (each chunk one
+    ops/nsfused.nsfused_stack launch over the running entries) for banded
+    refine-0 chunks (op.Kinvs None, kkt_refine 0, thomas_kernel off,
+    aa_depth 0) of entries of one shape that ops/nsfused.stack_fits holds
+    on a card of ``limits`` (CardLimits, or a CUDA device; None, a CPU
+    stack, which runs the plain twin on either route: the settings and
+    shapes alone); "loop" (_iterate_ns on each entry) for everything
+    else: dense mode, the refine and K2 routes, Anderson acceleration,
+    entries that differ in shape or do not fit a block."""
+    if (s.kkt_refine or s.thomas_kernel or s.aa_depth
+            or any(op.Kinvs is not None for op in ops)):
+        return "loop"
+    shapes = {(d.lb.shape[0], d.Qseg.shape[0], d.pair_n.shape[0],
+               op.F0.shape[1]) for d, op in zip(datas, ops)}
+    if len(shapes) != 1:
+        return "loop"
+    B, M, P, phi = shapes.pop()
+    if limits is None or nsfused.stack_fits(B, M, P, limits, phi):
+        return "stack"
+    return "loop"
+
+
+def iterate_ns_stack(datas, ops, s: NSSettings, inits=None,
+                     return_state: bool = False):
+    """The knot-state loop of a stack of independent problems (``datas``
+    and ``ops``, one QPData and NSOp an entry, on one device), with the
+    semantics of the JAX package's vmapped loop: each entry has its own
+    rung walk, done flag and iteration budget (the one phase of ``s``,
+    phase_schedule), an entry that has stopped is frozen (not stepped),
+    and the loop ends when every entry has stopped.  On the stack route
+    (stack_route) each chunk is one ops/nsfused.nsfused_stack launch over
+    the running entries and one host sync reads every running entry's
+    residuals and done flag (a CUDA stack's route is judged by its card's
+    limits); otherwise each entry runs _iterate_ns alone.
+    An entry's result is that of _iterate_ns on it alone (bit for bit on
+    the CPU, where both routes run the plain twin).
+
+    inits: one _iterate_ns ``init`` an entry (None: cold).  Returns one
+    (x, SolveInfo[, (w, z, y, rho_idx)]) an entry."""
+    L = len(datas)
+    inits = [None] * L if inits is None else list(inits)
+    dev = datas[0].lb.device
+    limits = dev if dev.type == "cuda" else None
+    if stack_route(s, datas, ops, limits) == "loop":
+        return [_iterate_ns(d, op, s, init=i, return_state=return_state)
+                for d, op, i in zip(datas, ops, inits)]
+    prep = [cold_chunk_inputs(d, op, s) for d, op in zip(datas, ops)]
+    sops = nsfused.stack_operands([p[0] for p in prep])
+    walks = [RungWalk(d, op, s, constr_op(p[0].pop))
+             for d, op, p in zip(datas, ops, prep)]
+    fences = [[int(f[0]) for f in phase_schedule(op.ladder, s)[1:]]
+              for op in ops]
+    w, z, y, rho = (list(v) for v in zip(*(
+        wk.start(p[1], i, p[0].l, p[0].u)
+        for wk, p, i in zip(walks, prep, inits))))
+    rho = [int(np.clip(r, lo, hi)) for r, (lo, hi) in zip(rho, fences)]
+    it, done = [0] * L, [False] * L
+    while True:
+        run = [i for i in range(L) if it[i] < s.max_iter and not done[i]]
+        if not run:
+            break
+        w, z, y = nsfused.nsfused_stack(sops, run, rho, s.sigma, s.alpha,
+                                        w, z, y, s.check_every)
+        vals = torch.stack([walks[i].test(w[i], z[i], y[i])
+                            for i in run]).cpu().numpy()
+        for v, i in zip(vals, run):
+            done[i], rho[i] = walks[i].step(v, rho[i], *fences[i])
+            it[i] += s.check_every
+    outs = [wk.finish(*st) for wk, st in zip(walks, zip(w, z, y, rho, it))]
+    return outs if return_state else [o[:2] for o in outs]
 
 
 def anderson_phase(chunk, check, aa: int, check_every: int, w, z, y,
@@ -1235,15 +1337,19 @@ def solve_ns(data: QPData, settings: NSSettings = NSSettings(),
 def solve_ns_batched(data: QPData, settings: NSSettings = NSSettings(),
                      device=None):
     """Solve a stack of batch QPs (a leading axis on every leaf) on
-    ``device`` (None = the card), one problem at a time: each is prepared
-    and iterated alone, so its result does not depend on the stack.
+    ``device`` (None = the card): each problem prepared alone (prepare_ns),
+    then all iterated as one stack (iterate_ns_stack: on its stack route
+    each chunk is one launch for every running problem), each stopping on
+    its own residuals, so a problem's result does not depend on the stack.
     Returns (x [L, B, 3, D], SolveInfo of [L] tensors)."""
     from .admm import _tree_map
 
     data = _on(device, data)
-    return stack_solves([solve_single_ns(_tree_map(lambda a: a[i], data),
-                                         settings, data.lb.device)
-                         for i in range(data.lb.shape[0])])
+    with torch.no_grad():
+        datas = [_tree_map(lambda a: a[i], data)
+                 for i in range(data.lb.shape[0])]
+        return stack_solves(iterate_ns_stack(
+            datas, [prepare_ns(d, settings) for d in datas], settings))
 
 
 def stack_solves(outs):

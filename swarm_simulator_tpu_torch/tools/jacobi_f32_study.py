@@ -11,14 +11,18 @@ state does), once per arm:
 
 - ``dense64``: the dense KKT mode in float64 (no float32 rounding; the
   reference of the other arms);
-- ``k1``: the banded mode in float32, every chunk one launch of the fused
-  kernel K1 a group;
-- ``twin32``: the same with K1's plain twin in its place (~6 min).
+- ``stack``: the banded mode in float32, every chunk one launch of the
+  stacked kernel (ops/nsfused.nsfused_stack) for the running groups;
+- ``twin32``: the same with the kernels' plain twins in their places
+  (~6 min).
+
+Each arm checks its launch counts: the kernel arm launches the stacked
+kernel and no per-problem K1, the twin arm neither (its twin runs).
 
 Prints one JSON object a round and arm (seconds, the safety ratio of the
 plan time-scaled as plan() scales it, the groups' iterations and
 residuals), then one a round with each float32 arm's control-point error
-a group relative to dense64 and k1's against twin32.  Without a CUDA
+a group relative to dense64 and stack's against twin32.  Without a CUDA
 card it exits 2.
 """
 from __future__ import annotations
@@ -34,9 +38,9 @@ import time
 import numpy as np
 import torch
 
-#: arm -> (kkt_mode, dtype, K1's twin in its place)
+#: arm -> (kkt_mode, dtype, the kernels' twins in their places)
 ARMS = {"dense64": ("dense", np.float64, False),
-        "k1": ("banded", np.float32, False),
+        "stack": ("banded", np.float32, False),
         "twin32": ("banded", np.float32, True)}
 ROUNDS = 2
 TIGHTEN = 2e-3
@@ -102,9 +106,14 @@ def run_arm(arm: str, plan, mission, param, stacked, dummy, dev):
         f.name: np.asarray(getattr(stacked, f.name), dtype)
         for f in dataclasses.fields(stacked)
         if np.asarray(getattr(stacked, f.name)).dtype.kind == "f"})
-    ctx = (mock.patch.object(nsfused, "nsfused_chunk",
-                             nsfused.nsfused_chunk_reference)
-           if twin else contextlib.nullcontext())
+    stack_k, k1_k = nsfused.nsfused_stack, nsfused.nsfused_chunk
+    twin_k = nsfused.nsfused_stack_reference
+    stack_k.launches = k1_k.launches = twin_k.cuda_calls = 0
+    ctx = contextlib.ExitStack()
+    if twin:
+        for name in ("nsfused_chunk", "nsfused_stack"):
+            ctx.enter_context(mock.patch.object(
+                nsfused, name, getattr(nsfused, f"{name}_reference")))
     out, cur = [], dummy.astype(dtype)
     with ctx:
         for r in range(ROUNDS):
@@ -121,6 +130,16 @@ def run_arm(arm: str, plan, mission, param, stacked, dummy, dev):
                 "iters": info.iters.tolist(),
                 "r_prim": [float(v) for v in info.r_prim],
                 "r_dual": [float(v) for v in info.r_dual]}), flush=True)
+    stack, k1, twin_calls = (stack_k.launches, k1_k.launches,
+                             twin_k.cuda_calls)
+    print(json.dumps({"arm": arm, "stack_launches": stack,
+                      "k1_launches": k1, "twin_stack_calls": twin_calls}),
+          flush=True)
+    if mode == "banded" and not (
+            k1 == 0 and ((stack == 0 and twin_calls > 0) if twin
+                         else (stack > 0 and twin_calls == 0))):
+        raise RuntimeError(f"jacobi_f32_study: arm {arm} ran stack "
+                           f"{stack}, K1 {k1}, twin {twin_calls} times")
     return out
 
 
@@ -137,18 +156,18 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     print(json.dumps({"card": card()}), flush=True)
-    _build.build("nsfused")
+    _build.build("nsfused", "nsfused_stack")
     prob = forest64_groups()
     ctrl = {a: run_arm(a, *prob, dev) for a in ARMS}
     for r in range(ROUNDS):
         ref, k, t = (torch.as_tensor(ctrl[a][r]) for a in ARMS)
         rec = {"round": r + 1}
-        for a, got in (("k1", k), ("twin32", t)):
+        for a, got in (("stack", k), ("twin32", t)):
             rec[f"{a}_vs_dense64_per_group"] = [
                 rel_error(got[g:g + 4], ref[g:g + 4])
                 for g in range(0, got.shape[0], 4)]
-        rec["k1_vs_twin32"] = rel_error(k, t)
-        rec["k1_vs_twin32_max_abs_m"] = float((k - t).abs().max())
+        rec["stack_vs_twin32"] = rel_error(k, t)
+        rec["stack_vs_twin32_max_abs_m"] = float((k - t).abs().max())
         print(json.dumps(rec), flush=True)
     return 0
 

@@ -1,4 +1,5 @@
-"""PyTorch port on a CUDA card: the fused ADMM chunk kernel (K1), the
+"""PyTorch port on a CUDA card: the fused ADMM chunk kernel (K1) and its
+stacked form (csrc/nsfused_stack.cu, on two Jacobi groups), the
 Thomas solve kernel (K2, on float32 and bf16 pivots), the chunked Thomas
 sweeps (K3a/K3b), the pivot-stream kernel (T4) and the probe kernels
 (T1, T2, T3, T5) against their plain twins, and the planning paths
@@ -745,22 +746,27 @@ def _jacobi_groups(dtype):
 
 def test_jacobi_sweep_through_k1_matches_cpu():
     """The knot-state Jacobi sweep (banded, two rounds of 100 and 50
-    iterations) of the 8-agent forest's two groups of 4 through K1 on the
-    card, against the same sweep on the CPU in float32 (K1's twin) and in
-    float64: the card's error against the float64 run within K1's
-    tolerance (TWIN_GAP_FACTOR x the float32 CPU run's + TWIN_GAP_FLOOR);
-    K1 launched, its twin never on CUDA."""
+    iterations) of the 8-agent forest's two groups of 4 on the card, each
+    chunk one launch of K1's stacked form for both groups, against the
+    same sweep on the CPU in float32 (the twin) and in float64: the card's
+    error against the float64 run within K1's tolerance (TWIN_GAP_FACTOR x
+    the float32 CPU run's + TWIN_GAP_FLOOR); the stacked kernel launched,
+    per-problem K1 not, the twins never on CUDA."""
     from swarm_simulator_tpu_torch.parallel import mesh
 
     s = ns.NSSettings(kkt_mode="banded", tighten=2e-3)
     kw = dict(rounds=2, iters_schedule=(100, 50))
     g32, d32 = _jacobi_groups("float32")
     g64, d64 = _jacobi_groups("float64")
-    nsfused.nsfused_chunk.launches = 0
+    nsfused.nsfused_chunk.launches = nsfused.nsfused_stack.launches = 0
     nsfused.nsfused_chunk_reference.cuda_calls = 0
+    nsfused.nsfused_stack_reference.cuda_calls = 0
     ck, _ = mesh.jacobi_sweep(g32, d32, s, device="cuda", **kw)
-    assert nsfused.nsfused_chunk.launches > 0
+    # the groups' chunks run as stack launches, per-problem K1 never
+    assert nsfused.nsfused_stack.launches > 0
+    assert nsfused.nsfused_chunk.launches == 0
     assert nsfused.nsfused_chunk_reference.cuda_calls == 0
+    assert nsfused.nsfused_stack_reference.cuda_calls == 0
     cc, _ = mesh.jacobi_sweep(g32, d32, s, device="cpu", **kw)
     c64, _ = mesh.jacobi_sweep(g64, d64, s, device="cpu", **kw)
     ek = thomas.rel_error(ck.cpu(), c64)
@@ -788,3 +794,73 @@ def test_solve_dense_float64_on_cuda_matches_cpu():
     xc, ic = dense.solve_dense(Q, q, A, l, u, s, device="cpu")
     assert xg.is_cuda and ig.iters == ic.iters < 3000
     assert float((xg.cpu() - xc).abs().max()) < 1e-8
+
+
+def test_stack_kernel_matches_twins_on_cuda():
+    """The stacked K1 (csrc/nsfused_stack.cu) on the 8-agent forest's two
+    groups of 4, host prep, cold state: one chunk of both groups at rung
+    0, at the last rung and at one rung each, against the float32 and the
+    float64 twins, each group and state part within K1's tolerance
+    (nsfused.twin_gap_use); a group launched alone bit-equal to it in the
+    stack; a frozen group passed through; float64 state refused."""
+    from swarm_simulator_tpu_torch.qp import nullspace as ns_
+
+    stacked, _ = _jacobi_groups("float64")
+    s = ns_.NSSettings(kkt_mode="banded", tighten=2e-3)
+    groups = [dataclasses.replace(stacked, **{
+        f.name: np.asarray(getattr(stacked, f.name))[g]
+        for f in dataclasses.fields(stacked)
+        if getattr(stacked, f.name) is not None}) for g in range(2)]
+    ops_h = [ns_.prepare_ns_np(g, s) for g in groups]
+    dev = torch.device("cuda")
+    inputs = {}
+    for dtype in (torch.float32, torch.float64):
+        prep = []
+        for g, op in zip(groups, ops_h):
+            d = g.to(dev)
+            d = dataclasses.replace(d, **{
+                f.name: getattr(d, f.name).to(dtype)
+                for f in dataclasses.fields(d)
+                if torch.is_floating_point(getattr(d, f.name))})
+            o = ns_.NSOp(*(None if v is None else v.to(dtype)
+                           for v in op.to(dev)))
+            prep.append(ns_.cold_chunk_inputs(d, o, s))
+        inputs[dtype] = (nsfused.stack_operands([p[0] for p in prep]),
+                         *(list(v) for v in zip(*(p[1] for p in prep))))
+    sops, w, z, y = inputs[torch.float32]
+    sops64, w64, z64, y64 = inputs[torch.float64]
+    R = sops.dinv.shape[1]
+    k64, t64 = [[], []], [[], []]
+    for rungs in ([0, 0], [R - 1, R - 1], [1, R - 2]):
+        before = nsfused.nsfused_stack.launches
+        kern = nsfused.nsfused_stack(sops, [0, 1], rungs, s.sigma, s.alpha,
+                                     w, z, y, N_INNER)
+        assert nsfused.nsfused_stack.launches == before + 1
+        twin = nsfused.nsfused_stack_reference(sops, [0, 1], rungs, s.sigma,
+                                               s.alpha, w, z, y, N_INNER)
+        ref = nsfused.nsfused_stack_reference(sops64, [0, 1], rungs,
+                                              s.sigma, s.alpha, w64, z64,
+                                              y64, N_INNER)
+        for g in range(2):
+            kg = (kern[0][g], kern[1][g], kern[2][g])
+            assert all(torch.isfinite(t).all()
+                       for t in (kg[0], *kg[1], *kg[2]))
+            rg = (ref[0][g], ref[1][g], ref[2][g])
+            k64[g].append(nsfused.state_errors(kg, rg))
+            t64[g].append(nsfused.state_errors(
+                (twin[0][g], twin[1][g], twin[2][g]), rg))
+        alone = nsfused.nsfused_stack(
+            nsfused.stack_operands([sops.entries[1]]), [0], rungs[1:],
+            s.sigma, s.alpha, w[1:], z[1:], y[1:], N_INNER)
+        for a, b in zip((kern[0][1], *kern[1][1], *kern[2][1]),
+                        (alone[0][0], *alone[1][0], *alone[2][0])):
+            assert torch.equal(a, b)
+    for g in range(2):
+        use = nsfused.twin_gap_use(k64[g], t64[g])
+        assert max(use.values()) <= 1.0, (g, use)
+    one = nsfused.nsfused_stack(sops, [1], [0, 0], s.sigma, s.alpha, w, z,
+                                y, N_INNER)
+    assert one[0][0] is w[0] and one[1][0] is z[0] and one[2][0] is y[0]
+    with pytest.raises(ValueError, match="float32"):
+        nsfused.nsfused_stack(sops, [0], [0, 0], s.sigma, s.alpha, w64, z64,
+                              y64, N_INNER)
