@@ -45,7 +45,23 @@
 // in any stack.
 #include "probe_common.cuh"
 
+// Variants for the measuring tools (ops/_build's "nsfused_stack@<tag>";
+// tools/chain_bench.py --stack): STACK_PROFILE stamps each phase of an
+// iteration with clock64() in every block (nsfused_stack_stamps reads
+// them); STACK_STATE_F32 keeps the chunk's state and arithmetic in float32.
+#ifdef STACK_STATE_F32
+typedef float real;
+#else
+typedef double real;
+#endif
+
 namespace {
+
+constexpr int kStampBlocks = 64;  // blocks whose phase cycles are kept
+constexpr int kStamps = 8;        // up to 7 phases (kPhases), then the total
+constexpr const char* kPhases =
+    "A^T gather,rhs,forward chain,back chain,x_t box w,pair rows";
+__device__ long long g_stamps[kStampBlocks * kStamps];
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
@@ -75,18 +91,18 @@ struct Params {
   const int* entry;    // [n] the block's stack entry
   const int* rung;     // [n] its rung
   const float* rho;    // [n] its rho
-  double* w;           // [n, Mi, bs] the block's state, in place
-  double* zb;          // [n, B3, D]
-  double* zp;          // [n, P, D]
-  double* yb;          // [n, B3, D]
-  double* yp;          // [n, P, D]
-  double* at;          // [n, B3, D] scratch: A^T (rho z - y)
-  double* xt;          // [n, B3, D] scratch: x_t
+  real* w;             // [n, Mi, bs] the block's state, in place
+  real* zb;            // [n, B3, D]
+  real* zp;            // [n, P, D]
+  real* yb;            // [n, B3, D]
+  real* yp;            // [n, P, D]
+  real* at;            // [n, B3, D] scratch: A^T (rho z - y)
+  real* xt;            // [n, B3, D] scratch: x_t
   int B, M, phi, P, n_inner, R, rung_floats;
   double sigma, alpha;
 };
 
-__device__ __forceinline__ double warp_sum(double v) {
+__device__ __forceinline__ real warp_sum(real v) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
@@ -95,10 +111,10 @@ __device__ __forceinline__ double warp_sum(double v) {
 // dot(row, v) of n elements in shared memory, a float32 row against a
 // float64 vector, lanes over the elements; every lane returns the full sum
 // (the order depends on n alone)
-__device__ __forceinline__ double dot_row(const float* row, const double* v,
-                                          int n, int lane) {
-  double s = 0.0;
-  for (int j = lane; j < n; j += 32) s = fma((double)row[j], v[j], s);
+__device__ __forceinline__ real dot_row(const float* row, const real* v,
+                                        int n, int lane) {
+  real s = 0;
+  for (int j = lane; j < n; j += 32) s = fma((real)row[j], v[j], s);
   return warp_sum(s);
 }
 
@@ -110,14 +126,14 @@ nsfused_stack_kernel(const Params p) {
   const int B3 = 3 * p.B, D = M * npp, bs = B3 * phi, P = p.P;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int blk = blockIdx.x, en = p.entry[blk];
-  const double rho = p.rho[blk], sigma = p.sigma, alpha = p.alpha;
-  const double beta = 1.0 - alpha;
+  const real rho = p.rho[blk], sigma = p.sigma, alpha = p.alpha;
+  const real beta = 1 - (real)p.alpha;
 
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   float* rung = reinterpret_cast<float*>(smem + kBarBytes);  // [Mi, bs, bs]
-  double* rhs = reinterpret_cast<double*>(rung + p.rung_floats);  // [Mi, bs]
-  double* t = rhs + (size_t)Mi * bs;  // [Mi, bs] T_k rows, then w_t
-  double* vec = t + (size_t)Mi * bs;  // [bs] the chain's vector
+  real* rhs = reinterpret_cast<real*>(rung + p.rung_floats);  // [Mi, bs]
+  real* t = rhs + (size_t)Mi * bs;  // [Mi, bs] T_k rows, then w_t
+  real* vec = t + (size_t)Mi * bs;  // [bs] the chain's vector
 
   if (tid == 0) {  // the rung, one bulk copy; waited for before the chain
     probe::mbar_init(bar, 1);
@@ -150,36 +166,50 @@ nsfused_stack_kernel(const Params p) {
   const float* acoef = p.acoef + p.aoff[en];
   // the block's state and scratch
   const size_t jBD = (size_t)blk * B3 * D, jPD = (size_t)blk * P * D;
-  double* w = p.w + (size_t)blk * Mi * bs;
-  double* zb = p.zb + jBD;
-  double* yb = p.yb + jBD;
-  double* zp = p.zp + jPD;
-  double* yp = p.yp + jPD;
-  double* at = p.at + jBD;
-  double* xt = p.xt + jBD;
+  real* w = p.w + (size_t)blk * Mi * bs;
+  real* zb = p.zb + jBD;
+  real* yb = p.yb + jBD;
+  real* zp = p.zp + jPD;
+  real* yp = p.yp + jPD;
+  real* at = p.at + jBD;
+  real* xt = p.xt + jBD;
   __syncthreads();  // publishes the barrier's initialisation
+#ifdef STACK_PROFILE
+  long long cyc[kStamps] = {}, t_prev = clock64();
+  const long long t_start = t_prev;
+#define STAMP(i)                               \
+  do {                                         \
+    const long long now_ = clock64();          \
+    cyc[i] += now_ - t_prev;                   \
+    t_prev = now_;                             \
+  } while (0)
+#else
+#define STAMP(i) \
+  do {           \
+  } while (0)
+#endif
 
   for (int it = 0; it < p.n_inner; ++it) {
     // ---- at = A^T (rho z - y): box identity + per-agent pair gather ----
     for (int e = tid; e < B3 * D; e += kThreads) {
       const int b3 = e / D, d = e - (e / D) * D;
       const int b = b3 / 3, ax = b3 - 3 * b, m = d / npp;
-      double a = rho * zb[e] - yb[e];
+      real a = rho * zb[e] - yb[e];
       for (int q = aptr[b]; q < aptr[b + 1]; ++q) {
         const int pp = apair[q];
         const size_t pd = (size_t)pp * D + d;
-        const double rx = rho * zp[pd] - yp[pd];
-        a = fma((double)acoef[q] * pnm[((size_t)pp * M + m) * 3 + ax], rx,
-                a);
+        const real rx = rho * zp[pd] - yp[pd];
+        a = fma((real)acoef[q] * pnm[((size_t)pp * M + m) * 3 + ax], rx, a);
       }
       at[e] = a;
     }
     __syncthreads();
+    STAMP(0);
 
     // ---- rhs = sigma w - g + N^T at, one thread per (knot, agent-axis) ----
     for (int e = tid; e < Mi * B3; e += kThreads) {
       const int k = e / B3, b3 = e - (e / B3) * B3;
-      double acc[kMaxPhi];
+      real acc[kMaxPhi];
       for (int f = 0; f < phi; ++f) {
         const int r = k * bs + b3 * phi + f;
         acc[f] = sigma * w[r] - g[r];
@@ -187,10 +217,10 @@ nsfused_stack_kernel(const Params p) {
       // knot k+1 starts segment k+1 (L map) and ends segment k (R map)
       const float* Lk = lmap + (size_t)(k + 1) * phi * phi;
       const float* Rk = rmap + (size_t)k * phi * phi;
-      const double* atb = at + (size_t)b3 * D;
+      const real* atb = at + (size_t)b3 * D;
       for (int i = 0; i < phi; ++i) {
-        const double al = atb[(k + 1) * npp + i];
-        const double ar = atb[k * npp + phi + i];
+        const real al = atb[(k + 1) * npp + i];
+        const real ar = atb[k * npp + phi + i];
         for (int f = 0; f < phi; ++f)
           acc[f] += Lk[i * phi + f] * al + Rk[i * phi + f] * ar;
       }
@@ -198,19 +228,20 @@ nsfused_stack_kernel(const Params p) {
     }
     if (it == 0) probe::mbar_wait(bar, 0);
     __syncthreads();
+    STAMP(1);
 
     // ---- Thomas forward: y_0 = rhs_0, T_k = Dinv_k y_k,
     //      y_{k+1} = rhs_{k+1} - (I (x) Ho_k)^T T_k ----
     for (int k = 0; k < Mi; ++k) {
       for (int e = tid; e < bs; e += kThreads) {
-        double v = rhs[k * bs + e];
+        real v = rhs[k * bs + e];
         if (k > 0) {
           const int a = e % phi;
           const float* H = ho + (size_t)(k - 1) * phi * phi;
-          const double* tg = t + (size_t)(k - 1) * bs + (e - a);
-          double c = 0.0;
+          const real* tg = t + (size_t)(k - 1) * bs + (e - a);
+          real c = 0;
           for (int q = 0; q < phi; ++q)
-            c = fma((double)H[q * phi + a], tg[q], c);
+            c = fma((real)H[q * phi + a], tg[q], c);
           v -= c;
         }
         vec[e] = v;
@@ -218,75 +249,85 @@ nsfused_stack_kernel(const Params p) {
       __syncthreads();
       const float* Dk = rung + (size_t)k * bs * bs;
       for (int r = warp; r < bs; r += kWarps) {
-        const double s = dot_row(Dk + (size_t)r * bs, vec, bs, lane);
+        const real s = dot_row(Dk + (size_t)r * bs, vec, bs, lane);
         if (lane == 0) t[k * bs + r] = s;
       }
       __syncthreads();
     }
+    STAMP(2);
     // ---- back substitution in place in t: x_{Mi-1} = T_{Mi-1},
     //      x_k = T_k - Dinv_k ((I (x) Ho_k) x_{k+1}) ----
     for (int k = Mi - 2; k >= 0; --k) {
       for (int e = tid; e < bs; e += kThreads) {
         const int a = e % phi;
         const float* H = ho + (size_t)k * phi * phi;
-        const double* xg = t + (size_t)(k + 1) * bs + (e - a);
-        double c = 0.0;
+        const real* xg = t + (size_t)(k + 1) * bs + (e - a);
+        real c = 0;
         for (int q = 0; q < phi; ++q)
-          c = fma((double)H[a * phi + q], xg[q], c);
+          c = fma((real)H[a * phi + q], xg[q], c);
         vec[e] = c;
       }
       __syncthreads();
       const float* Dk = rung + (size_t)k * bs * bs;
       for (int r = warp; r < bs; r += kWarps) {
-        const double s = dot_row(Dk + (size_t)r * bs, vec, bs, lane);
+        const real s = dot_row(Dk + (size_t)r * bs, vec, bs, lane);
         if (lane == 0) t[k * bs + r] -= s;
       }
       __syncthreads();
     }
+    STAMP(3);
 
     // ---- x_t = x_pin + N w_t; box relaxation, clip, duals; w update ----
     for (int e = tid; e < B3 * D; e += kThreads) {
       const int b3 = e / D, d = e - (e / D) * D;
       const int m = d / npp, i = d - m * npp;
-      double x = xpin[e];
+      real x = xpin[e];
       if (i < phi) {
         if (m >= 1) {  // segment start: knot m, interior index m-1
           const float* L = lmap + ((size_t)m * phi + i) * phi;
-          const double* wt = t + (size_t)(m - 1) * bs + b3 * phi;
+          const real* wt = t + (size_t)(m - 1) * bs + b3 * phi;
           for (int f = 0; f < phi; ++f) x += L[f] * wt[f];
         }
       } else if (m <= M - 2) {  // segment end: knot m+1, interior index m
         const float* Rm = rmap + ((size_t)m * phi + (i - phi)) * phi;
-        const double* wt = t + (size_t)m * bs + b3 * phi;
+        const real* wt = t + (size_t)m * bs + b3 * phi;
         for (int f = 0; f < phi; ++f) x += Rm[f] * wt[f];
       }
       xt[e] = x;
-      const double v = alpha * x + beta * zb[e] + yb[e] / rho;
-      const double zn = fmin(fmax(v, (double)lb[e]), (double)ub[e]);
+      const real v = alpha * x + beta * zb[e] + yb[e] / rho;
+      const real zn = fmin(fmax(v, (real)lb[e]), (real)ub[e]);
       zb[e] = zn;
       yb[e] = rho * (v - zn);
     }
     for (int e = tid; e < Mi * bs; e += kThreads)
       w[e] = alpha * t[e] + beta * w[e];
     __syncthreads();
+    STAMP(4);
 
     // ---- pair rows: A x_t by pair index; relaxation, clip, duals ----
     for (int e = tid; e < P * D; e += kThreads) {
       const int pp = e / D, d = e - (e / D) * D, m = d / npp;
       const float* nrm = pnm + ((size_t)pp * M + m) * 3;
-      const double* xi = xt + (size_t)pi[pp] * 3 * D + d;
-      const double* xj = xt + (size_t)pj[pp] * 3 * D + d;
-      const double c_i = ci[pp], c_j = cj[pp];
-      double axp = 0.0;
+      const real* xi = xt + (size_t)pi[pp] * 3 * D + d;
+      const real* xj = xt + (size_t)pj[pp] * 3 * D + d;
+      const real c_i = ci[pp], c_j = cj[pp];
+      real axp = 0;
       for (int k = 0; k < 3; ++k)
         axp += nrm[k] * (c_j * xj[k * D] - c_i * xi[k * D]);
-      const double v = alpha * axp + beta * zp[e] + yp[e] / rho;
-      const double zn = fmin(fmax(v, (double)pl[e]), kBig);
+      const real v = alpha * axp + beta * zp[e] + yp[e] / rho;
+      const real zn = fmin(fmax(v, (real)pl[e]), (real)kBig);
       zp[e] = zn;
       yp[e] = rho * (v - zn);
     }
     __syncthreads();
+    STAMP(5);
   }
+#ifdef STACK_PROFILE
+  if (tid == 0 && blk < kStampBlocks) {
+    cyc[kStamps - 1] = clock64() - t_start;
+    for (int i = 0; i < kStamps; ++i) g_stamps[blk * kStamps + i] = cyc[i];
+  }
+#endif
 }
 
 }  // namespace
@@ -310,7 +351,7 @@ int nsfused_stack(void* dinv, void* ho, void* lmap, void* rmap, void* xpin,
       (uintptr_t)dinv % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = kBarBytes + sizeof(float) * (size_t)rung_floats +
-                      sizeof(double) * (size_t)(2 * (M - 1) * bs + bs);
+                      sizeof(real) * (size_t)(2 * (M - 1) * bs + bs);
   int dev = 0, optin = 0;
   cudaError_t c = cudaGetDevice(&dev);
   if (c != cudaSuccess) return (int)c;
@@ -344,13 +385,13 @@ int nsfused_stack(void* dinv, void* ho, void* lmap, void* rmap, void* xpin,
   p.entry = (const int*)entry;
   p.rung = (const int*)rung;
   p.rho = (const float*)rho;
-  p.w = (double*)w;
-  p.zb = (double*)zb;
-  p.zp = (double*)zp;
-  p.yb = (double*)yb;
-  p.yp = (double*)yp;
-  p.at = (double*)at;
-  p.xt = (double*)xt;
+  p.w = (real*)w;
+  p.zb = (real*)zb;
+  p.zp = (real*)zp;
+  p.yb = (real*)yb;
+  p.yp = (real*)yp;
+  p.at = (real*)at;
+  p.xt = (real*)xt;
   p.B = B;
   p.M = M;
   p.phi = phi;
@@ -363,6 +404,16 @@ int nsfused_stack(void* dinv, void* ho, void* lmap, void* rmap, void* xpin,
   nsfused_stack_kernel<<<n, kThreads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
+
+// The phase cycles of the last launch's first kStampBlocks blocks
+// (STACK_PROFILE builds; zeros otherwise) into `out` [kStampBlocks,
+// kStamps]; returns a cudaError_t.
+int nsfused_stack_stamps(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_stamps, sizeof(g_stamps));
+}
+
+// the names of the stamped phases, comma-separated
+const char* nsfused_stack_phases() { return kPhases; }
 
 const char* nsfused_stack_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);

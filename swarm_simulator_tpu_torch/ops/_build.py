@@ -6,6 +6,11 @@ package's git-ignored build directory, loaded with ctypes.  A library is
 rebuilt when it is missing or older than its source or a shared header
 (``csrc/*.cuh``).  Nothing is built
 when a module is imported: the first launch builds.
+
+A name ``"<source>@<tag>"`` builds a variant of ``csrc/<source>.cu`` for
+the measuring tools, compiled with ``-D<TAG>`` (the tag in upper case)
+into its own library ``build/lib<source>_<tag>.so``; no wrapper of the
+port loads one.
 """
 from __future__ import annotations
 
@@ -35,15 +40,17 @@ def _nvcc() -> str:
 
 
 def _compile(name: str, verbose: bool) -> tuple[Path, float, str]:
-    src = CSRC / f"{name}.cu"
-    lib = BUILD / f"lib{name}.so"
+    base, _, tag = name.partition("@")
+    src = CSRC / f"{base}.cu"
+    lib = BUILD / f"lib{base}{'_' + tag if tag else ''}.so"
+    defines = (f"-D{tag.upper()}",) if tag else ()
     newest = max(p.stat().st_mtime for p in (src, *CSRC.glob("*.cuh")))
     if lib.exists() and lib.stat().st_mtime >= newest:
         return lib, 0.0, ""
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *NVCC_FLAGS, *defines,
+           *(("-Xptxas", "-v") if verbose else ()), "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:

@@ -505,7 +505,8 @@ def _declare_stack(lib: ctypes.CDLL) -> None:
 
 
 def nsfused_stack(ops: StackOperands, active, rho_idx, sigma: float,
-                  alpha: float, w, z, y, n_inner: int):
+                  alpha: float, w, z, y, n_inner: int, *, _lib=None,
+                  _state=None):
     """``n_inner`` knot-state ADMM iterations of each ``active`` entry of a
     stack, each at its own rung ``rho_idx[i]`` (one rung an entry of the
     stack); the other entries are frozen.
@@ -516,7 +517,9 @@ def nsfused_stack(ops: StackOperands, active, rho_idx, sigma: float,
     the chunk and rounded back to float32 after it, csrc/nsfused_stack.cu
     says why); CPU tensors run the plain twin; anything else raises.
     Returns new lists (w, z, y), the frozen entries' states passed
-    through."""
+    through.  ``_lib`` and ``_state`` (a variant library of
+    ``stack_variant`` and its state dtype) are for the measuring tools: a
+    launch through them is not counted."""
     active = [int(i) for i in active]
     if not active:
         raise ValueError("nsfused_stack: no active entry")
@@ -576,11 +579,11 @@ def nsfused_stack(ops: StackOperands, active, rho_idx, sigma: float,
         np.asarray([rho_idx[i] for i in active], np.int32),
         rho.view(np.int32)])).to(dev)
     # the chunk's state in float64, in place (csrc/nsfused_stack.cu)
-    f64 = torch.float64
-    w_rows, zb, yb, zp, yp = (t.to(f64) for t in (w_rows, zb, yb, zp, yp))
+    wide = torch.float64 if _state is None else _state
+    w_rows, zb, yb, zp, yp = (t.to(wide) for t in (w_rows, zb, yb, zp, yp))
     at = torch.empty_like(zb)
     xt = torch.empty_like(zb)
-    lib = _build.load("nsfused_stack", _declare_stack)
+    lib = _lib or _build.load("nsfused_stack", _declare_stack)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     err = lib.nsfused_stack(
         ptr(ops.dinv), ptr(ops.ho), ptr(ops.lmap), ptr(ops.rmap),
@@ -593,7 +596,8 @@ def nsfused_stack(ops: StackOperands, active, rho_idx, sigma: float,
         float(alpha),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check_error("nsfused_stack", err, lib.nsfused_stack_error_string)
-    nsfused_stack.launches += 1
+    if _lib is None:
+        nsfused_stack.launches += 1
     # rounded back to float32; knot-major rows back to [n, B, K3, nw]
     # (state_from_rows)
     f32 = torch.float32
@@ -609,3 +613,29 @@ def nsfused_stack(ops: StackOperands, active, rho_idx, sigma: float,
 
 
 nsfused_stack.launches = 0
+
+
+def stack_variant(tag: str) -> ctypes.CDLL:
+    """The library of csrc/nsfused_stack.cu built with ``-D<TAG>``
+    (``stack_profile`` or ``stack_state_f32``), for nsfused_stack's
+    ``_lib`` in the measuring tools."""
+    def declare(lib):
+        _declare_stack(lib)
+        lib.nsfused_stack_stamps.restype = ctypes.c_int
+        lib.nsfused_stack_stamps.argtypes = [ctypes.c_void_p]
+        lib.nsfused_stack_phases.restype = ctypes.c_char_p
+        lib.nsfused_stack_phases.argtypes = []
+    return _build.load(f"nsfused_stack@{tag}", declare)
+
+
+def stack_stamps(lib: ctypes.CDLL) -> tuple[list[str], np.ndarray]:
+    """The phase names of a ``stack_profile`` library and [blocks, phases
+    + 1] clock64 cycles of its last launch: each phase summed over the
+    chunk's iterations in each of the first 64 blocks, then the block's
+    total."""
+    names = lib.nsfused_stack_phases().decode().split(",")
+    out = np.zeros((64, 8), np.int64)
+    err = lib.nsfused_stack_stamps(out.ctypes.data)
+    _build.check_error("nsfused_stack_stamps", err,
+                       lib.nsfused_stack_error_string)
+    return names, np.concatenate([out[:, :len(names)], out[:, -1:]], 1)

@@ -7,7 +7,7 @@ kernel's launch.
 
     python3 -m swarm_simulator_tpu_torch.tools.chain_bench
         [--against ROOT ...] [--reps 20] [--no-256] [--k3] [--t3] [--p3]
-        [--t2] [--p4] [--p2] [--floor]
+        [--t2] [--p4] [--p2] [--floor] [--stack]
 
 Run from the repository root (it takes the 64-agent problem from
 chip_smoke.py).  Each ROOT is a directory holding a
@@ -49,7 +49,12 @@ the pivots the planning paths give the kernel:
   P2 (--p2): the tile apply on tools/nsfused_probe's inputs (rung 1)
   with ``torch.einsum`` in turns;
   the floor (--floor): an empty kernel on 1 block of 256 threads and on
-  P2's grid (ops/nsfused_probe.p2_plan) with and without its clusters.
+  P2's grid (ops/nsfused_probe.p2_plan) with and without its clusters;
+  K1 stack (--stack): one 50-iteration chunk of chip_smoke.py phase 20's
+  16 Jacobi groups of 4 at rung 0 through every checkout's
+  ``nsfused_stack`` and this checkout's float32-state build
+  (``nsfused_stack@stack_state_f32``), then the split of an iteration
+  from this checkout's clock64 build (``nsfused_stack@stack_profile``).
 Each variant's result is held against this checkout's float32 twin (the
 largest error relative to the result's scale is printed; K1's is the
 worst over the parts of the state).  Times are CUDA events after the
@@ -95,7 +100,8 @@ def load_checkout(root: str, alias: str):
 
 def inputs(dev, big: bool):
     """({name: (dinv, ho)}: the pivot inventories K2 is timed on, rung 0
-    of each; (data, host-prep operator) of the 64-agent problem for K1)."""
+    of each; (data, host-prep operator) of the 64-agent problem for K1;
+    its (plan, mission, param))."""
     import chip_smoke
     from swarm_simulator_tpu_torch.qp import joint, nullspace as ns
 
@@ -118,7 +124,7 @@ def inputs(dev, big: bool):
         cases["256 device-prep f32"] = (o.Dinvs, o.Kos)
         cases["256 device-prep bf16"] = (o.Dinvs[:1].to(torch.bfloat16),
                                          o.Kos)
-    return cases, (data, host)
+    return cases, (data, host), (plan, mission, param)
 
 
 def in_turns(variants: dict, reps: int, call, check) -> dict:
@@ -287,6 +293,78 @@ def p2_in_turns(variants: dict, reps: int, dev, out: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def stack_in_turns(variants: dict, reps: int, dev, problem,
+                   out: dict) -> None:
+    """K1's stacked form into ``out``: one N_INNER chunk of phase 20's
+    Jacobi groups (chip_smoke.jacobi_stack: the 64-agent forest's 16
+    groups of 4, each group's host prep, cold state) at rung 0 through
+    every checkout's ``nsfused_stack`` and this checkout's float32-state
+    build in turns ("chunk"), each held against this checkout's float32
+    twin (the worst group and part); then this checkout's STACK_PROFILE
+    build ("split": each stamped phase's share of the iteration, the mean
+    over the launch's blocks of each role, and its milliseconds at the
+    profile build's own median time)."""
+    import chip_smoke
+    from swarm_simulator_tpu_torch.ops import nsfused
+    from swarm_simulator_tpu_torch.qp import nullspace as ns
+    from swarm_simulator_tpu_torch.tools._timing import event_ms
+
+    stacked, _ = chip_smoke.jacobi_stack(*problem)
+    s = ns.NSSettings(kkt_mode="banded", tighten=chip_smoke.JACOBI_TIGHTEN)
+    G = np.asarray(stacked.lb).shape[0]
+    groups = [chip_smoke.dataclasses.replace(stacked, **{
+        f.name: np.asarray(getattr(stacked, f.name))[g]
+        for f in chip_smoke.dataclasses.fields(stacked)
+        if getattr(stacked, f.name) is not None}) for g in range(G)]
+    prep = [ns.cold_chunk_inputs(*chip_smoke.on_device(
+        g, ns.prepare_ns_np(g, s), dev, torch.float32), s) for g in groups]
+    sops = nsfused.stack_operands([p[0] for p in prep])
+    w, z, y = (list(v) for v in zip(*(p[1] for p in prep)))
+    a = (list(range(G)), [0] * G, s.sigma, s.alpha, w, z, y,
+         chip_smoke.N_INNER)
+    want = nsfused.nsfused_stack_reference(sops, *a)
+
+    def err(got):
+        return max(max(nsfused.state_errors(
+            (got[0][g], got[1][g], got[2][g]),
+            (want[0][g], want[1][g], want[2][g]))) for g in range(G))
+
+    calls = {v: functools.partial(mods[1].nsfused_stack, sops, *a)
+             for v, mods in variants.items()}
+    calls["this, float32 state"] = functools.partial(
+        nsfused.nsfused_stack, sops, *a,
+        _lib=nsfused.stack_variant("stack_state_f32"), _state=torch.float32)
+    out["groups"] = G
+    out["dims"] = {k: sops.dims[k] for k in ("B", "M", "Mi", "bs", "P", "D")}
+    out["chunk"] = res = in_turns(calls, max(1, reps // 4),
+                                  lambda v: calls[v](), err)
+    log(f"K1 stack of {G} groups: " + ", ".join(
+        f"{v} {e['ms']} ms (err {e['err']:.1e})" for v, e in res.items()))
+    prof = nsfused.stack_variant("stack_profile")
+    ms = float(np.median(event_ms(lambda: nsfused.nsfused_stack(
+        sops, *a, _lib=prof), max(1, reps // 4))))
+    names, cyc = nsfused.stack_stamps(prof)
+    used = cyc[cyc[:, -1] > 0]
+    total = used[:, -1].astype(float)
+    shares = used[:, :-1] / total[:, None]
+    split = {}
+    for i, name in enumerate(names):
+        if not name:
+            continue
+        on = shares[:, i] > 0
+        split[name] = {"share": float(shares[on, i].mean()) if on.any()
+                       else 0.0, "blocks": int(on.sum()),
+                       "ms": float(shares[on, i].mean()) * ms
+                       if on.any() else 0.0}
+    out["split"] = {"profile_build_ms": ms,
+                    "cycles_per_launch": float(np.median(total)),
+                    "phases": split}
+    log(f"K1 stack split (profile build {ms:.4f} ms, "
+        f"{np.median(total):.0f} cycles a block): " + ", ".join(
+            f"{k} {v['share']:.3f} ({v['ms']:.4f} ms, {v['blocks']} blocks)"
+            for k, v in split.items()))
+
+
 def floor_in_turns(reps: int, dev, out: dict) -> None:
     """An empty kernel's launch in turns into ``out``: one block, and P2's
     grid with and without its clusters (this checkout's kernel)."""
@@ -389,11 +467,15 @@ def main() -> int:
                     help="also time T1's P2 beside torch.einsum")
     ap.add_argument("--floor", action="store_true",
                     help="also time an empty kernel's launch")
+    ap.add_argument("--stack", action="store_true",
+                    help="also time K1's stacked form on phase 20's "
+                         "Jacobi groups, its float32-state build, and "
+                         "split its iteration")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chain_bench: needs a CUDA card", file=sys.stderr)
         return 2
-    from swarm_simulator_tpu_torch.ops import nsfused, thomas
+    from swarm_simulator_tpu_torch.ops import _build, nsfused, thomas
     from swarm_simulator_tpu_torch.ops import (nsfused_probe, thomas_prim,
                                                thomas_probe)
     from swarm_simulator_tpu_torch.qp import joint, nullspace as ns
@@ -416,6 +498,8 @@ def main() -> int:
                                           if args.p3 or args.p4 or args.p2
                                           or args.floor else ()),
                                         *(("thomas_prim",) if args.t2
+                                          else ()),
+                                        *(("nsfused_stack",) if args.stack
                                           else ()))
 
     with ThreadPoolExecutor(len(variants)) as ex:
@@ -426,11 +510,14 @@ def main() -> int:
             log(f"{name}: build failed, left out: {f.exception()}")
             del variants[name]
     log(f"builds: {time.perf_counter() - t0:.1f} s")
-    cases, (data, host) = inputs(dev, not args.no_256)
+    if args.stack:  # this checkout's measuring builds of the stack kernel
+        _build.build("nsfused_stack@stack_profile",
+                     "nsfused_stack@stack_state_f32")
+    cases, (data, host), problem = inputs(dev, not args.no_256)
 
     out = {"card": card(), "torch": torch.__version__, "k2": {}, "k1": {},
            "k3": {}, "t3": {}, "p3": {}, "t2": {}, "p4": {}, "p2": {},
-           "floor": {}}
+           "floor": {}, "stack": {}}
     gen = torch.Generator().manual_seed(0)
     for case, (dinv, ho) in cases.items():
         Mi, bs = dinv.shape[1], dinv.shape[-1]
@@ -475,6 +562,8 @@ def main() -> int:
         p2_in_turns(variants, args.reps, dev, out["p2"])
     if args.floor:
         floor_in_turns(args.reps, dev, out["floor"])
+    if args.stack:
+        stack_in_turns(variants, args.reps, dev, problem, out["stack"])
     print(json.dumps(out), flush=True)
     return 0
 
