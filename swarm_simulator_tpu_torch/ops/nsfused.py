@@ -408,6 +408,16 @@ class StackOperands(NamedTuple):
 #: csrc/nsfused_stack.cu: bytes before the rung in shared memory (its
 #: mbarrier, 16-byte padded)
 STACK_BAR_BYTES = 16
+#: csrc/nsfused_stack.cu: threads a block, the largest (portable) cluster,
+#: the most ways an agent's pair list is split in the A^T gather, the
+#: chain's threads a row
+STACK_THREADS = 1024
+STACK_MAX_CLUSTER = 8
+STACK_MAX_SPLIT = 8
+STACK_ROW_SPLIT = 4
+#: csrc/nsfused_stack.cu: the chain block's threads that widen the next
+#: stage's rows (the chain's team runs in the others)
+STACK_STAGERS = 256
 
 
 def rung_floats(M: int, B: int, phi: int = 3) -> int:
@@ -418,30 +428,118 @@ def rung_floats(M: int, B: int, phi: int = 3) -> int:
     return -(-(M - 1) * bs * bs // 4) * 4
 
 
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def stack_team_rows(phi: int = 3) -> int:
+    """Rows a warp of the stacked kernel's chain team holds: whole
+    agent-axis triples (phi rows each) at STACK_ROW_SPLIT lanes a row."""
+    return 32 // STACK_ROW_SPLIT // phi * phi
+
+
 def stack_smem_bytes(B: int, M: int, phi: int = 3) -> int:
-    """Shared memory of one block of the stacked kernel: its barrier, the
+    """Shared memory of the stacked kernel's chain block: its barrier, the
     active rung (float32), the right-hand sides and the Thomas rows ([Mi,
-    bs] each) and the chain's vector [bs] (float64)."""
+    bs] each), the chain's vector [2, bs] (double-buffered), Ho, and two
+    slots of a stage's rows widened (float64)."""
     bs, Mi = 3 * B * phi, M - 1
-    return (STACK_BAR_BYTES + 4 * rung_floats(M, B, phi)
-            + 8 * (2 * Mi * bs + bs))
+    o = _up16(STACK_BAR_BYTES + 4 * rung_floats(M, B, phi))
+    o = _up16(o + 8 * Mi * bs)
+    o = _up16(o + 8 * Mi * bs)
+    o = _up16(o + 2 * 8 * bs)
+    o = _up16(o + 8 * (Mi - 1) * phi * phi)
+    return _up16(o + 2 * 8 * bs * bs)
+
+
+def stack_partner_knots(M: int, cluster: int) -> int:
+    """Knots a partner block of the stacked kernel owns in clusters of
+    ``cluster`` blocks (the last one the rest)."""
+    return -(-(M - 1) // (cluster - 1))
+
+
+def stack_partner_bytes(B: int, M: int, P: int, cluster: int,
+                        phi: int = 3) -> int:
+    """Shared memory of a partner block of the stacked kernel in clusters
+    of ``cluster`` blocks (csrc/nsfused_stack.cu's layout), for its run of
+    kq knots and the at most dmax = kq (2 phi) + 2 phi columns they map:
+    x_t of every row at the columns (aliased by the gather's partial sums),
+    z_box and y_box there, w and w_t of the knots, the pair rows' values
+    (float64); x_pin and the box bounds at the columns, the pair rows'
+    lower bounds, g of the knots, the L and R maps, the pairs' agents and
+    mask weights, the agents' pair lists (32-bit), and the pair normals
+    of the kq + 1 segments the columns touch."""
+    B3, npp = 3 * B, 2 * phi
+    bs, D = B3 * phi, M * npp
+    kq = stack_partner_knots(M, cluster)
+    dmax = min(kq * npp + 2 * phi, D)
+    split = min(STACK_MAX_SPLIT, max(1, STACK_THREADS // (B * kq * npp)))
+    o = _up16(8 * max(B3 * dmax, B3 * split * kq * npp))
+    for n in (8 * B3 * dmax, 8 * B3 * dmax, 8 * kq * bs, 8 * kq * bs,
+              8 * P * dmax, 4 * B3 * dmax, 4 * B3 * dmax, 4 * B3 * dmax,
+              4 * P * dmax, 4 * kq * bs, 4 * M * phi * phi,
+              4 * M * phi * phi, 8 * P, 8 * P, 4 * (B + 1), 8 * P, 8 * P,
+              12 * P * (kq + 1)):
+        o = _up16(o + n)
+    return o
+
+
+class StackPlan(NamedTuple):
+    """How csrc/nsfused_stack.cu runs an entry: a cluster of ``cluster``
+    blocks (the chain block and cluster - 1 partners, each a run of
+    stack_partner_knots knots) and each block's dynamic shared memory
+    (``smem``, the larger of the chain block's and a partner's)."""
+    cluster: int
+    smem: int
+
+
+#: the fewest partners the plan gives an entry
+STACK_MIN_PARTNERS = 4
+
+
+def stack_plan(B: int, M: int, P: int, limits=None,
+               phi: int = 3) -> StackPlan | None:
+    """The cluster plan of an entry of B agents, M segments and P pairs
+    within ``limits`` (CardLimits; None: no limit): the fewest partners,
+    from STACK_MIN_PARTNERS (fewer where M has fewer interior knots) to
+    STACK_MAX_CLUSTER - 1, whose shared memory holds their knots' columns
+    of the state, each partner at least one knot; None when no cluster
+    holds the entry (the chain block's rung does not fit, or a partner's
+    columns at 7 partners).  It depends on the shapes and the card alone,
+    never on the stack."""
+    optin = float("inf") if limits is None else limits.smem_optin
+    chain = stack_smem_bytes(B, M, phi)
+    if chain > optin or M < 2:
+        return None
+    Mi = M - 1
+    for q in range(min(STACK_MIN_PARTNERS, Mi), STACK_MAX_CLUSTER):
+        kq = stack_partner_knots(M, q + 1)
+        if (q - 1) * kq >= Mi:  # a partner without a knot
+            continue
+        part = stack_partner_bytes(B, M, P, q + 1, phi)
+        if part <= optin:
+            return StackPlan(q + 1, max(chain, part))
+    return None
 
 
 def stack_fits(B: int, M: int, P: int, limits, phi: int = 3) -> bool:
     """Whether the stacked kernel holds an entry of B agents, M segments
     and P pairs on a card of ``limits`` (CardLimits, or a CUDA device):
-    the knot-state width, an interior knot, the rung plus the block's
-    vectors (stack_smem_bytes) within the block's opt-in shared memory,
-    and 32-bit indices within an entry.  At M = 36 on an H100 groups of 4
-    fit (bs 36: a 181,440-byte rung) and groups of 8 do not (bs 72:
-    725,760 bytes)."""
+    the knot-state width, an interior knot, a cluster plan (stack_plan:
+    the chain block's rung and vectors, and a partner's columns of the
+    state, within a block's opt-in shared memory), the chain's team within a block, and
+    32-bit indices within an entry.  At M = 36 on an H100 groups of 4 fit
+    (bs 36: a 181,440-byte rung) and groups of 8 do not (bs 72: 725,760
+    bytes)."""
     if not isinstance(limits, CardLimits):
         limits = card_limits(limits)
     if not (1 <= phi <= MAX_PHI and M >= 2):
         return False
     bs, D = 3 * B * phi, M * 2 * phi
-    return (stack_smem_bytes(B, M, phi) <= limits.smem_optin
-            and max((M - 1) * bs * bs, 3 * B * D, P * D, 2 * P)
+    return (stack_plan(B, M, P, limits, phi) is not None
+            and 32 * -(-bs // stack_team_rows(phi))
+            <= STACK_THREADS - STACK_STAGERS
+            and max((M - 1) * bs * bs, 3 * B * D, P * D, 3 * P * M, 2 * P)
             < INDEX_LIMIT)
 
 
@@ -498,8 +596,10 @@ nsfused_stack_reference.cuda_calls = 0
 def _declare_stack(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.nsfused_stack.restype = ci
-    lib.nsfused_stack.argtypes = ([vp] * 28 + [ci] * 8
+    lib.nsfused_stack.argtypes = ([vp] * 26 + [ci] * 9
                                   + [ctypes.c_double] * 2 + [vp])
+    lib.nsfused_stack_smem.restype = ctypes.c_longlong
+    lib.nsfused_stack_smem.argtypes = [ci] * 6
     lib.nsfused_stack_error_string.restype = ctypes.c_char_p
     lib.nsfused_stack_error_string.argtypes = [ci]
 
@@ -513,9 +613,10 @@ def nsfused_stack(ops: StackOperands, active, rho_idx, sigma: float,
 
     w, z, y: one state an entry (w [B, 3, nw], z/y NSConstr(box [B, 3, D],
     pair [P, D])).  CUDA float32 tensors launch the stacked kernel once
-    (a block an active entry; the active states widened to float64 for
-    the chunk and rounded back to float32 after it, csrc/nsfused_stack.cu
-    says why); CPU tensors run the plain twin; anything else raises.
+    (a cluster of blocks an active entry, stack_plan; the active states
+    widened to float64 for the chunk and rounded back to float32 after
+    it, csrc/nsfused_stack.cu says why); CPU tensors run the plain twin;
+    anything else raises.
     Returns new lists (w, z, y), the frozen entries' states passed
     through.  ``_lib`` and ``_state`` (a variant library of
     ``stack_variant`` and its state dtype) are for the measuring tools: a
@@ -567,10 +668,12 @@ def nsfused_stack(ops: StackOperands, active, rho_idx, sigma: float,
         ("pi", ops.pi, (L, P)), ("pj", ops.pj, (L, P)),
         ("aptr", ops.aptr, (L, B + 1)), ("aoff", ops.aoff, (L,)),
         ("apair", ops.apair, (ops.acoef.shape[0],))), torch.int32)
-    if not stack_fits(B, M, P, card_limits(dev), phi):
+    limits = card_limits(dev)
+    if not stack_fits(B, M, P, limits, phi):
         raise ValueError(f"nsfused_stack: an entry of {B} agents, M = {M}, "
-                         f"{P} pairs does not fit a block of the card; "
+                         f"{P} pairs does not fit a cluster of the card; "
                          "route the stack by qp/nullspace.stack_route")
+    plan = stack_plan(B, M, P, limits, phi)
     # a block's entry, rung and rho (its float32 bits), one copy
     rho = np.asarray([ops.ladders[i][rho_idx[i]] for i in active],
                      np.float32)
@@ -581,9 +684,11 @@ def nsfused_stack(ops: StackOperands, active, rho_idx, sigma: float,
     # the chunk's state in float64, in place (csrc/nsfused_stack.cu)
     wide = torch.float64 if _state is None else _state
     w_rows, zb, yb, zp, yp = (t.to(wide) for t in (w_rows, zb, yb, zp, yp))
-    at = torch.empty_like(zb)
-    xt = torch.empty_like(zb)
     lib = _lib or _build.load("nsfused_stack", _declare_stack)
+    smem = lib.nsfused_stack_smem(B, M, phi, P, d["rung"], plan.cluster)
+    if _lib is None and smem != plan.smem:
+        raise RuntimeError(f"nsfused_stack: the kernel lays out {smem} bytes "
+                           f"a block, stack_plan {plan.smem}")
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     err = lib.nsfused_stack(
         ptr(ops.dinv), ptr(ops.ho), ptr(ops.lmap), ptr(ops.rmap),
@@ -591,9 +696,9 @@ def nsfused_stack(ops: StackOperands, active, rho_idx, sigma: float,
         ptr(ops.pnm), ptr(ops.pi), ptr(ops.pj), ptr(ops.ci), ptr(ops.cj),
         ptr(ops.aptr), ptr(ops.aoff), ptr(ops.apair), ptr(ops.acoef),
         ptr(blk), ptr(blk[n:]), ptr(blk[2 * n:]),
-        ptr(w_rows), ptr(zb), ptr(zp), ptr(yb), ptr(yp), ptr(at), ptr(xt),
-        B, M, phi, P, int(n_inner), n, R, d["rung"], float(sigma),
-        float(alpha),
+        ptr(w_rows), ptr(zb), ptr(zp), ptr(yb), ptr(yp),
+        B, M, phi, P, int(n_inner), n, R, d["rung"], plan.cluster,
+        float(sigma), float(alpha),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check_error("nsfused_stack", err, lib.nsfused_stack_error_string)
     if _lib is None:
@@ -631,10 +736,10 @@ def stack_variant(tag: str) -> ctypes.CDLL:
 def stack_stamps(lib: ctypes.CDLL) -> tuple[list[str], np.ndarray]:
     """The phase names of a ``stack_profile`` library and [blocks, phases
     + 1] clock64 cycles of its last launch: each phase summed over the
-    chunk's iterations in each of the first 64 blocks, then the block's
+    chunk's iterations in each of the first 128 blocks, then the block's
     total."""
     names = lib.nsfused_stack_phases().decode().split(",")
-    out = np.zeros((64, 8), np.int64)
+    out = np.zeros((128, 16), np.int64)
     err = lib.nsfused_stack_stamps(out.ctypes.data)
     _build.check_error("nsfused_stack_stamps", err,
                        lib.nsfused_stack_error_string)

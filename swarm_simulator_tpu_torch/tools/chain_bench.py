@@ -345,24 +345,28 @@ def stack_in_turns(variants: dict, reps: int, dev, problem,
         sops, *a, _lib=prof), max(1, reps // 4))))
     names, cyc = nsfused.stack_stamps(prof)
     used = cyc[cyc[:, -1] > 0]
-    total = used[:, -1].astype(float)
-    shares = used[:, :-1] / total[:, None]
+    shares = used[:, :-1] / used[:, -1:].astype(float)
+    # a block that stamped a phase the others did not has its own role
+    # (the chain block beside the partners); one role in a one-block form
+    kinds = {tuple(row > 0) for row in shares}
     split = {}
-    for i, name in enumerate(names):
-        if not name:
-            continue
-        on = shares[:, i] > 0
-        split[name] = {"share": float(shares[on, i].mean()) if on.any()
-                       else 0.0, "blocks": int(on.sum()),
-                       "ms": float(shares[on, i].mean()) * ms
-                       if on.any() else 0.0}
-    out["split"] = {"profile_build_ms": ms,
-                    "cycles_per_launch": float(np.median(total)),
-                    "phases": split}
-    log(f"K1 stack split (profile build {ms:.4f} ms, "
-        f"{np.median(total):.0f} cycles a block): " + ", ".join(
-            f"{k} {v['share']:.3f} ({v['ms']:.4f} ms, {v['blocks']} blocks)"
-            for k, v in split.items()))
+    for kind in sorted(kinds, reverse=True):
+        rows = shares[[tuple(r > 0) == kind for r in shares]]
+        first = names[kind.index(True)] if any(kind) else "none"
+        role = split.setdefault(f"blocks stamping {first} ...", {
+            "blocks": len(rows),
+            "cycles": float(np.median(used[[tuple(r > 0) == kind
+                                            for r in shares], -1]))})
+        for i, name in enumerate(names):
+            if kind[i]:
+                role[name] = {"share": float(rows[:, i].mean()),
+                              "ms": float(rows[:, i].mean()) * ms}
+    out["split"] = {"profile_build_ms": ms, "roles": split}
+    for role, v in split.items():
+        log(f"K1 stack split, {role} ({v['blocks']} blocks, {v['cycles']:.0f}"
+            f" cycles; profile build {ms:.4f} ms): " + ", ".join(
+                f"{k} {e['share']:.3f} ({e['ms']:.4f} ms)"
+                for k, e in v.items() if isinstance(e, dict)))
 
 
 def floor_in_turns(reps: int, dev, out: dict) -> None:

@@ -1,7 +1,8 @@
 """Profile the phased solve of the 64-agent forest on one CUDA card.
 
     python3 -m swarm_simulator_tpu_torch.tools.profile_solve [--seed 0]
-        [--refine | --sharded | --scatter AGENTS | --seqbatch MODE]
+        [--refine | --sharded | --scatter AGENTS | --seqbatch MODE
+         | --routes AGENTS]
 
 Run from the repository root (it takes the problem from chip_smoke.py).
 Builds the problem and its rung inventory once, runs the production
@@ -34,11 +35,23 @@ profile of a 150-iteration schedule, budgets (50, 50, 50).  With
 64-agent forest in one of chip_smoke.py's SEQ_RUNS modes (gauss-seidel,
 jacobi, default) in float32, each batch solve capped at 200 iterations;
 its iterations are those run one after another (a Jacobi round's stacked
-batches count once, at the most any of them ran).
+batches count once, at the most any of them ran).  With ``--routes
+AGENTS``: no profile; the host-prepped production solve of the scatter
+problem of tools/budget256_study.scatter_config(AGENTS) (chip_smoke.py
+phase 21b's, 96 agents there) through both KKT routes of
+joint.select_kkt_path, K1 (one fused chunk a check) and the K2 route
+(``thomas_kernel``: each w-update one K2 solve), each also with its
+float32 twin and with a float64 twin in the kernel's place: the
+objective, the objective of each batch of 4 agents, the rung and the
+residuals after every chunk (the rung walk), each kernel route's error
+against its float64 twin beside its float32 twin's (thomas.twin_gap_use,
+the twin rule), and the first chunk where two runs' rungs part.  The JSON
+is the last line of stdout.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import sys
@@ -61,6 +74,10 @@ def main() -> int:
     mode.add_argument("--scatter", type=int, metavar="AGENTS",
                       help="profile the refine solve of the AGENTS-agent "
                            "scatter problem (tools/budget256_study.py)")
+    mode.add_argument("--routes", type=int, metavar="AGENTS",
+                      help="solve the AGENTS-agent scatter problem through "
+                           "K1 and the K2 route and their twins, and "
+                           "compare them chunk by chunk")
     mode.add_argument("--seqbatch",
                       choices=["gauss-seidel", "jacobi", "default"],
                       help="profile the sequential-batch ADMM solve in "
@@ -73,6 +90,8 @@ def main() -> int:
     from swarm_simulator_tpu_torch.qp import joint, nullspace as ns
 
     dev = torch.device("cuda", 0)
+    if args.routes:
+        return routes(args.routes, dev)
     if args.scatter:
         from swarm_simulator_tpu_torch.tools import budget256_study as bud
 
@@ -111,6 +130,109 @@ def main() -> int:
     o = (ns.prepare_ns(d, phases[0]) if args.refine
          else ns.prepare_ns_np(data, phases[0]).to(dev))
     return profile_run(lambda: timed_solve(d, o, (s0, it_k, lo_k, hi_k)))
+
+
+def routes(agents: int, dev) -> int:
+    """--routes: the scatter problem's solve through K1 and the K2 route,
+    each through its kernel, its float32 twin and a float64 twin; prints
+    one line a run and the JSON summary."""
+    import json
+    from unittest import mock
+
+    import numpy as np
+
+    import chip_smoke
+    from swarm_simulator_tpu_torch.corridor.times import build_corridors
+    from swarm_simulator_tpu_torch.ops import nsfused, thomas
+    from swarm_simulator_tpu_torch.qp import joint, nullspace as ns
+    from swarm_simulator_tpu_torch.search.planner import \
+        plan_initial_trajectories
+    from swarm_simulator_tpu_torch.tools import budget256_study as bud
+    from swarm_simulator_tpu_torch.tools._timing import card
+    from swarm_simulator_tpu_torch.world.esdf import ESDF
+
+    mission, param, world = bud.scatter_config(agents)
+    esdf = ESDF(world, max_dist=param.esdf_max_dist)
+    plan = plan_initial_trajectories(esdf, mission, param)
+    build_corridors(esdf, plan, mission.radius, param, dev)
+    phases = joint.production_phases()
+    data, _ = joint.assemble_joint(plan, mission, param)
+    op = ns.prepare_ns_np(data, phases[0])
+    ph = {"K1": phases, "K2": tuple(dataclasses.replace(p, thomas_kernel=True)
+                                    for p in phases)}
+    twins = {"nsfused_chunk": nsfused.nsfused_chunk_reference,
+             "thomas_solve": thomas.thomas_solve_reference}
+    walk_step = ns.RungWalk.step
+    runs = {}
+    for route in ("K1", "K2"):
+        for form, dtype in (("kernel", torch.float32),
+                            ("float32 twin", torch.float32),
+                            ("float64 twin", torch.float64)):
+            d, o = chip_smoke.on_device(data, op, dev, dtype)
+            walk = []
+
+            def step(self, vals, rho_idx, lo, hi, _walk=walk):
+                done, nxt = walk_step(self, vals, rho_idx, lo, hi)
+                _walk.append((int(rho_idx), float(vals[0]), float(vals[1])))
+                return done, nxt
+
+            launches = (nsfused.nsfused_chunk.launches,
+                        thomas.thomas_solve.launches)
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(mock.patch.object(ns.RungWalk, "step",
+                                                      step))
+                if form != "kernel":
+                    for name, f in twins.items():
+                        stack.enter_context(mock.patch.object(
+                            nsfused if name == "nsfused_chunk" else thomas,
+                            name, f))
+                t0 = time.perf_counter()
+                x, info = ns.solve_ns_phases(d, ph[route], op=o, device=dev)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            per_agent = 0.5 * (x * ns._apply_Qseg(d.Qseg, x)).sum(dim=(1, 2))
+            batches = per_agent.reshape(-1, 4).sum(1).double().cpu().numpy()
+            runs[route, form] = r = dict(
+                x=x.double(), obj=float(info.obj), iters=int(info.iters),
+                r_prim=float(info.r_prim), secs=secs, walk=walk,
+                batches=batches.tolist(),
+                launches=(nsfused.nsfused_chunk.launches - launches[0],
+                          thomas.thomas_solve.launches - launches[1]))
+            print(f"{route} {form}: objective {r['obj']:.6f}, iters "
+                  f"{r['iters']}, r_prim {r['r_prim']:.3e}, {secs:.2f} s, "
+                  f"launches K1/K2 {r['launches']}, rungs "
+                  f"{[w[0] for w in walk]}", flush=True)
+    out = {"card": card(), "agents": agents, "M": plan.M,
+           "pairs": len(plan.pair_idx), "runs": {}, "twin_rule": {},
+           "parting": {}}
+    for (route, form), r in runs.items():
+        out["runs"][f"{route} {form}"] = {k: v for k, v in r.items()
+                                          if k != "x"}
+    for route in ("K1", "K2"):
+        ref = runs[route, "float64 twin"]["x"]
+        ek = thomas.rel_error(runs[route, "kernel"]["x"], ref)
+        et = thomas.rel_error(runs[route, "float32 twin"]["x"], ref)
+        out["twin_rule"][route] = dict(
+            kernel_vs_f64=ek, f32_twin_vs_f64=et,
+            use=thomas.twin_gap_use([ek], [et]))
+    names = list(runs)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            wa, wb = ([w[0] for w in runs[k]["walk"]] for k in (a, b))
+            part = next((c for c, (u, v) in enumerate(zip(wa, wb)) if u != v),
+                        None if len(wa) == len(wb) else min(len(wa), len(wb)))
+            out["parting"][f"{' '.join(a)} / {' '.join(b)}"] = part
+    for route, v in out["twin_rule"].items():
+        print(f"{route}: x rel err kernel vs float64 twin "
+              f"{v['kernel_vs_f64']:.3e}, float32 twin vs float64 twin "
+              f"{v['f32_twin_vs_f64']:.3e}, share of the twin rule "
+              f"{v['use']:.2f}", flush=True)
+    b1 = np.asarray(runs["K1", "kernel"]["batches"])
+    b2 = np.asarray(runs["K2", "kernel"]["batches"])
+    print("per batch of 4, K1 / K2 route (kernels): " + " ".join(
+        f"{u:.4f}/{v:.4f}" for u, v in zip(b1, b2)), flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
 
 
 def refine_parts(d, o, s, rho_idx: int = 2, reps: int = 10) -> None:

@@ -802,7 +802,9 @@ def test_stack_kernel_matches_twins_on_cuda():
     0, at the last rung and at one rung each, against the float32 and the
     float64 twins, each group and state part within K1's tolerance
     (nsfused.twin_gap_use); a group launched alone bit-equal to it in the
-    stack; a frozen group passed through; float64 state refused."""
+    stack; a stack of three with one group repeated (an odd number of
+    clusters) bit-equal copy to copy and to the stack of two; a frozen
+    group passed through; float64 state refused."""
     from swarm_simulator_tpu_torch.qp import nullspace as ns_
 
     stacked, _ = _jacobi_groups("float64")
@@ -858,6 +860,21 @@ def test_stack_kernel_matches_twins_on_cuda():
     for g in range(2):
         use = nsfused.twin_gap_use(k64[g], t64[g])
         assert max(use.values()) <= 1.0, (g, use)
+    # a stack of three, group 0 repeated: an odd number of clusters, and
+    # the two copies bit-equal to each other and to group 0 in the pair
+    e0, e1 = sops.entries
+    three = nsfused.nsfused_stack(
+        nsfused.stack_operands([e0, e1, e0]), [0, 1, 2], [1, R - 1, 1],
+        s.sigma, s.alpha, [w[0], w[1], w[0]], [z[0], z[1], z[0]],
+        [y[0], y[1], y[0]], N_INNER)
+    pair = nsfused.nsfused_stack(sops, [0, 1], [1, R - 1], s.sigma, s.alpha,
+                                 w, z, y, N_INNER)
+    for g, h in ((0, 2), (0, 0), (1, 1)):
+        got = (three[0][g], *three[1][g], *three[2][g])
+        want = (three[0][h], *three[1][h], *three[2][h]) if g != h else \
+            (pair[0][g], *pair[1][g], *pair[2][g])
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (g, h)
     one = nsfused.nsfused_stack(sops, [1], [0, 0], s.sigma, s.alpha, w, z,
                                 y, N_INNER)
     assert one[0][0] is w[0] and one[1][0] is z[0] and one[2][0] is y[0]

@@ -11,7 +11,9 @@ tests/test_torch_jacobi.py in four 2-agent groups:
 - an entry that stops early keeps its solo iterations and state, and is
   launched no more, while the others run on;
 - an entry's result is the same alone or in a stack;
-- ``stack_fits`` on an H100 and ``stack_route``'s rule.
+- ``stack_fits`` on an H100 and ``stack_route``'s rule;
+- the stacked kernel's cluster plan (``stack_plan``: blocks an entry,
+  knots a partner, shared memory a block).
 """
 import dataclasses
 import sys
@@ -207,6 +209,56 @@ def test_stack_fits_on_h100(B, fits):
     assert (nsfused.stack_smem_bytes(B, 36) <= nsfused.H100.smem_optin) \
         is fits
     assert nsfused.rung_floats(36, 4) * 4 == 181440
+
+
+@pytest.mark.parametrize("B, P, plan", [
+    (1, 63, (5, 74640)),
+    (2, 125, (5, 145712)),
+    (4, 246, (6, 225376)),
+    (4, 1000, None),
+    (8, 250, None)], ids=["1", "2", "4", "4-wide", "8"])
+def test_stack_plan_on_h100(B, P, plan):
+    """The stacked kernel's cluster plan at M = 36 on an H100: the chain
+    block and the fewest partners (from 4) whose shared memory holds their
+    knots' columns of the state: 4 for a group of 1 or 2, 5 (7 knots each)
+    for a 64-agent group of 4 (246 pairs); none for a 256-agent group of
+    4 (~1000 pairs: no partner holds its columns even at 7) or a group of
+    8 (its rung does not fit a block).  Every block within the card's
+    232,448 bytes; the chain block's bytes are its barrier, the rung, rhs
+    and the Thomas rows, two vectors, Ho and two slots of a stage's rows."""
+    got = nsfused.stack_plan(B, 36, P, nsfused.H100)
+    assert got == (None if plan is None else nsfused.StackPlan(*plan))
+    assert nsfused.stack_fits(B, 36, P, nsfused.H100) is (plan is not None)
+    if plan is None:
+        return
+    # a group of 4: barrier, rung, rhs, T rows, two vectors, Ho, two stage
+    # slots
+    assert nsfused.stack_smem_bytes(4, 36) == (16 + 181440 + 2 * 10080
+                                               + 2 * 288 + 2448 + 2 * 10368)
+    part = nsfused.stack_partner_bytes(B, 36, P, got.cluster)
+    assert got.smem == max(nsfused.stack_smem_bytes(B, 36), part)
+    assert got.smem <= nsfused.H100.smem_optin
+    kq = nsfused.stack_partner_knots(36, got.cluster)
+    assert (got.cluster - 2) * kq < 35 <= (got.cluster - 1) * kq
+
+
+def test_stack_plan_adds_partners_to_fit():
+    """Where 4 partners cannot hold their columns, the plan takes more
+    (up to 7), and refuses when 7 cannot or the rung does not fit; a path
+    of few knots takes fewer partners, each with a knot."""
+    def lim(n):
+        return nsfused.CardLimits(sms=132, smem_optin=n)
+
+    assert nsfused.stack_plan(2, 36, 125, lim(110000)) == nsfused.StackPlan(
+        7, 103200)
+    assert nsfused.stack_plan(2, 36, 125, lim(100000)) == nsfused.StackPlan(
+        8, 89024)
+    assert nsfused.stack_plan(2, 36, 125, lim(85000)) is None
+    assert nsfused.stack_plan(4, 36, 246, lim(200000)) is None  # the rung
+    # no limit: 4 partners; Mi = 2 knots: 2 partners of one knot each
+    assert nsfused.stack_plan(4, 36, 246).cluster == 5
+    assert nsfused.stack_plan(1, 3, 10).cluster == 3
+    assert nsfused.stack_partner_knots(3, 3) == 1
 
 
 @pytest.mark.parametrize("change, route", [
