@@ -527,10 +527,10 @@ def stack_fits(B: int, M: int, P: int, limits, phi: int = 3) -> bool:
     and P pairs on a card of ``limits`` (CardLimits, or a CUDA device):
     the knot-state width, an interior knot, a cluster plan (stack_plan:
     the chain block's rung and vectors, and a partner's columns of the
-    state, within a block's opt-in shared memory), the chain's team within a block, and
-    32-bit indices within an entry.  At M = 36 on an H100 groups of 4 fit
-    (bs 36: a 181,440-byte rung) and groups of 8 do not (bs 72: 725,760
-    bytes)."""
+    state, within a block's opt-in shared memory), the chain's team
+    within a block, and 32-bit indices within an entry.  At M = 36 on an
+    H100 groups of 4 fit (bs 36: a 181,440-byte rung) and groups of 8 do
+    not (bs 72: 725,760 bytes)."""
     if not isinstance(limits, CardLimits):
         limits = card_limits(limits)
     if not (1 <= phi <= MAX_PHI and M >= 2):
