@@ -157,7 +157,9 @@ Phases (any failure raises and exits non-zero):
      control points within phase 18's cg bar of a float64 run on the
      card; the knot-state Jacobi sweep (16 groups of 4, two rounds)
      banded in float32 (a chunk one launch of the stacked kernel for the
-     running groups: at most 60 launches, no per-problem K1, no twin) and dense in float64 (no kernel), each time-scaled plan
+     running groups: at most 60 launches, no per-problem K1, no twin) and
+     dense in float64 (the dense stack: no kernel), each with one host
+     sync a chunk and no per-entry loop, each time-scaled plan
      held to tests/test_pipeline.py:_check but for its safety ratio,
      which is printed beside the JAX package's (below 1 there too:
      JAX_CPU_JACOBI64) and held to it in float64, and in float32 to the
@@ -170,7 +172,10 @@ Phases (any failure raises and exits non-zero):
      short schedule, and group 0's first round at the sweep's own,
      through the stacked kernel and with the float32 twins in the
      kernels' places (stack launches 0 there, twin calls above 0), held
-     to K1's tolerance against a float64 twin's; plan() with per-phase
+     to K1's tolerance against a float64 twin's; groups 0, 5 and 15 of
+     each mode alone against the 16-stack (equal iterations and rungs;
+     dense x within ALONE_DENSE_TOL, banded group 0 within K1's twin
+     rule); plan() with per-phase
      production phases (restore tightened by RESTORE_TIGHTEN) through K1
      with the full oracle gate, its margin beside phase 19's; the sweep
      CLI (``python -m swarm_simulator_tpu_torch.cli.sweep``, two
@@ -1877,10 +1882,14 @@ JACOBI_RATIO_TOL = 1e-3
 #: stops at max_iter with its dual residual far from converged, and the
 #: float32 rounding of the card's twin lands its ratio at this value, of
 #: the port's twin on a CPU at 0.5404 and of the JAX package's at 0.5796
-#: (PERF.md).  Phase 20 holds the sweep through K1 to it within
-#: JACOBI_F32_RATIO_TOL, ten times the gap between K1's sweep and the
-#: twin's there (5.0e-4)
-CARD_TWIN_JACOBI_F32 = 0.4264031365467965
+#: (PERF.md).  The preps' rounding moves it too: with each group prepared
+#: alone (before prepare_ns_stack) the twin's sweep read 0.4264031 and
+#: the kernel's 0.4259370; the chunked preps' batched LU over 4 x 7
+#: matrices rounds the pivots otherwise (4.2e-5 relative) and both moved,
+#: the twin to this value and the kernel to 0.5211164.  Phase 20 holds
+#: the sweep through K1 to it within JACOBI_F32_RATIO_TOL, ten times the
+#: gap between K1's sweep and the twin's (5.0e-4 before, 2.9e-4 now)
+CARD_TWIN_JACOBI_F32 = 0.5214104873550186
 JACOBI_F32_RATIO_TOL = 5e-3
 #: phase 20's per-phase joint solve: the restore phase tightens by this
 #: (the production phases' 2e-3 elsewhere), which schedule_arrays refuses
@@ -2028,10 +2037,14 @@ def jacobi_knot_state(plan, mission, param, dev) -> dict:
     ratio to CARD_TWIN_JACOBI_F32; the stacked kernel on the 16 groups'
     own operands against its twins and against itself alone, timed
     beside 16 per-problem K1 launches (stack_vs_twins); then the banded
-    sweep at the short schedule JACOBI_CMP_ITERS, and group 0's first
-    round at the sweep's own, through the stacked kernel, the float32
-    twin and a float64 twin in its place, the kernel's run held to K1's
-    tolerance against the float64 twin's."""
+    sweep at the short schedule JACOBI_CMP_ITERS through the stacked
+    kernel, the float32 twin and a float64 twin in its place, the
+    kernel's run held to K1's tolerance against the float64 twin's.  Each
+    mode's first round also holds groups ALONE_GROUPS alone against the
+    same groups in the stack (alone_vs_stack), group 0's banded solve
+    alone through the kernel and the twins at the sweep's own schedule;
+    each sweep's seconds, its preps' and its stack loop's host syncs are
+    printed and the syncs held to one a chunk."""
     from unittest import mock
 
     from swarm_simulator_tpu_torch.ops import nsfused, thomas
@@ -2051,23 +2064,51 @@ def jacobi_knot_state(plan, mission, param, dev) -> dict:
         label = f"jacobi knot-state {mode} {np.dtype(dtype).name}"
         s = ns.NSSettings(kkt_mode=mode, tighten=JACOBI_TIGHTEN)
         st = cast(stacked, dtype)
+        calls = {"loop": 0, "prep_s": 0.0}
+        prep, loop = ns.prepare_ns_stack, ns._iterate_ns
+
+        def timed_prep(*a, **kw):
+            t0 = time.perf_counter()
+            ops = prep(*a, **kw)
+            torch.cuda.synchronize()
+            calls["prep_s"] += time.perf_counter() - t0
+            return ops
+
+        def counted_loop(*a, **kw):
+            calls["loop"] += 1
+            return loop(*a, **kw)
+
         reset_counts()
+        syncs = ns.iterate_ns_stack.syncs
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ctrl, info = mesh.jacobi_sweep(st, dummy.astype(dtype), s, rounds=2,
-                                       device=dev)
+        with mock.patch.object(ns, "prepare_ns_stack", timed_prep), \
+                mock.patch.object(ns, "_iterate_ns", counted_loop):
+            ctrl, info = mesh.jacobi_sweep(st, dummy.astype(dtype), s,
+                                           rounds=2, device=dev)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = read_counts()
+        syncs = ns.iterate_ns_stack.syncs - syncs
         m = plan_metrics(plan, mission, param,
                          ctrl.double().cpu().numpy(), dev)
         ref = JAX_CPU_JACOBI64[mode, np.dtype(dtype).name]
-        log(f"{label}: 2 rounds {secs:.3f} s, last round iters "
-            f"{info.iters.tolist()}, stack launches {counts['kstack']}, K1 "
-            f"launches {counts['k1']}, twin calls on CUDA "
-            f"{sum(counts[t] for t in TWINS)}; evaluate (time-scaled): "
-            + json.dumps(m) + f"; the JAX package's ratio (CPU) {ref}")
+        log(f"{label}: 2 rounds {secs:.3f} s (PR 16: "
+            f"{JACOBI_PR16_S[mode]}), of which the stacked preps "
+            f"{calls['prep_s']:.3f} s; last round iters "
+            f"{info.iters.tolist()}, stack loop host syncs {syncs}, "
+            f"per-entry loops {calls['loop']}, stack launches "
+            f"{counts['kstack']}, K1 launches {counts['k1']}, twin calls on "
+            f"CUDA {sum(counts[t] for t in TWINS)}; evaluate "
+            "(time-scaled): " + json.dumps(m)
+            + f"; the JAX package's ratio (CPU) {ref}")
         accept_plan(label, m, ratio=False)
+        # two rounds of at most max_iter / check_every chunks, each one
+        # host sync for the whole stack, no entry through _iterate_ns
+        most = 2 * -(-s.max_iter // s.check_every)
+        check(0 < syncs <= most and calls["loop"] == 0,
+              f"{label}: {syncs} host syncs of the stack loop (1 to {most}) "
+              f"and {calls['loop']} per-entry loops (0)")
         if dtype == np.float64:
             check(abs(m["min_safety_ratio"] - ref) <= JACOBI_RATIO_TOL,
                   f"{label}: ratio {m['min_safety_ratio']} not within "
@@ -2081,12 +2122,10 @@ def jacobi_knot_state(plan, mission, param, dev) -> dict:
                   f"{JACOBI_F32_RATIO_TOL} of the float32 twin's sweep on "
                   f"the card, {CARD_TWIN_JACOBI_F32}")
         if mode == "banded":
-            # two rounds of at most max_iter / check_every chunks, each
-            # one launch for the running groups
-            most = 2 * -(-s.max_iter // s.check_every)
-            check(0 < counts["kstack"] <= most,
+            # each chunk one launch for the running groups
+            check(counts["kstack"] == syncs,
                   f"the banded Jacobi sweep launched the stacked kernel "
-                  f"{counts['kstack']} times (1 to {most})")
+                  f"{counts['kstack']} times in {syncs} chunks")
             check(counts["k1"] == 0, f"the banded Jacobi sweep launched "
                   f"per-problem K1 {counts['k1']} times")
             check(all(counts[t] == 0 for t in TWINS),
@@ -2094,16 +2133,17 @@ def jacobi_knot_state(plan, mission, param, dev) -> dict:
         else:
             check(not any(counts.values()), "the dense Jacobi sweep ran a "
                   f"kernel or a twin: {counts}")
-        out[mode, np.dtype(dtype).name] = dict(s=secs, counts=counts,
-                                               metrics=m)
+        out[mode, np.dtype(dtype).name] = dict(
+            s=secs, prep_s=calls["prep_s"], syncs=syncs, counts=counts,
+            metrics=m, alone=alone_vs_stack(st, s, dev, label))
 
     s = ns.NSSettings(kkt_mode="banded", tighten=JACOBI_TIGHTEN)
     out["stack"] = stack_vs_twins(stacked, s, dev)
 
     # through the stacked kernel, the float32 twin and a float64 twin in
     # its place (and in K1's, which the sweep must not reach): the whole
-    # sweep at the short schedule, then the first round of group 0 (its
-    # agents' rows) at the sweep's own (max_iter, 30 chunks)
+    # sweep at the short schedule (group 0's first round at the sweep's
+    # own, max_iter and 30 chunks, runs so in alone_vs_stack)
     # the counters of the functions themselves, not of the names the
     # patches below rebind
     counted = dict(kstack=(nsfused.nsfused_stack, "launches"),
@@ -2147,13 +2187,106 @@ def jacobi_knot_state(plan, mission, param, dev) -> dict:
     out["short_use"] = through_kernel_and_twins(
         f"jacobi banded sweep at {JACOBI_CMP_ITERS}", stacked,
         slice(None), rounds=2, iters_schedule=JACOBI_CMP_ITERS)
-    sub = dataclasses.replace(stacked, **{
-        f.name: np.asarray(getattr(stacked, f.name))[:1]
-        for f in dataclasses.fields(stacked)
-        if getattr(stacked, f.name) is not None})
-    out["full_use"] = through_kernel_and_twins(
-        f"jacobi banded first round of group 0 at max_iter {s.max_iter}",
-        sub, np.asarray(sub.agents)[0], rounds=1)
+    out["full_use"] = out["banded", "float32"]["alone"]["full_use"]
+    return out
+
+
+#: phase 20's groups solved alone against the same groups in the stack
+ALONE_GROUPS = (0, 5, 15)
+#: the dense float64 stack's x against the group alone, relative to max |x|:
+#: the card's linear algebra takes another kernel for the prep's batched
+#: inverse of 4 x 7 rungs than for one group's 7, which parts the K(rho)^-1
+#: by ~1.8e-14 and the 3000-iteration solves by up to 7.9e-12 (PERF.md §6)
+ALONE_DENSE_TOL = 1e-10
+#: the banded group solved alone through the stacked kernel, its float32
+#: twin and a float64 twin in its place (~20 s), its first round at the
+#: sweep's own schedule held to K1's twin rule, and so is the group in
+#: the stack; the other ALONE_GROUPS to equal iterations and rungs, their
+#: gaps printed
+ALONE_TWIN_GROUP = 0
+#: PR 16's two-round sweeps on an H100 80GB HBM3 at 700 W (PERF.md §5)
+JACOBI_PR16_S = {"banded": "2.097 s", "dense": "29.978 s"}
+
+
+def alone_vs_stack(stacked, s, dev, label: str) -> dict:
+    """Phase 20: the first round's solve of the 16 groups as one stack
+    (prepare_ns_stack in chunks of 4, iterate_ns_stack) against groups
+    ALONE_GROUPS each prepared and solved alone: equal iterations and
+    final rungs, and x within ALONE_DENSE_TOL (dense float64).  Banded
+    float32 group ALONE_TWIN_GROUP is solved alone also through the float32
+    twin and a float64 twin in the stacked kernel's place: its kernel
+    solve alone, and its solve in the stack where that is not bit-equal,
+    are held to K1's twin rule against them ("full_use": the kernel's
+    share alone)."""
+    from unittest import mock
+
+    from swarm_simulator_tpu_torch.ops import nsfused, thomas
+    from swarm_simulator_tpu_torch.qp import nullspace as ns
+
+    data = stacked.to(dev)
+    G = data.lb.shape[0]
+    datas = [dataclasses.replace(data, **{
+        f.name: getattr(data, f.name)[g] for f in dataclasses.fields(data)
+        if getattr(data, f.name) is not None}) for g in range(G)]
+    whole = ns.iterate_ns_stack(datas, ns.prepare_ns_stack(data, s, 4), s,
+                                return_state=True)
+    out = {}
+    for g in ALONE_GROUPS:
+        def solve(d=datas[g]):
+            return ns.iterate_ns_stack([d], [ns.prepare_ns(d, s)], s,
+                                       return_state=True)[0]
+
+        one = solve()
+        x, x1 = whole[g][0].double(), one[0].double()
+        gap = float((x - x1).abs().max()) / max(float(x1.abs().max()),
+                                                 1e-30)
+        same = (int(whole[g][1].iters) == int(one[1].iters)
+                and int(whole[g][2][3]) == int(one[2][3]))
+        use = None
+        if s.kkt_mode == "banded" and g == ALONE_TWIN_GROUP:
+            before = (nsfused.nsfused_stack.launches,
+                      nsfused.nsfused_stack_reference.cuda_calls)
+            t0 = time.perf_counter()
+            with mock.patch.object(nsfused, "nsfused_stack",
+                                   nsfused.nsfused_stack_reference):
+                t32 = solve()[0].double()
+                t64 = solve(dataclasses.replace(datas[g], **{
+                    f.name: getattr(datas[g], f.name).double()
+                    for f in dataclasses.fields(datas[g])
+                    if torch.is_floating_point(getattr(datas[g],
+                                                       f.name))}))[0]
+            twins_s = time.perf_counter() - t0
+            check(nsfused.nsfused_stack.launches == before[0]
+                  and nsfused.nsfused_stack_reference.cuda_calls
+                  > before[1], f"{label}: group {g}'s twin solves launched "
+                  "the kernel or ran no twin")
+            e32 = thomas.rel_error(t32, t64)
+            out["full_use"] = full = thomas.twin_gap_use(
+                [thomas.rel_error(x1, t64)], [e32])
+            log(f"{label}: group {g}'s first round alone at max_iter "
+                f"{s.max_iter}: x rel err kernel vs float64 twin "
+                f"{thomas.rel_error(x1, t64):.3e}, float32 twin vs float64 "
+                f"twin {e32:.3e}, kernel vs float32 twin "
+                f"{thomas.rel_error(x1, t32):.3e}; tolerance used "
+                f"{full:.2f}; twins {twins_s:.2f} s")
+            check(full <= 1.0, f"{label}: group {g} alone through the "
+                  f"stacked kernel is less accurate than the float32 twin "
+                  f"allows ({full:.2f} of the tolerance)")
+            if gap:
+                use = thomas.twin_gap_use([thomas.rel_error(x, t64)], [e32])
+        log(f"{label}: group {g} alone vs in the stack of {G}: iters "
+            f"{int(one[1].iters)}/{int(whole[g][1].iters)}, final rung "
+            f"{int(one[2][3])}/{int(whole[g][2][3])}, x rel gap {gap:.3e}"
+            + ("" if use is None else f", twin-rule share {use:.2f}"))
+        check(same, f"{label}: group {g} alone and in the stack differ in "
+              "iterations or final rung")
+        if s.kkt_mode == "dense":
+            check(gap <= ALONE_DENSE_TOL, f"{label}: group {g} alone and "
+                  f"in the stack differ by {gap:.3e} (> {ALONE_DENSE_TOL})")
+        elif use is not None:
+            check(use <= 1.0, f"{label}: group {g} alone and in the stack "
+                  f"differ beyond K1's twin rule ({use:.2f})")
+        out[g] = dict(gap=gap, use=use)
     return out
 
 
@@ -2189,27 +2322,26 @@ def stack_vs_twins(stacked, s, dev) -> dict:
                 for g, op in zip(groups, ops_h)]
         inputs[dtype] = (nsfused.stack_operands([p[0] for p in prep]),
                          [p[0] for p in prep],
-                         *(list(v) for v in zip(*(p[1] for p in prep))))
-    sops, ops32, w, z, y = inputs[torch.float32]
-    sops64, _, w64, z64, y64 = inputs[torch.float64]
+                         ns.stack_states([p[1] for p in prep]))
+    sops, ops32, state = inputs[torch.float32]
+    sops64, _, state64 = inputs[torch.float64]
     every = list(range(G))
+    rows = [ns.entry_state(state, g) for g in every]
     errs = {k: [[] for _ in every] for k in ("k64", "t64", "K1")}
     scale = [0.0] * G
     max_abs, n_alone = 0.0, 0
     for name, rungs in (("rung 0", [0] * G), (f"rung {R - 1}", [R - 1] * G),
                         ("rung g mod R", [g % R for g in every])):
         args = (s.sigma, s.alpha)
-        kern = nsfused.nsfused_stack(sops, every, rungs, *args, w, z, y,
+        kern = nsfused.nsfused_stack(sops, every, rungs, *args, *state,
                                      N_INNER)
         twin = nsfused.nsfused_stack_reference(sops, every, rungs, *args,
-                                               w, z, y, N_INNER)
+                                               *state, N_INNER)
         twin64 = nsfused.nsfused_stack_reference(sops64, every, rungs, *args,
-                                                 w64, z64, y64, N_INNER)
+                                                 *state64, N_INNER)
         torch.cuda.synchronize()
         for g in every:
-            kg = (kern[0][g], kern[1][g], kern[2][g])
-            tg = (twin[0][g], twin[1][g], twin[2][g])
-            t64 = (twin64[0][g], twin64[1][g], twin64[2][g])
+            kg, tg, t64 = (ns.entry_state(o, g) for o in (kern, twin, twin64))
             for a, b in zip((kg[0], *kg[1], *kg[2]), (tg[0], *tg[1], *tg[2])):
                 check(bool(torch.isfinite(a).all()),
                       f"stack {name}: group {g} not finite")
@@ -2218,14 +2350,14 @@ def stack_vs_twins(stacked, s, dev) -> dict:
             errs["t64"][g].append(nsfused.state_errors(tg, t64))
             # per-problem K1 on the same chunk, under the same rule
             errs["K1"][g].append(nsfused.state_errors(nsfused.nsfused_chunk(
-                ops32[g], rungs[g], *args, w[g], z[g], y[g], N_INNER), t64))
+                ops32[g], rungs[g], *args, *rows[g], N_INNER), t64))
             scale[g] = max(scale[g], float(t64[2].box.abs().max()))
-            alone = nsfused.nsfused_stack(
+            alone = ns.entry_state(nsfused.nsfused_stack(
                 nsfused.stack_operands([ops32[g]]), [0], rungs[g:g + 1],
-                *args, w[g:g + 1], z[g:g + 1], y[g:g + 1], N_INNER)
+                *args, *ns.entry_state(state, slice(g, g + 1)), N_INNER), 0)
             n_alone += 1
             for a, b in zip((kg[0], *kg[1], *kg[2]),
-                            (alone[0][0], *alone[1][0], *alone[2][0])):
+                            (alone[0], *alone[1], *alone[2])):
                 check(torch.equal(a, b), f"stack {name}: group {g} differs "
                       "from the kernel on that group alone")
     use = [nsfused.twin_gap_use(errs["k64"][g], errs["t64"][g])
@@ -2258,19 +2390,18 @@ def stack_vs_twins(stacked, s, dev) -> dict:
               f"per-problem K1 on the same chunks ({v:.2f} against "
               f"{k1_worst[p]:.2f} of the tolerance)")
 
-    a = (every, [0] * G, s.sigma, s.alpha, w, z, y, N_INNER)
+    a = (every, [0] * G, s.sigma, s.alpha, *state, N_INNER)
     reset_counts()
     ms = event_ms(lambda: nsfused.nsfused_stack(sops, *a), 5)
     k1_ms = event_ms(lambda: [nsfused.nsfused_chunk(
-        ops32[g], 0, s.sigma, s.alpha, w[g], z[g], y[g], N_INNER)
+        ops32[g], 0, s.sigma, s.alpha, *rows[g], N_INNER)
         for g in every], 3)
     plain_ms = event_ms(lambda: nsfused.nsfused_stack_reference(sops, *a),
                         1, warmup=0)
     counts = read_counts()
     check(counts["kstack"] == 6 and counts["k1"] == 4 * G,
           f"stack timing: launches {counts}")
-    work = [chunk_work(o, (wg, zg, yg))
-            for o, wg, zg, yg in zip(ops32, w, z, y)]
+    work = [chunk_work(o, r) for o, r in zip(ops32, rows)]
     # at the function's type, float32 (the float64 state inside the
     # block is the kernel's own choice)
     bnd = bound(sum(b for b, _ in work), sum(f for _, f in work))

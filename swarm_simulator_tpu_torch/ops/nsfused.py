@@ -405,6 +405,10 @@ class StackOperands(NamedTuple):
     dims: dict            # the entries' common dims, and "rung"
 
 
+#: nsfused_stack and its twin take and return the stack's state as tensors
+#: with a leading entry axis (tools/chain_bench tells checkouts apart by it)
+STACK_STATE_AXIS = True
+
 #: csrc/nsfused_stack.cu: bytes before the rung in shared memory (its
 #: mbarrier, 16-byte padded)
 STACK_BAR_BYTES = 16
@@ -579,15 +583,18 @@ def stack_operands(entries) -> StackOperands:
 def nsfused_stack_reference(ops: StackOperands, active, rho_idx, sigma: float,
                             alpha: float, w, z, y, n_inner: int):
     """Plain twin of nsfused_stack: nsfused_chunk_reference on each active
-    entry with its own rung; the other entries are passed through."""
-    if w[active[0]].is_cuda:
+    entry's rows with its own rung; the other entries' rows are passed
+    through."""
+    from ..qp.nullspace import NSConstr
+
+    if w.is_cuda:
         nsfused_stack_reference.cuda_calls += 1
-    w, z, y = list(w), list(z), list(y)
+    w, zb, zp, yb, yp = (t.clone() for t in (w, *z, *y))
     for i in active:
-        w[i], z[i], y[i] = nsfused_chunk_reference(
-            ops.entries[i], rho_idx[i], sigma, alpha, w[i], z[i], y[i],
-            n_inner)
-    return w, z, y
+        w[i], (zb[i], zp[i]), (yb[i], yp[i]) = nsfused_chunk_reference(
+            ops.entries[i], rho_idx[i], sigma, alpha, w[i],
+            NSConstr(zb[i], zp[i]), NSConstr(yb[i], yp[i]), n_inner)
+    return w, NSConstr(zb, zp), NSConstr(yb, yp)
 
 
 nsfused_stack_reference.cuda_calls = 0
@@ -611,21 +618,22 @@ def nsfused_stack(ops: StackOperands, active, rho_idx, sigma: float,
     stack, each at its own rung ``rho_idx[i]`` (one rung an entry of the
     stack); the other entries are frozen.
 
-    w, z, y: one state an entry (w [B, 3, nw], z/y NSConstr(box [B, 3, D],
-    pair [P, D])).  CUDA float32 tensors launch the stacked kernel once
-    (a cluster of blocks an active entry, stack_plan; the active states
-    widened to float64 for the chunk and rounded back to float32 after
-    it, csrc/nsfused_stack.cu says why); CPU tensors run the plain twin;
+    w, z, y: the stack's state with a leading entry axis (w [L, B, 3, nw],
+    z/y NSConstr(box [L, B, 3, D], pair [L, P, D])).  CUDA float32 tensors
+    launch the stacked kernel once (a cluster of blocks an active entry,
+    stack_plan; the active entries' rows gathered and widened to float64
+    for the chunk and rounded back to float32 after it,
+    csrc/nsfused_stack.cu says why); CPU tensors run the plain twin;
     anything else raises.
-    Returns new lists (w, z, y), the frozen entries' states passed
-    through.  ``_lib`` and ``_state`` (a variant library of
+    Returns new tensors (w, z, y), the frozen entries' rows passed
+    through bit for bit.  ``_lib`` and ``_state`` (a variant library of
     ``stack_variant`` and its state dtype) are for the measuring tools: a
     launch through them is not counted."""
     active = [int(i) for i in active]
     if not active:
         raise ValueError("nsfused_stack: no active entry")
     refuse_bf16(ops.entries[0].op.Dinvs)
-    if w[active[0]].device.type == "cpu":
+    if w.device.type == "cpu":
         return nsfused_stack_reference(ops, active, rho_idx, sigma, alpha,
                                        w, z, y, n_inner)
     from ..qp.nullspace import NSConstr
@@ -642,15 +650,25 @@ def nsfused_stack(ops: StackOperands, active, rho_idx, sigma: float,
         if not 0 <= rho_idx[i] < R:
             raise ValueError(f"nsfused_stack: entry {i}'s rung "
                              f"{rho_idx[i]} outside [0, {R})")
-    dev = w[active[0]].device
-    w_st = torch.stack([w[i] for i in active])
-    # [n, B, K3, nw] -> knot-major rows [n, Mi, bs] (rows_from_state)
-    w_rows = (w_st.reshape(n, B3, Mi, phi).permute(0, 2, 1, 3)
-              .reshape(n, Mi, bs).contiguous())
-    zb = torch.stack([z[i].box for i in active]).reshape(n, B3, D)
-    yb = torch.stack([y[i].box for i in active]).reshape(n, B3, D)
-    zp = torch.stack([z[i].pair for i in active])
-    yp = torch.stack([y[i].pair for i in active])
+    dev = w.device
+    # a block's entry, rung and rho (its float32 bits), one copy from
+    # pinned memory, so the host does not wait for the stream here
+    rho = np.asarray([ops.ladders[i][rho_idx[i]] for i in active],
+                     np.float32)
+    blk = torch.from_numpy(np.concatenate([
+        np.asarray(active, np.int32),
+        np.asarray([rho_idx[i] for i in active], np.int32),
+        rho.view(np.int32)]))
+    if dev.type == "cuda":
+        blk = blk.pin_memory()
+    blk = blk.to(dev, non_blocking=True)
+    idx = blk[:n].long()
+    # the active rows; [n, B, K3, nw] -> knot-major rows [n, Mi, bs]
+    # (rows_from_state)
+    w_rows = (w.index_select(0, idx).reshape(n, B3, Mi, phi)
+              .permute(0, 2, 1, 3).reshape(n, Mi, bs).contiguous())
+    zb, yb = (t.box.index_select(0, idx).reshape(n, B3, D) for t in (z, y))
+    zp, yp = (t.pair.index_select(0, idx) for t in (z, y))
     named = [("w", w_rows, (n, Mi, bs)), ("z.box", zb, (n, B3, D)),
              ("y.box", yb, (n, B3, D)), ("z.pair", zp, (n, P, D)),
              ("y.pair", yp, (n, P, D)),
@@ -674,13 +692,6 @@ def nsfused_stack(ops: StackOperands, active, rho_idx, sigma: float,
                          f"{P} pairs does not fit a cluster of the card; "
                          "route the stack by qp/nullspace.stack_route")
     plan = stack_plan(B, M, P, limits, phi)
-    # a block's entry, rung and rho (its float32 bits), one copy
-    rho = np.asarray([ops.ladders[i][rho_idx[i]] for i in active],
-                     np.float32)
-    blk = torch.from_numpy(np.concatenate([
-        np.asarray(active, np.int32),
-        np.asarray([rho_idx[i] for i in active], np.int32),
-        rho.view(np.int32)])).to(dev)
     # the chunk's state in float64, in place (csrc/nsfused_stack.cu)
     wide = torch.float64 if _state is None else _state
     w_rows, zb, yb, zp, yp = (t.to(wide) for t in (w_rows, zb, yb, zp, yp))
@@ -704,17 +715,16 @@ def nsfused_stack(ops: StackOperands, active, rho_idx, sigma: float,
     if _lib is None:
         nsfused_stack.launches += 1
     # rounded back to float32; knot-major rows back to [n, B, K3, nw]
-    # (state_from_rows)
+    # (state_from_rows); scattered into copies of the stack's state
     f32 = torch.float32
     w_new = (w_rows.to(f32).reshape(n, Mi, B3, phi).permute(0, 2, 1, 3)
              .reshape(n, B, K3, Mi * phi))
-    zb, yb, zp, yp = (t.to(f32) for t in (zb, yb, zp, yp))
-    w, z, y = list(w), list(z), list(y)
-    for j, i in enumerate(active):
-        w[i] = w_new[j]
-        z[i] = NSConstr(box=zb[j].reshape(B, K3, D), pair=zp[j])
-        y[i] = NSConstr(box=yb[j].reshape(B, K3, D), pair=yp[j])
-    return w, z, y
+
+    def put(t, rows):
+        return t.index_copy(0, idx, rows.to(f32).reshape((n,) + t.shape[1:]))
+
+    return (put(w, w_new), NSConstr(put(z.box, zb), put(z.pair, zp)),
+            NSConstr(put(y.box, yb), put(y.pair, yp)))
 
 
 nsfused_stack.launches = 0

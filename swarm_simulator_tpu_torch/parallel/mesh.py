@@ -191,11 +191,12 @@ def jacobi_sweep(stacked: assemble.QPData, dummy, settings,
     agents dropped).  ``settings`` picks the solver: admm.ADMMSettings
     (the groups' KKT operators and equilibration prepared once, every
     round rescaling the refreshed rhs and warm-starting x0, the groups
-    iterated as one stack) or nullspace.NSSettings (one operator per group
-    by prepare_ns, the groups iterated as one stack by
-    nullspace.iterate_ns_stack, each stopping on its own residuals: in
-    banded mode each chunk is one launch of the stacked kernel for every
-    running group, where nullspace.stack_route takes the stack route).
+    iterated as one stack) or nullspace.NSSettings (one operator per group,
+    prepared ``kkt_chunk`` groups at a time by nullspace.prepare_ns_stack,
+    the groups iterated as one stack by nullspace.iterate_ns_stack, each
+    stopping on its own residuals: each chunk is one launch of the stacked
+    kernel (banded) or one batched product an iteration (dense) for every
+    running group, where nullspace.stack_route takes a stack route).
 
     iters_schedule: per-round max_iter, one entry a round.  carry_state
     (needs iters_schedule): carry each group's solver state (x, z, y in
@@ -289,8 +290,7 @@ def stacked_sweep(stacked: assemble.QPData, scen: torch.Tensor,
             def pick(tree, g):
                 return admm._tree_map(lambda a: a[g], tree)
 
-            ops = [nullspace.prepare_ns(pick(stacked, g), settings)
-                   for g in range(G)]
+            ops = nullspace.prepare_ns_stack(stacked, settings, kkt_chunk)
             states = None
         else:
             sdatas, scals, kops = admm._prepare_stack(stacked, settings,

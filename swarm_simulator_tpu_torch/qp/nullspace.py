@@ -63,7 +63,7 @@ import torch
 from ..core import bernstein
 from ..core.device import pin_ieee_fp32, resolve_device
 from ..ops import nsfused, thomas
-from .admm import PairOp, SolveInfo, _build_coupling, _pair_op
+from .admm import PairOp, SolveInfo, _build_coupling, _pair_op, _tree_map
 from .assemble import BIG, KNOT_FACE_GUARD, QPData
 
 
@@ -226,11 +226,17 @@ def _x_pin_np(deq: np.ndarray, L: np.ndarray, R: np.ndarray,
 
 
 def _apply_Qseg(Qseg: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """blockdiag(Qseg) @ v along the last (D) axis."""
-    M, npp, _ = Qseg.shape
+    """blockdiag(Qseg) @ v along the last (D) axis.  A stack's Qseg [L, M,
+    n+1, n+1] applies each entry's blocks to its rows of v [L, ..., D]."""
+    M, npp, _ = Qseg.shape[-3:]
     shape = v.shape
     vs = v.reshape(shape[:-1] + (M, npp))
-    out = torch.einsum("mij,...mj->...mi", Qseg, vs)
+    if Qseg.dim() == 3:
+        out = torch.einsum("mij,...mj->...mi", Qseg, vs)
+    else:
+        Qs = Qseg.reshape(Qseg.shape[:1] + (1,) * (v.dim() - 2)
+                          + Qseg.shape[1:])
+        out = torch.einsum("...mij,...mj->...mi", Qs, vs)
     return out.reshape(shape)
 
 
@@ -527,24 +533,47 @@ def prepare_ns(data: QPData, s: NSSettings) -> NSOp:
     next knot has used them (the same bits as one cast at the end, without
     a full-precision inventory beside the bf16 one).  On a card torch
     takes MAGMA's batched LU for the inverses; at 256 agents ([5, 2304,
-    2304] per knot) MAGMA prints a size warning to stdout at every call."""
+    2304] per knot) MAGMA prints a size warning to stdout at every call.
+    It is prepare_ns_stack of a stack of one."""
+    return prepare_ns_stack(_tree_map(lambda a: a[None], data), s, 1)[0]
+
+
+def prepare_ns_stack(data: QPData, s: NSSettings,
+                     prep_chunk: int = 4) -> list[NSOp]:
+    """prepare_ns of each entry of a stack of problems (``data`` holds
+    tensors with a leading entry axis on every leaf), ``prep_chunk``
+    entries at a time: the JAX package's ``lax.map(prepare_ns,
+    batch_size=prep_chunk)``.  Each chunk is one pass of the prep with the
+    entry axis leading: every knot's Schur-chain inverse (banded) or the
+    rungs' K(rho)^-1 (dense) one batched LU over [chunk, R, ...]; the
+    host maps stay per entry in float64.  Returns one NSOp an entry (its
+    leaves views of the chunk's tensors), each the one prepare_ns gives
+    the entry alone (bit for bit on the CPU)."""
+    if prep_chunk < 1:
+        raise ValueError(f"prep_chunk {prep_chunk}: expected >= 1")
     check_precond(s)
     pin_ieee_fp32()
+    ops = []
     with torch.no_grad():
-        return _prepare_ns_impl(data, s)
+        for a in range(0, data.lb.shape[0], prep_chunk):
+            ops += _prepare_ns_impl(
+                _tree_map(lambda t: t[a:a + prep_chunk], data), s)
+    return ops
 
 
-def _prepare_ns_impl(data: QPData, s: NSSettings) -> NSOp:
+def _prepare_ns_impl(data: QPData, s: NSSettings) -> list[NSOp]:
+    """One chunk of prepare_ns_stack: ``data``'s leaves carry a leading
+    entry axis [c]."""
     if data.dt is None:
         raise ValueError("QPData.dt required for the knot-state solver")
     Qseg = data.Qseg
-    M, npp, _ = Qseg.shape
+    c, M, npp, _ = Qseg.shape
     n = npp - 1
-    phi = data.Aeq.shape[0] // (M + 1)
+    phi = data.Aeq.shape[-2] // (M + 1)
     if npp != 2 * phi:
         raise ValueError(f"knot-state formulation needs n+1 == 2*phi "
                          f"(got n={n}, phi={phi})")
-    B = data.lb.shape[0]
+    B = data.lb.shape[-3]
     B3 = 3 * B
     bs = B3 * phi
     Mi = M - 1
@@ -554,15 +583,19 @@ def _prepare_ns_impl(data: QPData, s: NSSettings) -> NSOp:
     def host64(t):
         return t.detach().to("cpu", torch.float64).numpy()
 
-    L, R, F0, FT = knot_maps(host64(data.dt), n, phi)
-    N = _build_N(L, R, n, phi)                              # [D, nw]
-    x_pin = _x_pin_np(host64(data.deq), L, R, phi)
+    maps = [knot_maps(dt, n, phi) for dt in host64(data.dt)]
+    L, R, F0, FT = (np.stack(v) for v in zip(*maps))
+    N = np.stack([_build_N(lm, rm, n, phi) for lm, rm in zip(L, R)])
+    x_pin = np.stack([_x_pin_np(q, lm, rm, phi)
+                      for q, lm, rm in zip(host64(data.deq), L, R)])
     L, R, F0, FT, N, x_pin = (torch.as_tensor(a, **kw)
                               for a in (L, R, F0, FT, N, x_pin))
-
-    H_raw = N.T @ _apply_Qseg(Qseg, N.T).T
-    c_s = 1.0 / torch.clamp(H_raw.abs().amax(dim=0).mean(), min=1e-12)
-    g = c_s * torch.einsum("da,bkd->bka", N, _apply_Qseg(Qseg, x_pin))
+    NT = N.mT                                               # [c, nw, D]
+    H_raw = NT @ _apply_Qseg(Qseg, NT).mT                   # [c, nw, nw]
+    c_s = 1.0 / torch.clamp(H_raw.abs().amax(dim=-2).mean(-1), min=1e-12)
+    cs = c_s[:, None, None, None]
+    g = cs * torch.einsum("...da,...bkd->...bka", N,
+                          _apply_Qseg(Qseg, x_pin))
 
     if s.adaptive_rho:
         ladder = np.logspace(np.log10(s.rho_min), np.log10(s.rho_max),
@@ -570,23 +603,35 @@ def _prepare_ns_impl(data: QPData, s: NSSettings) -> NSOp:
     else:
         ladder = np.asarray([s.rho], np.float64)
     ladder = torch.as_tensor(ladder, **kw)
-    C = _build_coupling(data)                               # [M, B3, B3]
+    C = _build_coupling(data)                               # [c, M, B3, B3]
+
+    def entries(*stacked):
+        # one NSOp an entry; contiguous leaves, as NSOp.to gives the host
+        # prep's: the kernels take their operands as they are and refuse
+        # strided views
+        small = (N, x_pin, g, F0, FT, c_s)
+        return [NSOp(*(v[i].contiguous() for v in small), ladder,
+                     *(None if v is None else v[i].contiguous()
+                       for v in stacked)) for i in range(c)]
+
     if s.kkt_mode == "dense":
-        Kinvs = _dense_kinvs(N, H_raw, c_s, C, ladder, s.sigma, M, npp, B3)
-        return NSOp(*(v.contiguous() for v in (N, x_pin, g, F0, FT, c_s,
-                                               ladder)),
-                    Dinvs=None, Kos=None, Kinvs=Kinvs.contiguous())
+        return entries(None, None, _dense_kinvs(N, H_raw, c_s, C, ladder,
+                                                s.sigma, M, npp, B3))
 
     # Kd[k] = I_B3 (x) (Hd_k + sigma I + rho NtN_k)
     #         + rho (C_{k+1} (x) WL_{k+1} + C_k (x) WR_k)
-    WL = torch.einsum("mia,mib->mab", L, L)
-    WR = torch.einsum("mia,mib->mab", R, R)
-    Q00 = torch.einsum("mia,mij,mjb->mab", L, Qseg[:, :phi, :phi], L)
-    Q11 = torch.einsum("mia,mij,mjb->mab", R, Qseg[:, phi:, phi:], R)
-    Q01 = torch.einsum("mia,mij,mjb->mab", L, Qseg[:, :phi, phi:], R)
-    Hd_s = c_s * (Q00[1:M] + Q11[0:M - 1]) + s.sigma * torch.eye(phi, **kw)
-    NtN_k = WL[1:M] + WR[0:M - 1]
-    Ho = c_s * Q01[1:M - 1]                                 # [Mi-1, phi, phi]
+    WL = torch.einsum("...mia,...mib->...mab", L, L)
+    WR = torch.einsum("...mia,...mib->...mab", R, R)
+    Q00 = torch.einsum("...mia,...mij,...mjb->...mab", L,
+                       Qseg[..., :phi, :phi], L)
+    Q11 = torch.einsum("...mia,...mij,...mjb->...mab", R,
+                       Qseg[..., phi:, phi:], R)
+    Q01 = torch.einsum("...mia,...mij,...mjb->...mab", L,
+                       Qseg[..., :phi, phi:], R)
+    Hd_s = (cs * (Q00[:, 1:M] + Q11[:, 0:M - 1])
+            + s.sigma * torch.eye(phi, **kw))               # [c, Mi, phi, phi]
+    NtN_k = WL[:, 1:M] + WR[:, 0:M - 1]
+    Ho = cs * Q01[:, 1:M - 1]                               # [c, Mi-1, phi, phi]
     eye = torch.eye(B3, **kw)
     rho = ladder[:, None, None]                             # [R, 1, 1]
 
@@ -594,14 +639,15 @@ def _prepare_ns_impl(data: QPData, s: NSSettings) -> NSOp:
         out = torch.einsum("...ij,...ab->...iajb", Cb, Wb)
         return out.reshape(out.shape[:-4] + (bs, bs))
 
-    def kd_knot(k):       # [R, bs, bs]
-        return (kron(eye, Hd_s[k] + rho * NtN_k[k])
-                + rho * (kron(C[k + 1], WL[k + 1]) + kron(C[k], WR[k])))
+    def kd_knot(k):       # [c, R, bs, bs]
+        return (kron(eye, Hd_s[:, None, k] + rho * NtN_k[:, None, k])
+                + rho * (kron(C[:, k + 1], WL[:, k + 1])
+                         + kron(C[:, k], WR[:, k]))[:, None])
 
     def ko_sandwich(Dinv, Ho_k):      # (I (x) Ho)^T Dinv (I (x) Ho)
-        Dr = Dinv.reshape(-1, B3, phi, B3, phi)
-        out = torch.einsum("ai,rxayb,bj->rxiyj", Ho_k, Dr, Ho_k)
-        return out.reshape(-1, bs, bs)
+        Dr = Dinv.reshape(c, -1, B3, phi, B3, phi)
+        out = torch.einsum("cai,crxayb,cbj->crxiyj", Ho_k, Dr, Ho_k)
+        return out.reshape(c, -1, bs, bs)
 
     I2 = 2.0 * torch.eye(bs, **kw)
 
@@ -610,35 +656,35 @@ def _prepare_ns_impl(data: QPData, s: NSSettings) -> NSOp:
         return X @ (I2 - S @ X)
 
     store = torch.bfloat16 if s.precond_dtype == "bfloat16" else dt_
-    Dinvs = torch.empty((len(ladder), Mi, bs, bs), dtype=store,
+    Dinvs = torch.empty((c, len(ladder), Mi, bs, bs), dtype=store,
                         device=data.lb.device)
     prev = inv_refined(kd_knot(0))
-    Dinvs[:, 0] = prev
+    Dinvs[:, :, 0] = prev
     for k in range(1, Mi):
-        prev = inv_refined(kd_knot(k) - ko_sandwich(prev, Ho[k - 1]))
-        Dinvs[:, k] = prev
+        prev = inv_refined(kd_knot(k) - ko_sandwich(prev, Ho[:, k - 1]))
+        Dinvs[:, :, k] = prev
     del prev
-    # contiguous leaves, as NSOp.to gives the host prep's: the kernels
-    # take their operands as they are and refuse strided views
-    return NSOp(*(v.contiguous() for v in (N, x_pin, g, F0, FT, c_s,
-                                           ladder, Dinvs, Ho)))
+    return entries(Dinvs, Ho, None)
 
 
 def _dense_kinvs(N, H_raw, c_s, C, ladder, sigma, M, npp, B3):
-    """[R, nx, nx] K(rho)^-1 of each rung in the dtype and on the device
-    of its operands (the device twin of _dense_kinvs_np)."""
+    """[c, R, nx, nx] K(rho)^-1 of each rung of each entry of a chunk (N
+    [c, D, nw], H_raw [c, nw, nw], c_s [c], C [c, M, B3, B3]) in the dtype
+    and on the device of its operands (the device twin of
+    _dense_kinvs_np)."""
     kw = dict(dtype=N.dtype, device=N.device)
-    nw = N.shape[1]
+    c, _, nw = N.shape
     eye = torch.eye(B3, **kw)
-    K0 = torch.einsum("ab,de->adbe", eye,
-                      c_s * H_raw + sigma * torch.eye(nw, **kw))
-    K1 = torch.einsum("ab,de->adbe", eye, N.T @ N)
-    Nm = N.reshape(M, npp, nw)
-    W = torch.einsum("mda,mdb->mab", Nm, Nm)
-    K1 = K1 + torch.einsum("mab,mij->iajb", W, C)
+    K0 = torch.einsum("ab,...de->...adbe", eye,
+                      c_s[:, None, None] * H_raw
+                      + sigma * torch.eye(nw, **kw))
+    K1 = torch.einsum("ab,...de->...adbe", eye, N.mT @ N)
+    Nm = N.reshape(c, M, npp, nw)
+    W = torch.einsum("...mda,...mdb->...mab", Nm, Nm)
+    K1 = K1 + torch.einsum("...mab,...mij->...iajb", W, C)
     nx = B3 * nw
-    Ks = (K0.reshape(nx, nx)[None]
-          + ladder[:, None, None] * K1.reshape(nx, nx)[None])
+    Ks = (K0.reshape(c, 1, nx, nx)
+          + ladder[:, None, None] * K1.reshape(c, 1, nx, nx))
     X = torch.linalg.inv(Ks)
     return X @ (2.0 * torch.eye(nx, **kw) - Ks @ X)
 
@@ -653,7 +699,9 @@ def make_kinv_apply(op: NSOp, B: int, K3: int, M: int, phi: int,
     on the CPU)."""
     if op.Kinvs is not None:
         def kinv_apply_dense(rho_idx, rhs):
-            return (op.Kinvs[int(rho_idx)] @ rhs.reshape(-1)
+            # the row-vector form of the dense stack's batched product
+            # (_dense_stack_chunk), so both give an entry the same bits
+            return (rhs.reshape(1, -1) @ op.Kinvs[int(rho_idx)].mT
                     ).reshape(rhs.shape)
         return kinv_apply_dense
 
@@ -674,8 +722,9 @@ def make_kinv_apply(op: NSOp, B: int, K3: int, M: int, phi: int,
 
 
 def _x_of(op: NSOp, w: torch.Tensor) -> torch.Tensor:
-    """x [B, 3, D] from interior knot states w [B, 3, nw]."""
-    return op.x_pin + torch.einsum("da,bka->bkd", op.N, w)
+    """x [B, 3, D] from interior knot states w [B, 3, nw] (of a stack:
+    [L, B, 3, ...] with op's leaves [L, ...])."""
+    return op.x_pin + torch.einsum("...da,...bka->...bkd", op.N, w)
 
 
 def _w_from_x(op: NSOp, x: torch.Tensor, phi: int) -> torch.Tensor:
@@ -697,17 +746,30 @@ def _A_x(x: torch.Tensor, pop: PairOp) -> NSConstr:
     each pair's two agents and a multiply-and-sum over the three axes.
     The dense selection S is not multiplied here: its two-nonzero rows
     made the einsum form read ~90x the bytes this needs (torch lowered
-    its product with the normals to one GEMV per pair on the card)."""
+    its product with the normals to one GEMV per pair on the card).  Of a
+    stack (x [L, B, 3, D], pop's leaves [L, P, ...]) the gather runs over
+    the stack's agent rows, each entry's agents offset by its place."""
+    *lead, B, K3, D = x.shape
+    xf = x.reshape(-1, K3, D)
+    if lead:
+        off = torch.arange(lead[0], device=x.device)[:, None] * B
+
     def side(b, c):
-        return x.index_select(0, b).mul_(pop.n_d).sum(1).mul_(c[:, None])
+        rows = xf.index_select(0, (b + off).reshape(-1) if lead else b)
+        return (rows.reshape(b.shape + (K3, D)).mul_(pop.n_d).sum(-2)
+                .mul_(c[..., None]))
 
     return NSConstr(box=x, pair=side(pop.bj, pop.cj).sub_(side(pop.bi,
                                                                pop.ci)))
 
 
 def _AT_pair(pair: torch.Tensor, pop: PairOp) -> torch.Tensor:
-    """The pair rows' part of A^T y."""
-    return torch.einsum("pb,pkd->bkd", pop.S, pop.n_d * pair[:, None, :])
+    """The pair rows' part of A^T y (of each entry of a stack: pair [L, P,
+    D], pop's leaves [L, ...]): a product with the signed selection S,
+    deterministic where a scatter by pair index would add in the card's
+    atomic order."""
+    return torch.einsum("...pb,...pkd->...bkd", pop.S,
+                        pop.n_d * pair[..., None, :])
 
 
 def _AT_x(y: NSConstr, pop: PairOp) -> torch.Tensor:
@@ -801,23 +863,28 @@ def cold_chunk_inputs(data: QPData, op: NSOp, s: NSSettings):
 
 
 def admm_steps(op: NSOp, cop: ConstrOp, l: NSConstr, u: NSConstr,
-               rho_idx: int, sigma: float, alpha: float, w, z, y,
+               rho_idx, sigma: float, alpha: float, w, z, y,
                n_inner: int, solve_w):
     """``n_inner`` knot-state ADMM iterations at rung ``rho_idx`` in plain
     torch; ``cop`` applies the constraint rows, ``solve_w(rhs_w, rho)`` is
-    the w-update (the KKT solve).  Returns the new (w, z, y)."""
+    the w-update (the KKT solve).  Of a stack (a leading entry axis on the
+    state, on op's leaves and on ``cop``'s), ``rho_idx`` is a tensor of
+    each entry's rung.  Returns the new (w, z, y)."""
     rho = op.ladder[rho_idx]
+    # each part's rho: one scalar, or an entry's rho on each of its rows
+    r = NSConstr(rho, rho) if rho.dim() == 0 else NSConstr(
+        rho[:, None, None, None], rho[:, None, None])
     for _ in range(n_inner):
-        rhs_x = NSConstr(*(rho * zz - yy for zz, yy in zip(z, y)))
+        rhs_x = NSConstr(*(rr * zz - yy for rr, zz, yy in zip(r, z, y)))
         rhs_w = sigma * w - op.g + torch.einsum(
-            "da,bkd->bka", op.N, cop.AT_x(rhs_x))
+            "...da,...bkd->...bka", op.N, cop.AT_x(rhs_x))
         w_t = solve_w(rhs_w, rho)
         ax_t = cop.A_x(_x_of(op, w_t))
         w = alpha * w_t + (1 - alpha) * w
-        v = NSConstr(*(alpha * a + (1 - alpha) * zz + yy / rho
-                       for a, zz, yy in zip(ax_t, z, y)))
+        v = NSConstr(*(alpha * a + (1 - alpha) * zz + yy / rr
+                       for a, zz, yy, rr in zip(ax_t, z, y, r)))
         z_new = _clip(v, l, u)
-        y = NSConstr(*(rho * (vv - zz) for vv, zz in zip(v, z_new)))
+        y = NSConstr(*(rr * (vv - zz) for rr, vv, zz in zip(r, v, z_new)))
         z = z_new
     return w, z, y
 
@@ -941,12 +1008,17 @@ class RungWalk:
     entry's of iterate_ns_stack): the residuals on the device, then on the
     host, in the problem dtype, the test and the next rung.  ``pair_max``
     maps the pair parts' maxima [k] to their maxima over all ranks (a
-    sharded solve's all_reduce MAX; None on one device)."""
+    sharded solve's all_reduce MAX; None on one device).  Over a stack
+    (``data``, ``op`` and ``cop`` with a leading entry axis [L], op.ladder
+    one [R]) residuals and test are one batched pass whose maxima are each
+    entry's over its own rows: test gives [L, 5]."""
 
     def __init__(self, data: QPData, op: NSOp, s: NSSettings, cop: ConstrOp,
                  pair_max=None):
         self.data, self.op, self.s, self.cop = data, op, s, cop
         self.pair_max = pair_max
+        # 1 over a stack: the entry axis that the maxima keep
+        self.lead = data.lb.dim() - 3
         dt_ = data.lb.dtype
         dev = data.lb.device
         self.npf = {torch.float32: np.float32, torch.float64: np.float64}[dt_]
@@ -971,11 +1043,16 @@ class RungWalk:
         w, z, y, rho_idx = init
         return w, _clip(z, l, u), y, rho_idx
 
+    def _emax(self, v):
+        # max |.| over an entry's rows (0 where it has none, as P = 0)
+        if v.numel() == 0:
+            return self.zero.expand(v.shape[:self.lead])
+        return v.abs().flatten(self.lead).amax(-1)
+
     def _cmax(self, parts):
         # max |.| of each NSConstr: the box part whole, the pair parts
         # through one pair_max call
-        def m(v):
-            return v.abs().max() if v.numel() > 0 else self.zero
+        m = self._emax
         pair = torch.stack([m(c.pair) for c in parts])
         if self.pair_max is not None:
             pair = self.pair_max(pair)
@@ -988,25 +1065,27 @@ class RungWalk:
         # duals live in the cost-normalized problem: judge stationarity
         # in ORIGINAL units, (c_s Qx + A^T y) / c_s
         px = _apply_Qseg(self.data.Qseg, x)
-        aty = cop.AT_x(y) / op.c_s
-        grad_w = torch.einsum("da,bkd->bka", op.N, px + aty)
+        c_s = op.c_s if self.lead == 0 else op.c_s[:, None, None, None]
+        aty = cop.AT_x(y) / c_s
+
+        def NT(v):
+            return torch.einsum("...da,...bkd->...bka", op.N, v)
+
         r_prim, n_ax, n_z = self._cmax(
             [NSConstr(*(a - b for a, b in zip(ax, z))), ax, z])
-        r_dual = grad_w.abs().max()
+        r_dual = self._emax(NT(px + aty))
         n_prim = torch.maximum(n_ax, n_z)
-        n_dual = torch.maximum(
-            torch.einsum("da,bkd->bka", op.N, px).abs().max(),
-            torch.einsum("da,bkd->bka", op.N, aty).abs().max())
+        n_dual = torch.maximum(self._emax(NT(px)), self._emax(NT(aty)))
         return r_prim, r_dual, n_prim, n_dual
 
     def test(self, w, z, y, extra=()) -> torch.Tensor:
         """[r_prim, r_dual, n_prim, n_dual, converged, *extra] on the
-        device, for one host sync to read."""
+        device, for one host sync to read ([L, 5] over a stack)."""
         r_prim, r_dual, n_prim, n_dual = self.residuals(w, z, y)
         ok = ((r_prim <= self.eps_abs + self.eps_rel * n_prim)
               & (r_dual <= self.eps_dual + self.eps_rel * n_dual))
         return torch.stack([r_prim, r_dual, n_prim, n_dual,
-                            ok.to(r_prim.dtype), *extra])
+                            ok.to(r_prim.dtype), *extra], -1)
 
     def step(self, vals, rho_idx: int, lo: int, hi: int):
         """(done, next rung) from test()'s values read on the host."""
@@ -1087,20 +1166,108 @@ def stack_route(s: NSSettings, datas, ops, limits=None) -> str:
     aa_depth 0) of entries of one shape that ops/nsfused.stack_fits holds
     on a card of ``limits`` (CardLimits, or a CUDA device; None, a CPU
     stack, which runs the plain twin on either route: the settings and
-    shapes alone); "loop" (_iterate_ns on each entry) for everything
-    else: dense mode, the refine and K2 routes, Anderson acceleration,
-    entries that differ in shape or do not fit a block."""
-    if (s.kkt_refine or s.thomas_kernel or s.aa_depth
-            or any(op.Kinvs is not None for op in ops)):
+    shapes alone); "dense" (each chunk _dense_stack_chunk: the running
+    entries' ADMM steps with a leading entry axis, no kernel) for dense
+    refine-0 chunks of entries of one shape; "loop" (_iterate_ns on each
+    entry) for everything else: the refine and K2 routes, Anderson
+    acceleration, entries that differ in shape or KKT mode, banded
+    entries that do not fit a cluster."""
+    dense = {op.Kinvs is not None for op in ops}
+    if s.kkt_refine or s.thomas_kernel or s.aa_depth or len(dense) != 1:
         return "loop"
     shapes = {(d.lb.shape[0], d.Qseg.shape[0], d.pair_n.shape[0],
                op.F0.shape[1]) for d, op in zip(datas, ops)}
     if len(shapes) != 1:
         return "loop"
+    if dense.pop():
+        return "dense"
     B, M, P, phi = shapes.pop()
     if limits is None or nsfused.stack_fits(B, M, P, limits, phi):
         return "stack"
     return "loop"
+
+
+class StackParts(NamedTuple):
+    """The plain torch operands of a stack of problems, each with a
+    leading entry axis [L], built once per iterate_ns_stack call: the
+    data, the op's small leaves (N, x_pin, g, F0, FT, c_s; ladder [R]; no
+    inventory), the pair operator and its constraint op, the tightened
+    bounds."""
+    data: QPData
+    op: NSOp
+    pop: PairOp
+    cop: ConstrOp
+    l: NSConstr
+    u: NSConstr
+
+
+def stack_parts(datas, ops, colds) -> StackParts:
+    """StackParts of entries of one shape from their _cold_state results
+    ``colds`` ((pop, l, u, state) an entry)."""
+    small = ("N", "x_pin", "g", "F0", "FT", "c_s")
+    op = NSOp(*(torch.stack([getattr(o, f) for o in ops]) for f in small),
+              ladder=ops[0].ladder, Dinvs=None, Kos=None)
+    pop, l, u = (type(colds[0][k])(*(torch.stack(f) for f in zip(
+        *(c[k] for c in colds)))) for k in range(3))
+    return StackParts(_tree_map(lambda *t: torch.stack(t), *datas), op, pop,
+                      constr_op(pop), l, u)
+
+
+def stack_states(states):
+    """The state (w, z, y) of a stack: each entry's (w, z, y) (the first
+    three of each of ``states``) stacked on a leading entry axis, z and y
+    NSConstr([L, B, 3, D], [L, P, D])."""
+    w, z, y = zip(*(st[:3] for st in states))
+    return (torch.stack(w), *(NSConstr(*(torch.stack(t) for t in zip(*c)))
+                              for c in (z, y)))
+
+
+def entry_state(state, i):
+    """Entry ``i``'s (w, z, y) of a stack's state (a slice ``i``: the
+    stack of those entries)."""
+    w, z, y = state
+    return (w[i], *(NSConstr(*(t[i] for t in c)) for c in (z, y)))
+
+
+def _dense_stack_chunk(parts: StackParts, ops, s: NSSettings, run, rho,
+                       w, z, y):
+    """check_every dense ADMM iterations of the running entries ``run`` of
+    a stack (admm_steps with a leading entry axis over their rows of
+    ``parts`` and of the state w [L, B, 3, nw], z/y NSConstr([L, B, 3,
+    D], [L, P, D])): each w-update is one batched product with each
+    entry's K(rho)^-1, whose rung's matrix is gathered once a chunk (rungs
+    change only between chunks), as the row vector the one-problem route
+    (make_kinv_apply) multiplies.  The other entries' rows are passed
+    through.  No kernel: the JAX package's product is outside Pallas too.
+    Returns the new (w, z, y)."""
+    n = len(run)
+    whole = n == w.shape[0]
+    idx = torch.as_tensor(run, device=w.device)
+
+    def take(t):
+        return t if whole else t.index_select(0, idx)
+
+    def takes(c):
+        return NSConstr(*(take(t) for t in c))
+
+    op = parts.op._replace(N=take(parts.op.N), x_pin=take(parts.op.x_pin),
+                           g=take(parts.op.g))
+    cop = constr_op(PairOp(*(take(t) for t in parts.pop)))
+    K = torch.stack([ops[i].Kinvs[rho[i]] for i in run])      # [n, nx, nx]
+    rungs = torch.as_tensor([rho[i] for i in run], device=w.device)
+
+    def solve_w(rhs_w, _rho):
+        return (rhs_w.reshape(n, 1, -1) @ K.mT).reshape(rhs_w.shape)
+
+    out = admm_steps(op, cop, takes(parts.l), takes(parts.u), rungs,
+                     s.sigma, s.alpha, take(w), takes(z), takes(y),
+                     s.check_every, solve_w)
+    if whole:
+        return out
+    wn, zn, yn = out
+    return (w.index_copy(0, idx, wn),
+            *(NSConstr(*(a.index_copy(0, idx, b) for a, b in zip(o, on)))
+              for o, on in ((z, zn), (y, yn))))
 
 
 def iterate_ns_stack(datas, ops, s: NSSettings, inits=None,
@@ -1110,13 +1277,16 @@ def iterate_ns_stack(datas, ops, s: NSSettings, inits=None,
     semantics of the JAX package's vmapped loop: each entry has its own
     rung walk, done flag and iteration budget (the one phase of ``s``,
     phase_schedule), an entry that has stopped is frozen (not stepped),
-    and the loop ends when every entry has stopped.  On the stack route
-    (stack_route) each chunk is one ops/nsfused.nsfused_stack launch over
-    the running entries and one host sync reads every running entry's
-    residuals and done flag (a CUDA stack's route is judged by its card's
-    limits); otherwise each entry runs _iterate_ns alone.
-    An entry's result is that of _iterate_ns on it alone (bit for bit on
-    the CPU, where both routes run the plain twin).
+    and the loop ends when every entry has stopped.  On the stack routes
+    (stack_route) the state lives as [L, ...] tensors across chunks; each
+    chunk is one ops/nsfused.nsfused_stack launch over the running entries
+    ("stack") or _dense_stack_chunk ("dense"), then one batched residual
+    pass over the stack (RungWalk over StackParts) and one host sync
+    (counted in ``iterate_ns_stack.syncs``) read every entry's residuals
+    and done flag, and each running entry's rung walk steps on the host (a
+    CUDA stack's route is judged by its card's limits); otherwise each
+    entry runs _iterate_ns alone.  An entry's result is that of
+    _iterate_ns on it alone (bit for bit on the CPU).
 
     inits: one _iterate_ns ``init`` an entry (None: cold).  Returns one
     (x, SolveInfo[, (w, z, y, rho_idx)]) an entry."""
@@ -1124,33 +1294,50 @@ def iterate_ns_stack(datas, ops, s: NSSettings, inits=None,
     inits = [None] * L if inits is None else list(inits)
     dev = datas[0].lb.device
     limits = dev if dev.type == "cuda" else None
-    if stack_route(s, datas, ops, limits) == "loop":
+    route = stack_route(s, datas, ops, limits)
+    if route == "loop":
         return [_iterate_ns(d, op, s, init=i, return_state=return_state)
                 for d, op, i in zip(datas, ops, inits)]
-    prep = [cold_chunk_inputs(d, op, s) for d, op in zip(datas, ops)]
-    sops = nsfused.stack_operands([p[0] for p in prep])
-    walks = [RungWalk(d, op, s, constr_op(p[0].pop))
-             for d, op, p in zip(datas, ops, prep)]
+    colds = [_cold_state(d, op, s) for d, op in zip(datas, ops)]
+    walks = [RungWalk(d, op, s, constr_op(c[0]))
+             for d, op, c in zip(datas, ops, colds)]
+    starts = [wk.start(c[3], i, c[1], c[2])
+              for wk, c, i in zip(walks, colds, inits)]
     fences = [[int(f[0]) for f in phase_schedule(op.ladder, s)[1:]]
               for op in ops]
-    w, z, y, rho = (list(v) for v in zip(*(
-        wk.start(p[1], i, p[0].l, p[0].u)
-        for wk, p, i in zip(walks, prep, inits))))
-    rho = [int(np.clip(r, lo, hi)) for r, (lo, hi) in zip(rho, fences)]
+    rho = [int(np.clip(st[3], lo, hi)) for st, (lo, hi) in zip(starts,
+                                                               fences)]
+    parts = stack_parts(datas, ops, colds)
+    w, z, y = stack_states(starts)
+    if route == "stack":
+        sops = nsfused.stack_operands([
+            nsfused.build_operands(d, op, *c[:3])
+            for d, op, c in zip(datas, ops, colds)])
+
+        def chunk(run, w, z, y):
+            return nsfused.nsfused_stack(sops, run, rho, s.sigma, s.alpha,
+                                         w, z, y, s.check_every)
+    else:
+        def chunk(run, w, z, y):
+            return _dense_stack_chunk(parts, ops, s, run, rho, w, z, y)
+    test = RungWalk(parts.data, parts.op, s, parts.cop)
     it, done = [0] * L, [False] * L
     while True:
         run = [i for i in range(L) if it[i] < s.max_iter and not done[i]]
         if not run:
             break
-        w, z, y = nsfused.nsfused_stack(sops, run, rho, s.sigma, s.alpha,
-                                        w, z, y, s.check_every)
-        vals = torch.stack([walks[i].test(w[i], z[i], y[i])
-                            for i in run]).cpu().numpy()
-        for v, i in zip(vals, run):
-            done[i], rho[i] = walks[i].step(v, rho[i], *fences[i])
+        w, z, y = chunk(run, w, z, y)
+        vals = test.test(w, z, y).cpu().numpy()
+        iterate_ns_stack.syncs += 1
+        for i in run:
+            done[i], rho[i] = walks[i].step(vals[i], rho[i], *fences[i])
             it[i] += s.check_every
-    outs = [wk.finish(*st) for wk, st in zip(walks, zip(w, z, y, rho, it))]
+    outs = [wk.finish(*entry_state((w, z, y), i), rho[i], it[i])
+            for i, wk in enumerate(walks)]
     return outs if return_state else [o[:2] for o in outs]
+
+
+iterate_ns_stack.syncs = 0
 
 
 def anderson_phase(chunk, check, aa: int, check_every: int, w, z, y,
@@ -1335,21 +1522,21 @@ def solve_ns(data: QPData, settings: NSSettings = NSSettings(),
 
 
 def solve_ns_batched(data: QPData, settings: NSSettings = NSSettings(),
-                     device=None):
+                     prep_chunk: int = 4, device=None):
     """Solve a stack of batch QPs (a leading axis on every leaf) on
-    ``device`` (None = the card): each problem prepared alone (prepare_ns),
-    then all iterated as one stack (iterate_ns_stack: on its stack route
-    each chunk is one launch for every running problem), each stopping on
-    its own residuals, so a problem's result does not depend on the stack.
-    Returns (x [L, B, 3, D], SolveInfo of [L] tensors)."""
-    from .admm import _tree_map
-
+    ``device`` (None = the card), as the JAX package's solve_ns_batched:
+    the problems prepared ``prep_chunk`` at a time (prepare_ns_stack),
+    then all iterated as one stack (iterate_ns_stack: on its stack routes
+    each chunk is one launch, or one batched dense product an iteration,
+    for every running problem), each stopping on its own residuals, so a
+    problem's result does not depend on the stack.  Returns (x [L, B, 3,
+    D], SolveInfo of [L] tensors)."""
     data = _on(device, data)
     with torch.no_grad():
         datas = [_tree_map(lambda a: a[i], data)
                  for i in range(data.lb.shape[0])]
         return stack_solves(iterate_ns_stack(
-            datas, [prepare_ns(d, settings) for d in datas], settings))
+            datas, prepare_ns_stack(data, settings, prep_chunk), settings))
 
 
 def stack_solves(outs):

@@ -319,20 +319,31 @@ def stack_in_turns(variants: dict, reps: int, dev, problem,
     prep = [ns.cold_chunk_inputs(*chip_smoke.on_device(
         g, ns.prepare_ns_np(g, s), dev, torch.float32), s) for g in groups]
     sops = nsfused.stack_operands([p[0] for p in prep])
-    w, z, y = (list(v) for v in zip(*(p[1] for p in prep)))
-    a = (list(range(G)), [0] * G, s.sigma, s.alpha, w, z, y,
-         chip_smoke.N_INNER)
-    want = nsfused.nsfused_stack_reference(sops, *a)
+    # the state as [G, ...] tensors, or one state a group for a checkout
+    # whose nsfused_stack takes lists (before STACK_STATE_AXIS)
+    state = ns.stack_states([p[1] for p in prep])
+    lists = tuple(list(v) for v in zip(*(p[1] for p in prep)))
+
+    def a(mod):
+        return (list(range(G)), [0] * G, s.sigma, s.alpha,
+                *(state if getattr(mod, "STACK_STATE_AXIS", False)
+                  else lists), chip_smoke.N_INNER)
+
+    def rows(got, g):
+        if isinstance(got[0], torch.Tensor):
+            return ns.entry_state(got, g)
+        return got[0][g], got[1][g], got[2][g]
+
+    want = nsfused.nsfused_stack_reference(sops, *a(nsfused))
 
     def err(got):
-        return max(max(nsfused.state_errors(
-            (got[0][g], got[1][g], got[2][g]),
-            (want[0][g], want[1][g], want[2][g]))) for g in range(G))
+        return max(max(nsfused.state_errors(rows(got, g), rows(want, g)))
+                   for g in range(G))
 
-    calls = {v: functools.partial(mods[1].nsfused_stack, sops, *a)
+    calls = {v: functools.partial(mods[1].nsfused_stack, sops, *a(mods[1]))
              for v, mods in variants.items()}
     calls["this, float32 state"] = functools.partial(
-        nsfused.nsfused_stack, sops, *a,
+        nsfused.nsfused_stack, sops, *a(nsfused),
         _lib=nsfused.stack_variant("stack_state_f32"), _state=torch.float32)
     out["groups"] = G
     out["dims"] = {k: sops.dims[k] for k in ("B", "M", "Mi", "bs", "P", "D")}
@@ -342,7 +353,7 @@ def stack_in_turns(variants: dict, reps: int, dev, problem,
         f"{v} {e['ms']} ms (err {e['err']:.1e})" for v, e in res.items()))
     prof = nsfused.stack_variant("stack_profile")
     ms = float(np.median(event_ms(lambda: nsfused.nsfused_stack(
-        sops, *a, _lib=prof), max(1, reps // 4))))
+        sops, *a(nsfused), _lib=prof), max(1, reps // 4))))
     names, cyc = nsfused.stack_stamps(prof)
     used = cyc[cyc[:, -1] > 0]
     shares = used[:, :-1] / used[:, -1:].astype(float)

@@ -2,7 +2,7 @@
 
     python3 -m swarm_simulator_tpu_torch.tools.profile_solve [--seed 0]
         [--refine | --sharded | --scatter AGENTS | --seqbatch MODE
-         | --routes AGENTS]
+         | --routes AGENTS | --stack {banded,dense} [--trace]]
 
 Run from the repository root (it takes the problem from chip_smoke.py).
 Builds the problem and its rung inventory once, runs the production
@@ -45,8 +45,25 @@ float32 twin and with a float64 twin in the kernel's place: the
 objective, the objective of each batch of 4 agents, the rung and the
 residuals after every chunk (the rung walk), each kernel route's error
 against its float64 twin beside its float32 twin's (thomas.twin_gap_use,
-the twin rule), and the first chunk where two runs' rungs part.  The JSON
-is the last line of stdout.
+the twin rule), and the first chunk where two runs' rungs part.  With
+``--stack MODE``: no profile; chip_smoke.py phase 20's knot-state Jacobi
+sweep (the 64-agent forest's 16 groups of 4, two rounds, banded in
+float32 or dense in float64) once to warm up, once timed, then once split
+by part: each call of the functions below timed on the host clock with a
+device sync at both ends (a call inside another timed call counts in the
+outer one), so the parts and the rest add up to the split run's wall
+time, which the syncs stretch a little: the preps (prepare_ns_stack, or
+prepare_ns an entry), the stack operands (the cold states, the kernel's
+and the plain parts' stacked operands, the rung walks' set-up), the
+chunks (nsfused_stack launches, _dense_stack_chunk, or admm_steps of a
+per-entry loop), the residual pass (RungWalk.test), the rung walk
+(RungWalk.step), refresh and write-back (refresh_from_dummy,
+RungWalk.finish, stack_solves); the rest (the loop itself, the host
+syncs' reads, the dummy's write-back) is the remainder.  It names only
+functions that earlier checkouts have too, so a copy of this file over
+an earlier checkout's splits that checkout's sweep.  ``--trace`` adds a
+sweep under torch.profiler (device activity only) for the device time
+and the card's busy share.  The JSON is the last line of stdout.
 """
 from __future__ import annotations
 
@@ -82,6 +99,12 @@ def main() -> int:
                       choices=["gauss-seidel", "jacobi", "default"],
                       help="profile the sequential-batch ADMM solve in "
                            "this mode of chip_smoke.SEQ_RUNS")
+    mode.add_argument("--stack", choices=["banded", "dense"],
+                      help="split phase 20's knot-state Jacobi sweep in "
+                           "this KKT mode by part")
+    ap.add_argument("--trace", action="store_true",
+                    help="with --stack: one more sweep under torch.profiler "
+                         "for the device time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_solve: needs a CUDA card", file=sys.stderr)
@@ -92,6 +115,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     if args.routes:
         return routes(args.routes, dev)
+    if args.stack:
+        return stack_split(args.stack, args.seed, args.trace, dev)
     if args.scatter:
         from swarm_simulator_tpu_torch.tools import budget256_study as bud
 
@@ -231,6 +256,108 @@ def routes(agents: int, dev) -> int:
     b2 = np.asarray(runs["K2", "kernel"]["batches"])
     print("per batch of 4, K1 / K2 route (kernels): " + " ".join(
         f"{u:.4f}/{v:.4f}" for u, v in zip(b1, b2)), flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def stack_split(mode: str, seed: int, trace: bool, dev) -> int:
+    """--stack: phase 20's sweep in ``mode`` timed, then split by part;
+    prints a line of the split and the JSON summary."""
+    import functools
+    import json
+    from unittest import mock
+
+    import numpy as np
+
+    import chip_smoke
+    from swarm_simulator_tpu_torch.ops import nsfused
+    from swarm_simulator_tpu_torch.parallel import mesh
+    from swarm_simulator_tpu_torch.qp import assemble, nullspace as ns
+    from swarm_simulator_tpu_torch.tools._timing import card
+
+    plan, mission, param, _ = chip_smoke.build_problem(seed)
+    stacked, dummy = chip_smoke.jacobi_stack(plan, mission, param)
+    dtype = np.float32 if mode == "banded" else np.float64
+    data = dataclasses.replace(stacked, **{
+        f.name: np.asarray(getattr(stacked, f.name), dtype)
+        for f in dataclasses.fields(stacked)
+        if np.asarray(getattr(stacked, f.name)).dtype.kind == "f"})
+    s = ns.NSSettings(kkt_mode=mode, tighten=chip_smoke.JACOBI_TIGHTEN)
+
+    def sweep():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, info = mesh.jacobi_sweep(data, dummy.astype(dtype), s, rounds=2,
+                                    device=dev)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, info.iters.tolist()
+
+    first_s, _ = sweep()
+    syncs = getattr(ns.iterate_ns_stack, "syncs", None)
+    plain_s, iters = sweep()
+    if syncs is not None:
+        syncs = ns.iterate_ns_stack.syncs - syncs
+    parts = {
+        "preps": [(ns, "prepare_ns_stack"), (ns, "prepare_ns")],
+        "stack operands": [(ns, "_cold_state"), (ns, "cold_chunk_inputs"),
+                           (ns, "stack_parts"), (ns, "stack_states"),
+                           (nsfused, "build_operands"),
+                           (nsfused, "stack_operands"),
+                           (ns.RungWalk, "__init__")],
+        "chunks": [(nsfused, "nsfused_stack"), (ns, "_dense_stack_chunk"),
+                   (ns, "admm_steps")],
+        "residual pass": [(ns.RungWalk, "test")],
+        "rung walk": [(ns.RungWalk, "step")],
+        "refresh and write-back": [(assemble, "refresh_from_dummy"),
+                                   (ns.RungWalk, "finish"),
+                                   (ns, "stack_solves")]}
+    acc = {p: [0.0, 0] for p in parts}
+    depth = [0]
+
+    def timed(part, fn):
+        @functools.wraps(fn)
+        def run(*a, **kw):
+            if depth[0]:
+                return fn(*a, **kw)
+            depth[0] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                acc[part][0] += time.perf_counter() - t0
+                acc[part][1] += 1
+                depth[0] -= 1
+        return run
+
+    with contextlib.ExitStack() as stack:
+        for part, names in parts.items():
+            for owner, name in names:
+                if name in vars(owner):
+                    stack.enter_context(mock.patch.object(
+                        owner, name, timed(part, getattr(owner, name))))
+        split_s, _ = sweep()
+    split = {p: {"s": v[0], "calls": v[1]} for p, v in acc.items()}
+    rest = split_s - sum(v[0] for v in acc.values())
+    out = {"card": card(), "mode": mode, "dtype": np.dtype(dtype).name,
+           "first_s": first_s, "sweep_s": plain_s, "split_sweep_s": split_s,
+           "last_round_iters": iters, "stack_loop_syncs": syncs,
+           "split": split, "rest_s": rest}
+    if trace:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            traced_s, _ = sweep()
+        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA)
+        out.update(traced_sweep_s=traced_s, device_s=dev_us / 1e6,
+                   device_busy=dev_us / 1e6 / traced_s)
+    print(f"stack sweep {mode} ({out['card']}): first {first_s:.3f} s, "
+          f"timed {plain_s:.3f} s, split run {split_s:.3f} s = " + ", ".join(
+              f"{p} {v['s']:.3f} s ({v['calls']} calls)"
+              for p, v in split.items()) + f", rest {rest:.3f} s"
+          + (f"; device {out['device_s']:.3f} s, busy "
+             f"{100 * out['device_busy']:.1f}% of {out['traced_sweep_s']:.3f}"
+             " s" if trace else ""), flush=True)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -828,9 +828,16 @@ def test_stack_kernel_matches_twins_on_cuda():
                            for v in op.to(dev)))
             prep.append(ns_.cold_chunk_inputs(d, o, s))
         inputs[dtype] = (nsfused.stack_operands([p[0] for p in prep]),
-                         *(list(v) for v in zip(*(p[1] for p in prep))))
-    sops, w, z, y = inputs[torch.float32]
-    sops64, w64, z64, y64 = inputs[torch.float64]
+                         ns_.stack_states([p[1] for p in prep]))
+    sops, state = inputs[torch.float32]
+    sops64, state64 = inputs[torch.float64]
+    w, z, y = state
+    w64, z64, y64 = state64
+
+    def rows(out, g):
+        wg, zg, yg = ns_.entry_state(out, g)
+        return (wg, *zg, *yg)
+
     R = sops.dinv.shape[1]
     k64, t64 = [[], []], [[], []]
     for rungs in ([0, 0], [R - 1, R - 1], [1, R - 2]):
@@ -844,18 +851,16 @@ def test_stack_kernel_matches_twins_on_cuda():
                                               s.sigma, s.alpha, w64, z64,
                                               y64, N_INNER)
         for g in range(2):
-            kg = (kern[0][g], kern[1][g], kern[2][g])
-            assert all(torch.isfinite(t).all()
-                       for t in (kg[0], *kg[1], *kg[2]))
-            rg = (ref[0][g], ref[1][g], ref[2][g])
+            kg = ns_.entry_state(kern, g)
+            assert all(torch.isfinite(t).all() for t in rows(kern, g))
+            rg = ns_.entry_state(ref, g)
             k64[g].append(nsfused.state_errors(kg, rg))
-            t64[g].append(nsfused.state_errors(
-                (twin[0][g], twin[1][g], twin[2][g]), rg))
+            t64[g].append(nsfused.state_errors(ns_.entry_state(twin, g),
+                                               rg))
         alone = nsfused.nsfused_stack(
             nsfused.stack_operands([sops.entries[1]]), [0], rungs[1:],
-            s.sigma, s.alpha, w[1:], z[1:], y[1:], N_INNER)
-        for a, b in zip((kern[0][1], *kern[1][1], *kern[2][1]),
-                        (alone[0][0], *alone[1][0], *alone[2][0])):
+            s.sigma, s.alpha, *ns_.entry_state(state, slice(1, 2)), N_INNER)
+        for a, b in zip(rows(kern, 1), rows(alone, 0)):
             assert torch.equal(a, b)
     for g in range(2):
         use = nsfused.twin_gap_use(k64[g], t64[g])
@@ -865,19 +870,17 @@ def test_stack_kernel_matches_twins_on_cuda():
     e0, e1 = sops.entries
     three = nsfused.nsfused_stack(
         nsfused.stack_operands([e0, e1, e0]), [0, 1, 2], [1, R - 1, 1],
-        s.sigma, s.alpha, [w[0], w[1], w[0]], [z[0], z[1], z[0]],
-        [y[0], y[1], y[0]], N_INNER)
+        s.sigma, s.alpha, *ns_.entry_state(state, [0, 1, 0]), N_INNER)
     pair = nsfused.nsfused_stack(sops, [0, 1], [1, R - 1], s.sigma, s.alpha,
                                  w, z, y, N_INNER)
     for g, h in ((0, 2), (0, 0), (1, 1)):
-        got = (three[0][g], *three[1][g], *three[2][g])
-        want = (three[0][h], *three[1][h], *three[2][h]) if g != h else \
-            (pair[0][g], *pair[1][g], *pair[2][g])
-        for a, b in zip(got, want):
+        want = rows(three, h) if g != h else rows(pair, g)
+        for a, b in zip(rows(three, g), want):
             assert torch.equal(a, b), (g, h)
     one = nsfused.nsfused_stack(sops, [1], [0, 0], s.sigma, s.alpha, w, z,
                                 y, N_INNER)
-    assert one[0][0] is w[0] and one[1][0] is z[0] and one[2][0] is y[0]
+    for a, b in zip(rows(one, 0), rows(state, 0)):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="float32"):
         nsfused.nsfused_stack(sops, [0], [0, 0], s.sigma, s.alpha, w64, z64,
                               y64, N_INNER)
