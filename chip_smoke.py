@@ -2050,6 +2050,7 @@ def jacobi_knot_state(plan, mission, param, dev) -> dict:
     from swarm_simulator_tpu_torch.ops import nsfused, thomas
     from swarm_simulator_tpu_torch.parallel import mesh
     from swarm_simulator_tpu_torch.qp import nullspace as ns
+    from swarm_simulator_tpu_torch.utils import timing
 
     stacked, dummy = jacobi_stack(plan, mission, param)
 
@@ -2079,17 +2080,17 @@ def jacobi_knot_state(plan, mission, param, dev) -> dict:
             return loop(*a, **kw)
 
         reset_counts()
-        syncs = ns.iterate_ns_stack.syncs
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with mock.patch.object(ns, "prepare_ns_stack", timed_prep), \
-                mock.patch.object(ns, "_iterate_ns", counted_loop):
+                mock.patch.object(ns, "_iterate_ns", counted_loop), \
+                timing.recording() as rec:
             ctrl, info = mesh.jacobi_sweep(st, dummy.astype(dtype), s,
                                            rounds=2, device=dev)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = read_counts()
-        syncs = ns.iterate_ns_stack.syncs - syncs
+        syncs = rec.counters.get("solve.syncs", 0)
         m = plan_metrics(plan, mission, param,
                          ctrl.double().cpu().numpy(), dev)
         ref = JAX_CPU_JACOBI64[mode, np.dtype(dtype).name]

@@ -33,6 +33,7 @@ import torch.distributed as dist
 
 from ..core.device import pin_ieee_fp32, resolve_device
 from ..qp import admm, assemble
+from ..utils import timing
 from . import distributed as pd
 
 
@@ -286,39 +287,48 @@ def stacked_sweep(stacked: assemble.QPData, scen: torch.Tensor,
                                    x0=fresh.x0)
 
     with torch.no_grad():
-        if is_ns:
-            def pick(tree, g):
-                return admm._tree_map(lambda a: a[g], tree)
-
-            ops = nullspace.prepare_ns_stack(stacked, settings, kkt_chunk)
-            states = None
-        else:
-            sdatas, scals, kops = admm._prepare_stack(stacked, settings,
-                                                      kkt_chunk)
-            state = None
-        for r in range(rounds):
-            s_round = schedule(r)
-            d = refresh(ext[:S * N])
+        with timing.span("sweep.prepare"):
             if is_ns:
-                outs = nullspace.iterate_ns_stack(
-                    [pick(d, g) for g in range(G)], ops, s_round,
-                    inits=states, return_state=True)
-                xs, info = nullspace.stack_solves(outs)
-                if carry_state:
-                    states = [o[2] for o in outs]
+                def pick(tree, g):
+                    return admm._tree_map(lambda a: a[g], tree)
+
+                ops = nullspace.prepare_ns_stack(stacked, settings,
+                                                 kkt_chunk)
+                states = None
             else:
-                xs, info, st = admm._iterate(
-                    d, _with_refreshed(sdatas, d, scals), scals, kops,
-                    s_round, init=state, return_state=True)
-                if carry_state:
-                    state = st
-            # xs [G, B, 3, D] -> control points [G * B, M, npp, 3]
-            B = xs.shape[1]
-            ctrl = xs.permute(0, 1, 3, 2).reshape(G * B, M, npp, 3)
-            if batch_group is not None:
-                ctrl = pd.all_gather_tiled(ctrl, batch_group)
-            ext = ext.clone()
-            ext[dst] = ctrl.to(ext.dtype)
+                sdatas, scals, kops = admm._prepare_stack(stacked, settings,
+                                                          kkt_chunk)
+                state = None
+        if timing.active():
+            # the stack's operands on the device: the problems and their
+            # KKT operators (and, on the ADMM, the scaled copy and Scal)
+            timing.count("stack.bytes", timing.storage_bytes(
+                stacked, *((ops,) if is_ns else (sdatas, scals, kops))))
+        for r in range(rounds):
+            with timing.span("sweep.round", round=r):
+                s_round = schedule(r)
+                d = refresh(ext[:S * N])
+                if is_ns:
+                    outs = nullspace.iterate_ns_stack(
+                        [pick(d, g) for g in range(G)], ops, s_round,
+                        inits=states, return_state=True)
+                    xs, info = nullspace.stack_solves(outs)
+                    if carry_state:
+                        states = [o[2] for o in outs]
+                else:
+                    xs, info, st = admm._iterate(
+                        d, _with_refreshed(sdatas, d, scals), scals, kops,
+                        s_round, init=state, return_state=True,
+                        count_bytes=r == 0)
+                    if carry_state:
+                        state = st
+                # xs [G, B, 3, D] -> control points [G * B, M, npp, 3]
+                B = xs.shape[1]
+                ctrl = xs.permute(0, 1, 3, 2).reshape(G * B, M, npp, 3)
+                if batch_group is not None:
+                    ctrl = pd.all_gather_tiled(ctrl, batch_group)
+                ext = ext.clone()
+                ext[dst] = ctrl.to(ext.dtype)
     return ext[:S * N].reshape(S, N, M, npp, 3), info
 
 

@@ -30,6 +30,7 @@ from ..core.types import Mission, Param, PlanResult
 from ..corridor.times import build_corridors
 from ..qp import admm, assemble, convert
 from ..search.planner import plan_initial_trajectories
+from ..utils import timing
 from ..world.esdf import ESDF
 from ..world.voxel import OccupancyGrid
 from . import seqbatch
@@ -45,31 +46,40 @@ class Scenario:
     times: dict | None = None
 
 
-def _prep_one(sc: Scenario, param: Param) -> Scenario:
+def _prep_one(sc: Scenario, param: Param, submitted: float) -> Scenario:
     """ESDF, initial paths and corridors of one scenario; an exception is
-    kept as the scenario's error string."""
+    kept as the scenario's error string.  ``submitted``: the host time the
+    scenario was handed to the pool (the ``wait_s`` of its span)."""
     times = {}
+    t0 = time.perf_counter()
     try:
-        t0 = time.perf_counter()
         esdf = ESDF(sc.world, max_dist=param.esdf_max_dist)
         t1 = time.perf_counter()
+        timing.add_span("prep.esdf", t0, t1)
         plan = plan_initial_trajectories(esdf, sc.mission, param)
         t2 = time.perf_counter()
+        timing.add_span("prep.search", t1, t2)
         build_corridors(esdf, plan, sc.mission.radius, param)
         t3 = time.perf_counter()
+        timing.add_span("prep.corridor", t2, t3)
         times = {"esdf": t1 - t0, "search": t2 - t1, "corridor": t3 - t2}
         sc.plan = plan
     except Exception as e:
         sc.error = f"{type(e).__name__}: {e}"
     sc.times = times
+    timing.add_span("mc.prep_map", t0, time.perf_counter(),
+                    wait_s=t0 - submitted)
     return sc
 
 
 def prep_scenarios(scenarios: list[Scenario], param: Param,
                    max_workers: int = 8) -> list[Scenario]:
     """ESDF + initial paths + corridors for every scenario, in threads."""
-    with ThreadPoolExecutor(max_workers=max_workers) as pool:
-        return list(pool.map(lambda sc: _prep_one(sc, param), scenarios))
+    with ThreadPoolExecutor(max_workers=max_workers) as pool, \
+            timing.span("mc.prep"):
+        submitted = time.perf_counter()
+        return list(pool.map(lambda sc: _prep_one(sc, param, submitted),
+                             scenarios))
 
 
 #: segment-count quantum for scenario bucketing: every plan's M is padded
@@ -163,18 +173,22 @@ def _solve_stack(scenarios: list[Scenario], idxs: list[int], param: Param,
                           device=device)
     scen = torch.arange(len(idxs), device=device).repeat_interleave(L)
     t1 = time.perf_counter()
+    timing.add_span("mc.assemble", t0, t1)
     ctrls, info = pmesh.stacked_sweep(stacked, scen, dm0, settings,
                                       rounds=rounds)
-    ctrls = ctrls.cpu().numpy().astype(np.float64)
-    t2 = time.perf_counter()
-    iters = torch.as_tensor(info.iters).reshape(len(idxs), L).tolist()
-    for row, i in enumerate(idxs):
-        plan = scenarios[i].plan
-        plan.ctrl = ctrls[row]
-        plan.coef = convert.ctrl_to_coef(ctrls[row], plan.T, param.n)
-        plan.solver_info = {"mode": mode, "M": M, "rounds": rounds,
-                            "iters": iters[row], "stack": len(idxs),
-                            "assemble_s": t1 - t0, "solve_s": t2 - t1}
+    with timing.span("mc.readback"):
+        ctrls = ctrls.cpu().numpy().astype(np.float64)
+        t2 = time.perf_counter()
+        iters = torch.as_tensor(info.iters).reshape(len(idxs), L).tolist()
+        # the two reads above each waited on the card
+        timing.count("solve.syncs", 2)
+        for row, i in enumerate(idxs):
+            plan = scenarios[i].plan
+            plan.ctrl = ctrls[row]
+            plan.coef = convert.ctrl_to_coef(ctrls[row], plan.T, param.n)
+            plan.solver_info = {"mode": mode, "M": M, "rounds": rounds,
+                                "iters": iters[row], "stack": len(idxs),
+                                "assemble_s": t1 - t0, "solve_s": t2 - t1}
 
 
 def solve_scenarios(scenarios: list[Scenario], param: Param,
@@ -231,14 +245,16 @@ def run_monte_carlo(mission: Mission, param: Param, *, n_scenarios: int,
     fk = dict(obs_num=20, r_min=0.3, r_max=0.3, h_min=0.0, h_max=2.5,
               margin=0.5)
     fk.update(forest_kwargs or {})
-    scenarios = [
-        Scenario(mission=mission,
-                 world=generate_forest(mission, world_min=param.world_min,
-                                       world_max=param.world_max,
-                                       resolution=param.world_resolution,
-                                       seed=seed0 + i, **fk))
-        for i in range(n_scenarios)
-    ]
+    with timing.span("mc.forest"):
+        scenarios = [
+            Scenario(mission=mission,
+                     world=generate_forest(mission,
+                                           world_min=param.world_min,
+                                           world_max=param.world_max,
+                                           resolution=param.world_resolution,
+                                           seed=seed0 + i, **fk))
+            for i in range(n_scenarios)
+        ]
     if pipeline is None:
         prep_scenarios(scenarios, param)
         return solve_scenarios(scenarios, param, settings, device)
@@ -259,7 +275,8 @@ def _run_pipelined(scenarios: list[Scenario], param: Param, settings,
                      "scenario-pipelined-device")
 
     with ThreadPoolExecutor(max_workers=max_workers) as pool:
-        futs = {pool.submit(_prep_one, sc, param): i
+        submitted = time.perf_counter()
+        futs = {pool.submit(_prep_one, sc, param, submitted): i
                 for i, sc in enumerate(scenarios)}
         for fut in as_completed(futs):
             sc = fut.result()

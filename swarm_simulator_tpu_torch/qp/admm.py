@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core.device import pin_ieee_fp32, resolve_device
+from ..utils import timing
 from .assemble import BIG, QPData
 
 #: the dtype in which the dense KKT inverse is computed, kept and applied,
@@ -378,7 +379,8 @@ def _prepare_stack(data: QPData, s: ADMMSettings, kkt_chunk: int):
 
 
 def _iterate(orig: QPData, data: QPData, scal, op: KKTOperator,
-             s: ADMMSettings, init=None, return_state: bool = False):
+             s: ADMMSettings, init=None, return_state: bool = False,
+             count_bytes: bool = False):
     """Run the ADMM loop on a stack of L problems (a leading axis on every
     leaf of ``orig``, ``data``, ``scal`` and ``op``).
 
@@ -394,7 +396,12 @@ def _iterate(orig: QPData, data: QPData, scal, op: KKTOperator,
     its count, so its result does not depend on what it was stacked with.
     One host sync per check.  The iterations keep z and y as one flat
     vector [L, rows] a problem (eq, box, pair rows end to end), so that
-    each of their elementwise updates is one operation."""
+    each of their elementwise updates is one operation.
+
+    Recorded (utils/timing): a span ``admm.check`` a pass of the loop,
+    ``admm.sync`` its head's wait on the card, the counters
+    ``admm.steps`` and ``solve.syncs``, and with ``count_bytes`` the
+    adaptive ladder's bytes in ``stack.bytes``."""
     L = data.lb.shape[0]
     dt = data.lb.dtype
     dev = data.lb.device
@@ -450,6 +457,8 @@ def _iterate(orig: QPData, data: QPData, scal, op: KKTOperator,
             dtype=dt, device=dev)
         bases = op.base0[:, None] + ladder[:, None, None] * op.base1[:, None]
         base_invs = _spd_inv(bases)  # [L, R, D, D]
+        if count_bytes:
+            timing.count("stack.bytes", bases.nbytes + base_invs.nbytes)
         rows = torch.arange(L, device=dev)
 
         def select(idx):
@@ -505,52 +514,60 @@ def _iterate(orig: QPData, data: QPData, scal, op: KKTOperator,
     done = torch.zeros(L, dtype=torch.bool, device=dev)
     eps_dual_abs = s.eps_abs if s.eps_dual_abs is None else s.eps_dual_abs
     while True:
-        active = (it < s.max_iter) & ~done
-        any_active, all_active = torch.stack(
-            [active.any(), active.all()]).tolist()
-        if not any_active:
-            break
-        if adaptive:
-            rho_s, base, base_inv = select(rho_idx)
-        else:
-            rho_s = rho0
-            base, base_inv = base_fixed
-        rho = rho_s[:, None] * rho_unit
-        coupling_rho = (None if op.coupling is None else
-                        rho_s[:, None, None, None] * op.coupling)
-        state = (x, z, y, x_t)
-        for _ in range(s.check_every):
-            state = admm_step(*state, rho, base, base_inv, coupling_rho)
+        with timing.span("admm.check"):
+            with timing.span("admm.sync"):
+                active = (it < s.max_iter) & ~done
+                any_active, all_active = torch.stack(
+                    [active.any(), active.all()]).tolist()
+            timing.count("solve.syncs")
+            if not any_active:
+                break
+            if adaptive:
+                rho_s, base, base_inv = select(rho_idx)
+            else:
+                rho_s = rho0
+                base, base_inv = base_fixed
+            rho = rho_s[:, None] * rho_unit
+            coupling_rho = (None if op.coupling is None else
+                            rho_s[:, None, None, None] * op.coupling)
+            state = (x, z, y, x_t)
+            for _ in range(s.check_every):
+                state = admm_step(*state, rho, base, base_inv,
+                                  coupling_rho)
+            timing.count("admm.steps", s.check_every)
 
-        r_prim, r_dual, n_prim, n_dual = residuals(*state[:3])
-        eps_prim = s.eps_abs + s.eps_rel * n_prim
-        eps_dual = eps_dual_abs + s.eps_rel * n_dual
-        done_new = (r_prim <= eps_prim) & (r_dual <= eps_dual)
-        rho_idx_new = rho_idx
-        if adaptive:
-            # OSQP adaptive rho: balance normalized residuals, but only
-            # jump when the imbalance exceeds 5x — continuous updates keep
-            # perturbing the fixed point and stall convergence
-            tiny = 1e-10
-            ratio = torch.sqrt(
-                (r_prim / n_prim.clamp(min=tiny))
-                / (r_dual / n_dual.clamp(min=tiny)).clamp(min=tiny))
-            rho_cand = (rho_s * ratio).clamp(s.rho_min, s.rho_max)
-            change = (rho_cand > 5.0 * rho_s) | (rho_cand < rho_s / 5.0)
-            cand_idx = torch.argmin(
-                (ladder.log()[None] - rho_cand.log()[:, None]).abs(), dim=1)
-            rho_idx_new = torch.where(done_new | ~change, rho_idx, cand_idx)
+            r_prim, r_dual, n_prim, n_dual = residuals(*state[:3])
+            eps_prim = s.eps_abs + s.eps_rel * n_prim
+            eps_dual = eps_dual_abs + s.eps_rel * n_dual
+            done_new = (r_prim <= eps_prim) & (r_dual <= eps_dual)
+            rho_idx_new = rho_idx
+            if adaptive:
+                # OSQP adaptive rho: balance normalized residuals, but only
+                # jump when the imbalance exceeds 5x — continuous updates
+                # keep perturbing the fixed point and stall convergence
+                tiny = 1e-10
+                ratio = torch.sqrt(
+                    (r_prim / n_prim.clamp(min=tiny))
+                    / (r_dual / n_dual.clamp(min=tiny)).clamp(min=tiny))
+                rho_cand = (rho_s * ratio).clamp(s.rho_min, s.rho_max)
+                change = ((rho_cand > 5.0 * rho_s)
+                          | (rho_cand < rho_s / 5.0))
+                cand_idx = torch.argmin(
+                    (ladder.log()[None] - rho_cand.log()[:, None]).abs(),
+                    dim=1)
+                rho_idx_new = torch.where(done_new | ~change, rho_idx,
+                                          cand_idx)
 
-        if all_active:
-            x, z, y, x_t = state
-            done, rho_idx = done_new, rho_idx_new
-        else:
-            # a stopped problem keeps its state (the batched while_loop)
-            x, z, y, x_t = (keep(active, n, o)
-                            for n, o in zip(state, (x, z, y, x_t)))
-            done = torch.where(active, done_new, done)
-            rho_idx = torch.where(active, rho_idx_new, rho_idx)
-        it = it + s.check_every * active
+            if all_active:
+                x, z, y, x_t = state
+                done, rho_idx = done_new, rho_idx_new
+            else:
+                # a stopped problem keeps its state (the batched while_loop)
+                x, z, y, x_t = (keep(active, n, o)
+                                for n, o in zip(state, (x, z, y, x_t)))
+                done = torch.where(active, done_new, done)
+                rho_idx = torch.where(active, rho_idx_new, rho_idx)
+            it = it + s.check_every * active
 
     r_prim, r_dual, _, _ = residuals(x, z, y)
     xu = unscale_x(x)

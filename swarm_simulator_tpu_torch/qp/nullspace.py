@@ -63,6 +63,7 @@ import torch
 from ..core import bernstein
 from ..core.device import pin_ieee_fp32, resolve_device
 from ..ops import nsfused, thomas
+from ..utils import timing
 from .admm import PairOp, SolveInfo, _build_coupling, _pair_op, _tree_map
 from .assemble import BIG, KNOT_FACE_GUARD, QPData
 
@@ -1282,8 +1283,8 @@ def iterate_ns_stack(datas, ops, s: NSSettings, inits=None,
     chunk is one ops/nsfused.nsfused_stack launch over the running entries
     ("stack") or _dense_stack_chunk ("dense"), then one batched residual
     pass over the stack (RungWalk over StackParts) and one host sync
-    (counted in ``iterate_ns_stack.syncs``) read every entry's residuals
-    and done flag, and each running entry's rung walk steps on the host (a
+    (the counter ``solve.syncs`` of utils/timing) read every entry's
+    residuals and done flag, and each running entry's rung walk steps on the host (a
     CUDA stack's route is judged by its card's limits); otherwise each
     entry runs _iterate_ns alone.  An entry's result is that of
     _iterate_ns on it alone (bit for bit on the CPU).
@@ -1328,16 +1329,13 @@ def iterate_ns_stack(datas, ops, s: NSSettings, inits=None,
             break
         w, z, y = chunk(run, w, z, y)
         vals = test.test(w, z, y).cpu().numpy()
-        iterate_ns_stack.syncs += 1
+        timing.count("solve.syncs")
         for i in run:
             done[i], rho[i] = walks[i].step(vals[i], rho[i], *fences[i])
             it[i] += s.check_every
     outs = [wk.finish(*entry_state((w, z, y), i), rho[i], it[i])
             for i, wk in enumerate(walks)]
     return outs if return_state else [o[:2] for o in outs]
-
-
-iterate_ns_stack.syncs = 0
 
 
 def anderson_phase(chunk, check, aa: int, check_every: int, w, z, y,

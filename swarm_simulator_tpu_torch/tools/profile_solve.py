@@ -62,8 +62,10 @@ RungWalk.finish, stack_solves); the rest (the loop itself, the host
 syncs' reads, the dummy's write-back) is the remainder.  It names only
 functions that earlier checkouts have too, so a copy of this file over
 an earlier checkout's splits that checkout's sweep.  ``--trace`` adds a
-sweep under torch.profiler (device activity only) for the device time
-and the card's busy share.  The JSON is the last line of stdout.
+sweep under torch.profiler (device activity only) for the device's busy
+time, the union of its operations' intervals (swarmbench/trace.union,
+so overlapping operations count once), and its share of the sweep.  The
+JSON is the last line of stdout.
 """
 from __future__ import annotations
 
@@ -274,6 +276,7 @@ def stack_split(mode: str, seed: int, trace: bool, dev) -> int:
     from swarm_simulator_tpu_torch.parallel import mesh
     from swarm_simulator_tpu_torch.qp import assemble, nullspace as ns
     from swarm_simulator_tpu_torch.tools._timing import card
+    from swarm_simulator_tpu_torch.utils import timing
 
     plan, mission, param, _ = chip_smoke.build_problem(seed)
     stacked, dummy = chip_smoke.jacobi_stack(plan, mission, param)
@@ -293,10 +296,11 @@ def stack_split(mode: str, seed: int, trace: bool, dev) -> int:
         return time.perf_counter() - t0, info.iters.tolist()
 
     first_s, _ = sweep()
-    syncs = getattr(ns.iterate_ns_stack, "syncs", None)
-    plain_s, iters = sweep()
-    if syncs is not None:
-        syncs = ns.iterate_ns_stack.syncs - syncs
+    # the stack loop's host syncs, where the checkout has the recorder
+    recording = getattr(timing, "recording", None)
+    with recording() if recording else contextlib.nullcontext() as rec:
+        plain_s, iters = sweep()
+    syncs = rec.counters.get("solve.syncs", 0) if rec else None
     parts = {
         "preps": [(ns, "prepare_ns_stack"), (ns, "prepare_ns")],
         "stack operands": [(ns, "_cold_state"), (ns, "cold_chunk_inputs"),
@@ -345,12 +349,18 @@ def stack_split(mode: str, seed: int, trace: bool, dev) -> int:
            "last_round_iters": iters, "stack_loop_syncs": syncs,
            "split": split, "rest_s": rest}
     if trace:
+        from swarmbench.trace import union
+
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             traced_s, _ = sweep()
-        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA)
-        out.update(traced_sweep_s=traced_s, device_s=dev_us / 1e6,
-                   device_busy=dev_us / 1e6 / traced_s)
+        # busy: the union of the device operations' intervals, so that
+        # operations which overlap count once
+        busy_ns = sum(b - a for a, b in union([
+            (e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if "cuda" in str(e.device_type()).lower()]))
+        out.update(traced_sweep_s=traced_s, device_s=busy_ns / 1e9,
+                   device_busy=busy_ns / 1e9 / traced_s)
     print(f"stack sweep {mode} ({out['card']}): first {first_s:.3f} s, "
           f"timed {plain_s:.3f} s, split run {split_s:.3f} s = " + ", ".join(
               f"{p} {v['s']:.3f} s ({v['calls']} calls)"

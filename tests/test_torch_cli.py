@@ -8,8 +8,7 @@ Against the JAX package on the same inputs (all host code in both):
   read back to the same leaves and rasterized to the same grid;
 - ``core/config``: every preset equal;
 - ``io/viz``: each plot and the playback GIF written with the same bytes;
-- ``utils/timing``: ProblemSize's counters and text, Timer, scoped_timer,
-  and device_trace writing a profiler trace.
+- ``utils/timing``: ProblemSize's counters and text.
 The port's CLI (``python -m swarm_simulator_tpu_torch.cli.plan``) on a
 mission JSON written from the in-repo 2-agent swap with ``--device cpu``:
 exit 0, the JAX CLI's printed lines, ``--json`` metrics equal to the
@@ -201,7 +200,7 @@ def test_viz_same_bytes(tmp_path):
         assert len(got) > 1000
 
 
-def test_timing_matches_jax(tmp_path):
+def test_timing_matches_jax():
     from swarm_simulator_tpu.utils import timing as tj
     from swarm_simulator_tpu_torch.utils import timing as tt
 
@@ -209,16 +208,6 @@ def test_timing_matches_jax(tmp_path):
         pt, pj = tt.ProblemSize.of_batch(*args), tj.ProblemSize.of_batch(*args)
         assert dataclasses.asdict(pt) == dataclasses.asdict(pj)
         assert str(pt) == str(pj)
-    t = tt.Timer()
-    assert t.stop({"x": [torch.zeros(2)]}) >= 0.0
-    assert t.elapsed_seconds() == t._elapsed
-    msgs = []
-    with tt.scoped_timer("stage", sink=msgs.append):
-        pass
-    assert len(msgs) == 1 and msgs[0].startswith("stage: ")
-    with tt.device_trace(str(tmp_path / "trace")):
-        torch.ones(8).sum()
-    assert any((tmp_path / "trace").iterdir())
 
 
 def _mission_json(path: Path) -> Path:

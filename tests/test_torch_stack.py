@@ -45,6 +45,7 @@ from swarm_simulator_tpu_torch.ops import nsfused  # noqa: E402
 from swarm_simulator_tpu_torch.parallel import mesh as mesh_t  # noqa: E402
 from swarm_simulator_tpu_torch.qp import admm as admm_t  # noqa: E402
 from swarm_simulator_tpu_torch.qp import nullspace as ns_t  # noqa: E402
+from swarm_simulator_tpu_torch.utils import timing  # noqa: E402
 
 MODES = ["banded", "dense"]
 BANDED = dict(kkt_mode="banded", tighten=2e-3, max_iter=400)
@@ -220,11 +221,11 @@ def test_stopped_entry_is_frozen(groups, spy, mode):
     iterations and, once stopped, in no later chunk while the others run
     on; the loop syncs with the host once a chunk."""
     datas, ops, s = _entries(groups, torch.float64, **_in(mode, STOPS))
-    syncs = ns_t.iterate_ns_stack.syncs
-    got = ns_t.iterate_ns_stack(datas, ops, s, return_state=True)
+    with timing.recording() as rec:
+        got = ns_t.iterate_ns_stack(datas, ops, s, return_state=True)
     iters = [o[1].iters for o in got]
     chunks = _chunks(spy, mode)
-    assert ns_t.iterate_ns_stack.syncs - syncs == len(chunks) \
+    assert rec.counters["solve.syncs"] == len(chunks) \
         == max(iters) // s.check_every
     first = int(np.argmin(iters))
     assert iters[first] < max(iters)
