@@ -143,7 +143,8 @@ def gauss_seidel_sweep(stacked: assemble.QPData, dummy: torch.Tensor,
 
     stacked: the batch QPs on one device, a leading batch axis on every
     leaf (seqbatch._stack_qpdata); dummy [N, M, n+1, 3] on that device.
-    The KKT operators are built ``kkt_chunk`` batches at a time.  Padded
+    The KKT operators are built by admm._prepare_stack (``kkt_chunk``
+    bounds their working set).  Padded
     agents (id >= N) are solved but never written back.
     Returns (dummy [N, M, n+1, 3], SolveInfo of the last round, [L]).
     """

@@ -7,8 +7,8 @@ rbp_planner.hpp:111-206) with a first-order operator-splitting method:
   z+ = clip(alpha Ax+ + (1-alpha) z + y/rho, l, u)
   y+ = y + rho (alpha Ax+ + (1-alpha) z - z+)
 
-where K = P + sigma I + A^T diag(rho) A is formed once per problem from the
-structured blocks and inverted with a single Cholesky (dense mode), after
+where K = P + sigma I + A^T diag(rho) A is inverted once per problem from
+its block-tridiagonal structure, without forming K (dense mode), after
 which every ADMM iteration is one matmul plus elementwise work; or kept as
 the structured operator I (x) base + pair coupling and solved by Jacobi-
 preconditioned CG (cg mode).  A and A^T are never materialized: they are
@@ -240,11 +240,13 @@ def _build_base_parts(data: QPData, s: ADMMSettings):
     return base0, base1
 
 
-def build_kkt_operator(data: QPData, s: ADMMSettings) -> KKTOperator:
-    """The KKT operator of ``data`` (scaled): the dense inverse (Cholesky
-    of K, then cho_solve(K, I)) in KINV_DTYPE, or the cg parts (base0,
-    base1, the unscaled coupling) in the problem's dtype, as the JAX
-    package builds them."""
+def build_kkt_operator(data: QPData, s: ADMMSettings,
+                       kkt_chunk: int | None = None) -> KKTOperator:
+    """The KKT operator of ``data`` (scaled): the dense inverse in
+    KINV_DTYPE (``_block_tridiagonal_inverse``, ``kkt_chunk`` * M problems
+    a pass, all at once for None), or the cg parts (base0, base1, the
+    unscaled coupling) in the problem's dtype, as the JAX package builds
+    them."""
     *lead, M, npp, _ = data.Qseg.shape
     D = M * npp
     B3 = 3 * data.lb.shape[-3]
@@ -257,18 +259,93 @@ def build_kkt_operator(data: QPData, s: ADMMSettings) -> KKTOperator:
     data = _tree_map(
         lambda a: a.to(KINV_DTYPE) if a.is_floating_point() else a, data)
     base0, base1 = _build_base_parts(data, s)
-    coupling = _build_coupling(data)
-    # K[a, d, b, e] = delta_ab base[d, e] + delta_de rho coupling_d[d, a, b]
-    base = base0 + s.rho * base1
-    K = base.new_zeros((*lead, B3, D, B3, D))
-    K.diagonal(dim1=-4, dim2=-2).copy_(base[..., None])
-    coupling_d = (s.rho * coupling).repeat_interleave(npp, dim=-3)
-    K.diagonal(dim1=-3, dim2=-1).add_(coupling_d.movedim(-3, -1))
-    nx = B3 * D
-    K = K.reshape(*lead, nx, nx)
-    chol = torch.linalg.cholesky_ex(K).L
-    Kinv = torch.cholesky_solve(_eye(nx, K).expand_as(K), chol)
-    return KKTOperator(Kinv=Kinv, base0=None, base1=None, coupling=None)
+    base = (base0 + s.rho * base1).reshape(-1, D, D)
+    del base0, base1
+    coupling = (s.rho * _build_coupling(data)).reshape(-1, M, B3, B3)
+    chunk = base.shape[0] if kkt_chunk is None else kkt_chunk * M
+    Kinv = _block_tridiagonal_inverse(base, coupling, npp, chunk)
+    return KKTOperator(Kinv=Kinv.view(*lead, B3 * D, B3 * D), base0=None,
+                       base1=None, coupling=None)
+
+
+def _block_tridiagonal_inverse(base: torch.Tensor, coupling: torch.Tensor,
+                               npp: int, chunk: int) -> torch.Tensor:
+    """K^-1 [L, nx, nx] of K[a, d, b, e] = delta_ab base[d, e] + delta_de
+    coupling[m(d), a, b] (base [L, D, D], coupling [L, M, B3, B3] with rho
+    applied), in base's dtype, without forming K.
+
+    Ordered by segment (row (m, a, j) for d = m * npp + j), K is block
+    tridiagonal in blocks of b = B3 * npp, since base's [npp, npp] segment
+    blocks off the first off-diagonal are zero (Qseg is per segment, and
+    an equality row ties at most two adjacent segments: assemble.
+    build_aeq): A_m = I_B3 (x) base_mm + C_m (x) I_npp on the diagonal,
+    E_m = I_B3 (x) base_(m+1,m) below it.  A
+    block Cholesky (S_0 = A_0; L_m = chol(S_m), F_m = E_m L_m^-T, S_m+1 =
+    A_m+1 - F_m F_m^T) factors it; then, on the permuted identity P
+    (rows by segment, columns in K's own order), the forward pass Y_m =
+    L_m^-1 (P_m - F_m-1 Y_m-1) and the backward pass X_m = L_m^-T (Y_m -
+    F_m^T X_m+1) give the rows of K^-1 segment by segment, each written
+    into (then over) its rows of the one output buffer.  The big products
+    are [b, b] x [b, nx] a problem, through the explicit L_m^-1; ``chunk``
+    problems a pass, each pass holding three [chunk, b, nx] slabs.
+
+    Counted (utils/timing): ``kkt.dense_inverses``, the problems; with a
+    recording in force, ``kkt.not_pd``, the problems of which a block's
+    Cholesky failed (one host sync)."""
+    L, D, _ = base.shape
+    M, B3 = coupling.shape[1:3]
+    b, nx = B3 * npp, B3 * D
+    out = base.new_empty((L, nx, nx))
+    rows = out.view(L, B3, M, npp, nx)  # segment m's rows: [:, :, m]
+    # base's segment blocks (m, m) [L, M, npp, npp], (m + 1, m) [L, M - 1, ...]
+    blocks = base.view(L, M, npp, M, npp)
+    diag = blocks.diagonal(dim1=1, dim2=3).permute(0, 3, 1, 2)
+    below = blocks[:, 1:, :, :-1].diagonal(dim1=1, dim2=3).permute(0, 3, 1, 2)
+    eye = _eye(b, base)
+    bad = torch.zeros(L, dtype=torch.bool, device=base.device)
+    slabs = base.new_empty((3, min(chunk, L), b, nx))
+    for c0 in range(0, L, chunk):
+        c1 = min(c0 + chunk, L)
+        n = c1 - c0
+        Linv, F = [], []
+        for m in range(M):
+            S = base.new_zeros((n, B3, npp, B3, npp))
+            S.diagonal(dim1=1, dim2=3).copy_(diag[c0:c1, m, :, :, None])
+            S.diagonal(dim1=2, dim2=4).add_(coupling[c0:c1, m, :, :, None])
+            S = S.view(n, b, b)
+            if m:
+                S.baddbmm_(F[-1], F[-1].mT, alpha=-1)
+            chol, info = torch.linalg.cholesky_ex(S)
+            bad[c0:c1] |= info != 0
+            Linv.append(torch.linalg.solve_triangular(chol, eye, upper=False))
+            if m + 1 < M:
+                F.append(torch.matmul(
+                    below[c0:c1, m, None],
+                    Linv[m].mT.reshape(n, B3, npp, b)).view(n, b, b))
+        slab = slabs[:, :n]
+        y, y_next = slab[0], slab[1]
+        for m in range(M):
+            if m:
+                torch.bmm(torch.bmm(Linv[m], F[m - 1]).neg_(), y,
+                          out=y_next)
+            else:
+                y_next.zero_()
+            y_next.view(n, b, B3, M, npp)[:, :, :, m].add_(
+                Linv[m].view(n, b, B3, npp))
+            rows[c0:c1, :, m].copy_(y_next.view(n, B3, npp, nx))
+            y, y_next = y_next, y
+        w, x, x_next = slab[2], slab[0], slab[1]
+        for m in reversed(range(M)):
+            w.view(n, B3, npp, nx).copy_(rows[c0:c1, :, m])
+            if m + 1 < M:
+                w.baddbmm_(F[m].mT, x, alpha=-1)
+            torch.bmm(Linv[m].mT, w, out=x_next)
+            rows[c0:c1, :, m].copy_(x_next.view(n, B3, npp, nx))
+            x, x_next = x_next, x
+    timing.count("kkt.dense_inverses", L)
+    if timing.active():
+        timing.count("kkt.not_pd", int(bad.sum()))
+    return out
 
 
 def _spd_inv(A: torch.Tensor) -> torch.Tensor:
@@ -356,7 +433,7 @@ def _tree_map(fn, *trees):
     return type(t0)(*parts) if hasattr(t0, "_fields") else tuple(parts)
 
 
-def _prepare(data: QPData, s: ADMMSettings):
+def _prepare(data: QPData, s: ADMMSettings, kkt_chunk: int | None = None):
     """Per-problem setup: equilibration + the KKT operator (in dense mode
     the inverse: the memory- and FLOP-heavy phase)."""
     from .scaling import equilibrate
@@ -365,13 +442,16 @@ def _prepare(data: QPData, s: ADMMSettings):
         sdata, scal = equilibrate(data)
     else:
         sdata, scal = data, None
-    return sdata, scal, build_kkt_operator(sdata, s)
+    return sdata, scal, build_kkt_operator(sdata, s, kkt_chunk)
 
 
 def _prepare_stack(data: QPData, s: ADMMSettings, kkt_chunk: int):
-    """``_prepare`` of a stack of problems, ``kkt_chunk`` problems at a
-    time, so that the temporaries of the Cholesky and of cho_solve(K, I)
-    (O(nx^2) per problem) never exist for the whole stack at once."""
+    """``_prepare`` of a stack of problems.  Dense: the whole stack at
+    once, its inverses built into one buffer, ``kkt_chunk`` * M problems a
+    pass of the block solves (whose slabs then take the bytes of
+    ``kkt_chunk`` dense K).  cg: ``kkt_chunk`` problems at a time."""
+    if s.kkt_solver != "cg":
+        return _prepare(data, s, kkt_chunk)
     L = data.lb.shape[0]
     parts = [_prepare(_tree_map(lambda a: a[i:i + kkt_chunk], data), s)
              for i in range(0, L, kkt_chunk)]
@@ -602,9 +682,9 @@ def solve_qp_batched(data: QPData, settings: ADMMSettings = ADMMSettings(),
                      kkt_chunk: int = 4, device=None):
     """Solve a stack of QPs: every QPData leaf has a leading batch axis.
 
-    The KKT operators are built ``kkt_chunk`` problems at a time (the
-    cho_solve(K, I) behind a dense inverse allocates O(nx^2) temporaries
-    per problem); the ADMM iterations then run on the whole stack.
+    The KKT operators are built as ``_prepare_stack`` builds them
+    (``kkt_chunk`` bounds their working set); the ADMM iterations then run
+    on the whole stack.
     Returns (x [L, B, 3, D], SolveInfo of [L] tensors)."""
     data = _on_device(data, device)
     return _iterate(data, *_prepare_stack(data, settings, kkt_chunk),

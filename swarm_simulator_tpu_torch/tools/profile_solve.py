@@ -2,7 +2,7 @@
 
     python3 -m swarm_simulator_tpu_torch.tools.profile_solve [--seed 0]
         [--refine | --sharded | --scatter AGENTS | --seqbatch MODE
-         | --routes AGENTS | --stack {banded,dense} [--trace]]
+         | --routes AGENTS | --stack {banded,dense} [--trace] | --kkt]
 
 Run from the repository root (it takes the problem from chip_smoke.py).
 Builds the problem and its rung inventory once, runs the production
@@ -64,8 +64,19 @@ functions that earlier checkouts have too, so a copy of this file over
 an earlier checkout's splits that checkout's sweep.  ``--trace`` adds a
 sweep under torch.profiler (device activity only) for the device's busy
 time, the union of its operations' intervals (swarmbench/trace.union,
-so overlapping operations count once), and its share of the sweep.  The
-JSON is the last line of stdout.
+so overlapping operations count once), and its share of the sweep.  With
+``--kkt``: no profile; the dense KKT prep of the batch ADMM alone
+(qp/admm._prepare_stack, ``kkt_chunk`` 4, as parallel/mesh.stacked_sweep
+calls it) on a swap-shaped stack (``kkt_stack``: 256 problems of 4
+agents over 32 segments, 22 pair rows, float64), timed with CUDA events
+(5 calls after one untimed), with the peak of torch.cuda's allocated
+memory over the calls, the block route's operations and bytes once (its
+inverses written, its problems read) and its bound, max(bytes / 3.35
+TB/s, operations / 67 TFLOP/s float64), and the inverses held to the
+structured K (cg's operator) on random vectors.  It names only functions
+that earlier checkouts have too, so a copy of this file over an earlier
+checkout times that checkout's prep.  The JSON is the last line of
+stdout.
 """
 from __future__ import annotations
 
@@ -104,6 +115,9 @@ def main() -> int:
     mode.add_argument("--stack", choices=["banded", "dense"],
                       help="split phase 20's knot-state Jacobi sweep in "
                            "this KKT mode by part")
+    mode.add_argument("--kkt", action="store_true",
+                      help="time the dense KKT prep of a swap-shaped "
+                           "stack of batch QPs")
     ap.add_argument("--trace", action="store_true",
                     help="with --stack: one more sweep under torch.profiler "
                          "for the device time")
@@ -111,10 +125,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_solve: needs a CUDA card", file=sys.stderr)
         return 2
+    dev = torch.device("cuda", 0)
+    if args.kkt:
+        return kkt_prep(args.seed, dev)
     import chip_smoke
     from swarm_simulator_tpu_torch.qp import joint, nullspace as ns
 
-    dev = torch.device("cuda", 0)
     if args.routes:
         return routes(args.routes, dev)
     if args.stack:
@@ -368,6 +384,109 @@ def stack_split(mode: str, seed: int, trace: bool, dev) -> int:
           + (f"; device {out['device_s']:.3f} s, busy "
              f"{100 * out['device_busy']:.1f}% of {out['traced_sweep_s']:.3f}"
              " s" if trace else ""), flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def kkt_stack(L: int, M: int, B: int, seed: int = 0, device=None,
+              swarm: int = 8):
+    """A stack of ``L`` batch QPs of ``B`` agents of a ``swarm`` over ``M``
+    segments (n 5, phi 3; random durations, boxes and plane normals), as
+    the swap cell's groups are shaped: the batch's pairs two-sided, its
+    pairs with the rest of the swarm one-sided; float64 leaves on
+    ``device``."""
+    import numpy as np
+
+    from swarm_simulator_tpu_torch.core import bernstein
+    from swarm_simulator_tpu_torch.qp import assemble
+
+    rng = np.random.default_rng(seed)
+    n, phi = 5, 3
+    D = M * (n + 1)
+    pairs = [(i, j) for i in range(swarm) for j in range(i + 1, swarm)
+             if i < B]
+    P = len(pairs)
+    bi = np.array([i for i, _ in pairs], np.int32)
+    bj = np.array([j if j < B else -1 for _, j in pairs], np.int32)
+    leaves = {k: [] for k in ("Qseg", "Aeq", "lb", "pair_n", "dt")}
+    for _ in range(L):
+        T = np.concatenate([[0.0], np.cumsum(rng.uniform(0.5, 1.5, M))])
+        dt = np.diff(T)
+        leaves["Qseg"].append(bernstein.derivative_cost_matrix(n, phi)[None]
+                              * (dt ** (1 - 2 * phi))[:, None, None])
+        leaves["Aeq"].append(assemble.build_aeq(T, n, phi))
+        leaves["lb"].append(rng.uniform(-3.0, -1.0, (B, 3, D)))
+        normals = rng.standard_normal((P, M, 3))
+        leaves["pair_n"].append(
+            normals / np.linalg.norm(normals, axis=-1, keepdims=True))
+        leaves["dt"].append(dt)
+    st = {k: np.stack(v) for k, v in leaves.items()}
+    Re = st["Aeq"].shape[1]
+    return assemble.QPData(
+        Qseg=st["Qseg"], Aeq=st["Aeq"],
+        deq=rng.standard_normal((L, B, 3, Re)), lb=st["lb"],
+        ub=st["lb"] + rng.uniform(2.0, 4.0, (L, B, 3, D)),
+        pair_bi=np.tile(bi, (L, 1)), pair_bj=np.tile(bj, (L, 1)),
+        pair_n=st["pair_n"], pair_rhs=rng.uniform(0.2, 0.4, (L, P, D)),
+        pair_mask=np.ones((L, P)), x0=rng.standard_normal((L, B, 3, D)),
+        agents=np.tile(np.arange(B, dtype=np.int32), (L, 1)),
+        pair_qi=np.tile(np.array([i for i, _ in pairs], np.int32), (L, 1)),
+        pair_qj=np.tile(np.array([j for _, j in pairs], np.int32), (L, 1)),
+        pair_rsum=np.full((L, P), 0.24), dt=st["dt"]).to(device)
+
+
+def block_inverse_work(L: int, M: int, B: int, npp: int = 6):
+    """(operations, bytes once) of the block route's L inverses: per
+    segment the S update, Cholesky, L^-1, G and F blocks ([b, b] work, b =
+    3 B npp) and the [b, b] x [b, nx] products (forward from the second
+    segment, backward one or two); the inverses written once and the
+    problems' base and coupling read once, in float64."""
+    b = 3 * B * npp
+    nx = M * b
+    blocks = M * (b ** 3 / 3 + b ** 3) + (M - 1) * (
+        4 * b ** 3 + 2 * b * b * npp)
+    slabs = (3 * M - 2) * 2 * b * b * nx
+    data = (M * npp) ** 2 + M * (3 * B) ** 2
+    return L * (blocks + slabs), 8 * L * (nx * nx + data)
+
+
+def kkt_prep(seed: int, dev, L: int = 256, M: int = 32, B: int = 4) -> int:
+    """--kkt: the dense KKT prep of a swap-shaped stack timed alone; prints
+    a line and the JSON summary."""
+    import json
+
+    from swarm_simulator_tpu_torch.qp import admm
+    from swarm_simulator_tpu_torch.tools._timing import card, event_ms
+
+    data = kkt_stack(L, M, B, seed, dev)
+    s = admm.ADMMSettings(kkt_solver="dense")
+    prep = lambda: admm._prepare_stack(data, s, 4)  # noqa: E731
+    sdata, _, op = prep()
+    # the inverses against the structured K of the same scaled problems
+    parts = admm.build_kkt_operator(
+        sdata, dataclasses.replace(s, kkt_solver="cg"))
+    x = torch.randn((L, B, 3, M * 6), dtype=torch.float64, device=dev,
+                    generator=torch.Generator(dev).manual_seed(seed))
+    kx = admm._kkt_matvec(parts, parts.base0 + s.rho * parts.base1,
+                          s.rho * parts.coupling, x)
+    back = torch.bmm(op.Kinv, kx.reshape(L, -1, 1)).view(x.shape)
+    err = float(((back - x).abs().amax((1, 2, 3))
+                 / x.abs().amax((1, 2, 3))).max())
+    del sdata, op, parts, kx, back
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = event_ms(prep, reps=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    ops, nbytes = block_inverse_work(L, M, B)
+    bound_ms = 1e3 * max(nbytes / 3.35e12, ops / 67e12)
+    out = {"card": card(), "L": L, "M": M, "B": B, "ms": ms,
+           "median_ms": sorted(ms)[len(ms) // 2], "peak_bytes": peak,
+           "operations": ops, "bytes": nbytes, "bound_ms": bound_ms,
+           "max_rel_err": err}
+    print(f"kkt prep ({out['card']}): {out['median_ms']:.2f} ms median of "
+          f"{ms}, peak {peak / 1e9:.3f} GB, bound {bound_ms:.2f} ms "
+          f"({ops:.3e} operations, {nbytes:.3e} bytes), inverses against "
+          f"K on random vectors: {err:.2e}", flush=True)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -38,6 +38,8 @@ WORKER = {"mc.prep_map", "prep.esdf", "prep.search", "prep.corridor"}
 CALLER = {"mc.forest", "mc.prep", "mc.assemble", "sweep.prepare",
           "sweep.round", "admm.check", "admm.sync", "mc.readback"}
 COUNTERS = {"admm.steps", "solve.syncs", "stack.bytes"}
+#: the dense inverses' counters (qp/admm._block_tridiagonal_inverse)
+DENSE_COUNTERS = {"kkt.dense_inverses", "kkt.not_pd"}
 
 
 def _settings(kkt: str) -> admm.ADMMSettings:
@@ -106,11 +108,17 @@ def test_plans_equal_with_the_recorder_on_and_off(runs):
 
 
 def test_every_span_and_counter_on_its_thread_and_nested(runs):
-    _, _, _, _, rec, _ = runs
+    kkt, _, _, _, rec, ops = runs
     me = threading.get_ident()
     names = Counter(s[0] for s in rec.spans)
     assert set(names) == WORKER | CALLER
-    assert set(rec.counters) == COUNTERS
+    if kkt == "dense":
+        assert set(rec.counters) == COUNTERS | DENSE_COUNTERS
+        assert rec.counters["kkt.dense_inverses"] == sum(
+            data.lb.shape[0] for data, _ in ops["prepared"])
+        assert rec.counters["kkt.not_pd"] == 0
+    else:
+        assert set(rec.counters) == COUNTERS
     for name, ident, t0, t1, attrs in rec.spans:
         assert t0 <= t1
         assert (ident != me) == (name in WORKER), name
@@ -167,18 +175,24 @@ def test_steps_and_syncs_match_the_checks(runs):
         start = b[3]
 
 
-def _nbytes(*trees) -> int:
+def _nbytes(*trees, seen=None) -> int:
+    """The bytes of the tensors in ``trees``, a tensor that two leaves
+    hold (a scaled problem keeps its problem's integer leaves) once."""
+    seen = set() if seen is None else seen
     total = 0
     for tree in trees:
         if isinstance(tree, torch.Tensor):
-            total += tree.nbytes
+            if tree.data_ptr() not in seen:
+                seen.add(tree.data_ptr())
+                total += tree.nbytes
         elif tree is None:
             continue
         elif hasattr(tree, "__dataclass_fields__"):
             total += _nbytes(*(getattr(tree, f)
-                               for f in tree.__dataclass_fields__))
+                               for f in tree.__dataclass_fields__),
+                             seen=seen)
         else:
-            total += _nbytes(*tree)
+            total += _nbytes(*tree, seen=seen)
     return total
 
 
