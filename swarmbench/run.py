@@ -76,7 +76,7 @@ def run_cell(man: Manifest, cell_name: str, seed: int, seconds: float,
     the sample (reference/check.py)."""
     import torch
 
-    from . import program, traffic
+    from . import program, roofline, traffic
     from . import trace as trace_mod
     from .reference import check
 
@@ -114,6 +114,7 @@ def run_cell(man: Manifest, cell_name: str, seed: int, seconds: float,
                or len(batches) % blocks):
             s0 = traffic.batch_seed0(seed, len(batches), mix)
             first = len(prog.spans)
+            launched = prog.k1_launches()
             b0 = time.perf_counter()
             scs = prog.plan(s0, n)
             sync()
@@ -126,7 +127,10 @@ def run_cell(man: Manifest, cell_name: str, seed: int, seconds: float,
                 "planned": sum(ok), "stacks": program.stacks(scs),
                 "iters": [list(sc.plan.solver_info["iters"])
                           for sc, good in zip(scs, ok) if good],
-                "errors": [sc.error for sc in scs if sc.error]})
+                "errors": [sc.error for sc in scs if sc.error],
+                "times": [sc.times for sc in scs],
+                "shapes": [prog.shape(sc) for sc in scs],
+                "k1_launches": prog.k1_launches() - launched})
             for i, sc in enumerate(scs):
                 kept[s0 + i] = program.keep(sc)
             del scs
@@ -202,6 +206,10 @@ def run_cell(man: Manifest, cell_name: str, seed: int, seconds: float,
         "solve_s": [b["span"]["solve"] for b in batches],
         "errors": [e for b in batches for e in b["errors"]][:5],
         "judged": picked, "judge_all_s": j1 - j0, "judge_sample_s": j2 - j1,
+        "k1_launches": sum(b["k1_launches"] for b in batches),
+        "k1_in_trace": roofline.k1_in_trace(tr)[0] if tr else None,
+        "time_scaled": sorted(k.get("time_scale", 1.0) for k in kept.values()
+                              if k.get("time_scale", 1.0) != 1.0),
         "numbers": numbers}))
     for k, (v, lim) in compared.items():
         log(f"check {k} {v!r} limit {lim!r} " + ("ok" if v <= lim

@@ -13,6 +13,14 @@ def test_manifest_keeps_its_rules():
     assert problems(DOC) == []
 
 
+def test_every_per_layer_metric_lists_its_cells():
+    """A per-layer metric without a list would be owed by every cell a
+    later PR adds."""
+    cells = {w["name"] for w in DOC["workloads"]}
+    for m in DOC["per_layer"]:
+        assert m.get("workloads") and set(m["workloads"]) <= cells, m
+
+
 def test_top_level_keys():
     assert set(DOC) == {"command", "paths", "run_seconds", "configs",
                         "workloads", "end_to_end", "per_layer"}
@@ -65,7 +73,12 @@ def test_every_cell_finds_its_files(cell):
 
 
 def test_configs_write_out_the_solver_settings_in_full():
+    """Every Param field; the Monte-Carlo entry's ADMM settings in full;
+    the plan entry's none, as it runs the program's own production
+    phases, which its file writes out field by field: a change to them
+    fails here, since the limits were set for these tolerances."""
     from swarm_simulator_tpu_torch.core.types import Param
+    from swarm_simulator_tpu_torch.qp import joint
     from swarm_simulator_tpu_torch.qp.admm import ADMMSettings
     import dataclasses
 
@@ -73,6 +86,14 @@ def test_configs_write_out_the_solver_settings_in_full():
         cfg = json.loads((ROOT / c["file"]).read_text())
         assert set(cfg["param"]) == {f.name for f in
                                      dataclasses.fields(Param)}
-        assert set(cfg["settings"]) == {f.name for f in
-                                        dataclasses.fields(ADMMSettings)}
+        if cfg.get("entry", "monte_carlo") == "plan":
+            assert cfg["settings"] is None
+            assert cfg["phases"]["each"] == [
+                dataclasses.asdict(p) for p in joint.production_phases()]
+            assert cfg["param"]["polish_rounds"] is None
+            assert cfg["phases"]["polish_rounds"] == \
+                joint.polish_rounds_for_swarm(cfg["mission"]["n_agents"])
+        else:
+            assert set(cfg["settings"]) == {f.name for f in
+                                            dataclasses.fields(ADMMSettings)}
         assert cfg["reduced"] == c["reduced"]

@@ -14,7 +14,12 @@ from _tiny import tiny
 from swarmbench import run
 from swarmbench.manifest import HERE, ROOT
 
-CONFIGS = ["forest64_mc", "swap8_mc"]
+CONFIGS = ["forest64_mc", "swap8_mc", "forest64_joint"]
+
+#: the maps a batch of a configuration's tiny cell: the plan entry's
+#: requests each run the whole production solve (900 iterations of K1's
+#: plain twin on the CPU), so it plans one a batch
+MAPS = {"forest64_joint": 1}
 
 
 def _run(man, seconds=0.5, control=None):
@@ -23,9 +28,14 @@ def _run(man, seconds=0.5, control=None):
                         note=lambda *a: None)
 
 
+def _tiny(tmp_path, config, **kw):
+    kw.setdefault("maps", MAPS.get(config, 2))
+    return tiny(tmp_path, config, **kw)
+
+
 @pytest.mark.parametrize("config", CONFIGS)
 def test_a_cell_added_as_data_runs_and_is_correct(tmp_path, config):
-    res = _run(tiny(tmp_path, config))
+    res = _run(_tiny(tmp_path, config))
     assert res["correct"], res["check"]
     assert res["attempted"] >= 2 and res["failed"] == 0
     assert set(res["metrics"]) == {"setup_s", "plans_per_s"}
@@ -36,7 +46,7 @@ def test_a_cell_added_as_data_runs_and_is_correct(tmp_path, config):
 def test_the_control_fails(tmp_path, config):
     """The reference's own plan computed in bfloat16 in the program's
     place breaks a limit."""
-    res = _run(tiny(tmp_path, config), control="bfloat16")
+    res = _run(_tiny(tmp_path, config), control="bfloat16")
     assert not res["correct"]
     assert any(v["value"] > v["limit"] for v in res["check"].values())
 
@@ -48,7 +58,7 @@ def test_a_plan_that_leaves_its_corridor_fails(tmp_path, config, control,
                                                number):
     """The reference's float64 plan with its box rows or its pair planes
     relaxed, in the program's place, breaks that number's limit."""
-    res = _run(tiny(tmp_path, config), control=control)
+    res = _run(_tiny(tmp_path, config), control=control)
     assert not res["correct"]
     assert res["check"][number]["value"] > res["check"][number]["limit"]
 
@@ -81,17 +91,61 @@ def _altered(orig):
     return sweep
 
 
-@pytest.mark.parametrize("fault", ["unchanged", "half", "stack_half",
-                                   "altered"])
-@pytest.mark.parametrize("config", CONFIGS)
-def test_a_broken_program_is_not_correct(tmp_path, monkeypatch, config,
-                                         fault):
-    """Each fault, on 4 maps a batch of which the sample works out 1 again:
-    the solve returning its start, half the batch unsolved, half of each
-    stack left at its dummy, a control point moved 1 cm."""
-    from swarm_simulator_tpu_torch.parallel import mesh, scenarios
+def _x0(data, x):
+    return torch.as_tensor(data.x0).to(device=x.device, dtype=x.dtype)
 
-    if fault == "unchanged":
+
+def _joint_unchanged(orig):
+    """The joint solve returning its warm start."""
+    def solve(data, phases, *a, **kw):
+        x, info = orig(data, phases, *a, **kw)
+        return _x0(data, x), info
+    return solve
+
+
+def _joint_half(orig):
+    """The first half of the swarm's agents left at their warm start."""
+    def solve(data, phases, *a, **kw):
+        x, info = orig(data, phases, *a, **kw)
+        x = x.clone()
+        half = x.shape[0] // 2
+        x[:half] = _x0(data, x)[:half]
+        return x, info
+    return solve
+
+
+def _joint_altered(orig):
+    """One control point of agent 0 moved by 1 cm (segment M // 2, point
+    2 of its n + 1 = 6, z)."""
+    def solve(data, phases, *a, **kw):
+        x, info = orig(data, phases, *a, **kw)
+        x = x.clone()
+        x[0, 2, (x.shape[2] // 6 // 2) * 6 + 2] += 0.01
+        return x, info
+    return solve
+
+
+def _plant(monkeypatch, config, fault):
+    """``fault`` in the solve of ``config``'s entry: the stacked sweep
+    and the scenario solves (Monte-Carlo), or the joint solve and the
+    plan's QP stage (the plan entry)."""
+    from swarm_simulator_tpu_torch.parallel import mesh, scenarios
+    from swarm_simulator_tpu_torch.qp import joint, nullspace
+
+    if config == "forest64_joint":
+        if fault == "half":
+            orig, calls = joint.solve_trajectories, []
+
+            def half(plan, *a, **kw):
+                calls.append(plan)
+                return orig(plan, *a, **kw) if len(calls) % 2 else plan
+            monkeypatch.setattr(joint, "solve_trajectories", half)
+            return
+        planted = {"unchanged": _joint_unchanged, "stack_half": _joint_half,
+                   "altered": _joint_altered}[fault]
+        monkeypatch.setattr(nullspace, "solve_ns_phases",
+                            planted(nullspace.solve_ns_phases))
+    elif fault == "unchanged":
         monkeypatch.setattr(mesh, "stacked_sweep",
                             _unchanged(mesh.stacked_sweep))
     elif fault == "stack_half":
@@ -107,9 +161,21 @@ def test_a_broken_program_is_not_correct(tmp_path, monkeypatch, config,
             orig(scs[:len(scs) // 2], *a, **kw)
             return scs
         monkeypatch.setattr(scenarios, "solve_scenarios", half)
+
+
+@pytest.mark.parametrize("fault", ["unchanged", "half", "stack_half",
+                                   "altered"])
+@pytest.mark.parametrize("config", CONFIGS)
+def test_a_broken_program_is_not_correct(tmp_path, monkeypatch, config,
+                                         fault):
+    """Each fault, on 4 maps a batch (the plan entry: 2 requests) of
+    which the sample works out 1 again: the solve returning its start,
+    half the batch unsolved, half of each stack (the plan entry: of the
+    swarm) left at its dummy, a control point moved 1 cm."""
+    _plant(monkeypatch, config, fault)
     # stack_half: no map in the sample, so the reading of every map's
     # plan has to find it alone
-    res = _run(tiny(tmp_path, config, maps=4,
+    res = _run(tiny(tmp_path, config, maps=2 * MAPS.get(config, 2),
                     check=0 if fault == "stack_half" else 1))
     assert not res["correct"], res["check"]
     if fault in ("unchanged", "stack_half"):
@@ -118,20 +184,27 @@ def test_a_broken_program_is_not_correct(tmp_path, monkeypatch, config,
         assert jd["value"] > jd["limit"]
 
 
-def test_traced_run_reads_the_per_layer_metrics(tmp_path):
-    man = tiny(tmp_path, "swap8_mc")
+@pytest.mark.parametrize("config", ["swap8_mc", "forest64_joint"])
+def test_traced_run_reads_the_per_layer_metrics(tmp_path, config):
+    man = _tiny(tmp_path, config)
     res = run.run_cell(man, "tiny.cell", 5, 0.5, True, "cpu",
                        log=lambda *a: None, note=lambda *a: None)
+    cells = {w["name"] for w in man.doc["workloads"]
+             if w["config"] == config}
     names = {m["name"] for m in json.loads(
-        (ROOT / "BENCHMARK.json").read_text())["per_layer"]}
-    # on the CPU no device is traced: the idle share reads 100, the
-    # gaps are named by the harness's spans
-    assert set(res["metrics"]) == names
-    assert res["metrics"]["device_idle_pct.maps"]["value"] == 100.0
+        (ROOT / "BENCHMARK.json").read_text())["per_layer"]
+        if cells & set(m["workloads"])}
+    # on the CPU no device is traced: the idle share reads 100, K1 runs
+    # its plain twin (no launch, no roofline), the gaps are named by the
+    # harness's spans
+    assert set(res["metrics"]) == names - {"k1_roofline_pct.plan"}
+    idle = [k for k in names if k.startswith("device_idle_pct")]
+    assert [res["metrics"][k]["value"] for k in idle] == [100.0]
     assert res["device"]["window_s"] > 0 and "breakdown" in res
+    spans = {"prep", "solve", "forest", "plan", "search", "corridor",
+             "ns_prep", "ns_solve", "window"}
     assert {g for g, _ in res["breakdown"]["idle_gaps"]} \
-        <= {"idle in swarmbench.prep", "idle in swarmbench.solve",
-            "idle in swarmbench.window"}
+        <= {f"idle in swarmbench.{s}" for s in spans}
 
 
 FORBIDDEN_RUNNER = {"jax", "jaxlib", "flax", "swarm_simulator_tpu"}

@@ -23,6 +23,10 @@ def test_idle_share_and_gaps_on_a_synthetic_timeline():
     assert gaps[2.0] == "idle in swarmbench.prep"      # 4..6
     assert gaps[2.5] == "idle in swarmbench.solve"     # 7..9.5
     assert gaps[0.5] == "idle in swarmbench.solve"     # 0.5..1
+    # every name's launches and seconds inside the window
+    assert s["by_name"]["k3"] == [2, pytest.approx(1.3)]
+    assert s["by_name"]["k5"] == [1, pytest.approx(0.5)]
+    assert set(s["by_name"]) == {"k1", "k2", "k3", "k4", "k5"}
     names = [k for k, _ in s["device_ops"]]
     assert names[0] == "k1" and sum(v for _, v in s["device_ops"]) \
         == pytest.approx(2 + 2 + 1 + 0.3 + 0.5 + 0.5)

@@ -36,7 +36,8 @@ def summarise(device_ops: list[tuple[str, float, float]],
     """device_ops: (name, start, end) of each device operation; ranges:
     (name, start, end) of the harness's ranges, one of them
     "swarmbench.window" (seconds on one clock).  Returns busy_s, window_s,
-    idle_pct and the breakdown's two lists."""
+    idle_pct, the breakdown's two lists and ``by_name``: each device
+    operation's name -> [count, seconds] inside the window, every name."""
     win = [r for r in ranges if r[0] == "swarmbench.window"]
     if not win:
         return {}
@@ -45,11 +46,13 @@ def summarise(device_ops: list[tuple[str, float, float]],
     merged = union(ops)
     busy = sum(b - a for a, b in merged)
     window = hi - lo
-    by_name: dict[str, float] = {}
+    by_name: dict[str, list] = {}
     for name, a, b in device_ops:
         a, b = max(a, lo), min(b, hi)
         if b > a:
-            by_name[name] = by_name.get(name, 0.0) + (b - a)
+            tot = by_name.setdefault(name, [0, 0.0])
+            tot[0] += 1
+            tot[1] += b - a
     gaps, t = [], lo
     for a, b in merged + [(hi, hi)]:
         if a > t:
@@ -68,8 +71,9 @@ def summarise(device_ops: list[tuple[str, float, float]],
     return {
         "busy_s": busy, "window_s": window,
         "idle_pct": 100.0 * (1.0 - busy / window) if window > 0 else None,
-        "device_ops": sorted(([k, v] for k, v in by_name.items()),
+        "device_ops": sorted(([k, v] for k, (_, v) in by_name.items()),
                              key=lambda kv: -kv[1])[:top],
+        "by_name": by_name,
         "idle_gaps": [[f"idle in {host_at((a + b) / 2)}", b - a]
                       for a, b in longest],
     }
